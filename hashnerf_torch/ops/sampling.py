@@ -1,0 +1,86 @@
+"""Ray-march z-value samplers: stratified and hierarchical (inverse-CDF).
+
+Counterpart of hashnerf_tpu/ops/sampling.py (stratified_z_vals,
+perturb_z_vals, sample_pdf). Every random draw can be handed in as a
+tensor (`t_rand=`, `u=`) instead of being drawn from a torch.Generator, so
+tests can feed both packages the same numbers.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+
+def stratified_z_vals(
+    near: torch.Tensor, far: torch.Tensor, N_samples: int, lindisp: bool = False
+) -> torch.Tensor:
+    """Deterministic z-values linear in depth (or inverse depth);
+    near/far (N_rays,) -> (N_rays, N_samples)."""
+    near = near.reshape(-1, 1)
+    far = far.reshape(-1, 1)
+    t_vals = torch.linspace(0.0, 1.0, N_samples, device=near.device, dtype=near.dtype)
+    if not lindisp:
+        return near * (1.0 - t_vals) + far * t_vals
+    return 1.0 / (1.0 / near * (1.0 - t_vals) + 1.0 / far * t_vals)
+
+
+def perturb_z_vals(
+    z_vals: torch.Tensor,
+    t_rand: Optional[torch.Tensor] = None,
+    generator: Optional[torch.Generator] = None,
+) -> torch.Tensor:
+    """Stratified jitter of z-values within their mid-point intervals;
+    t_rand (U[0,1) of z_vals' shape) is drawn from `generator` if not given."""
+    mids = 0.5 * (z_vals[..., 1:] + z_vals[..., :-1])
+    upper = torch.cat([mids, z_vals[..., -1:]], -1)
+    lower = torch.cat([z_vals[..., :1], mids], -1)
+    if t_rand is None:
+        t_rand = torch.rand(
+            z_vals.shape, generator=generator, device=z_vals.device, dtype=z_vals.dtype
+        )
+    return lower + (upper - lower) * t_rand
+
+
+def sample_pdf(
+    bins: torch.Tensor,
+    weights: torch.Tensor,
+    N_samples: int,
+    det: bool = False,
+    u: Optional[torch.Tensor] = None,
+    generator: Optional[torch.Generator] = None,
+) -> torch.Tensor:
+    """Inverse-transform sampling from the piecewise-constant weight PDF.
+
+    bins: (N_rays, M) bin edges; weights: (N_rays, M-1).
+    Returns (N_rays, N_samples). `u` overrides the uniform draws.
+    """
+    weights = weights + 1e-5  # prevent nans
+    pdf = weights / torch.sum(weights, -1, keepdim=True)
+    cdf = torch.cumsum(pdf, -1)
+    cdf = torch.cat([torch.zeros_like(cdf[..., :1]), cdf], -1)  # (N_rays, M)
+
+    if u is None:
+        shape = cdf.shape[:-1] + (N_samples,)
+        if det:
+            u = torch.linspace(0.0, 1.0, N_samples, device=cdf.device, dtype=cdf.dtype)
+            u = u.expand(shape)
+        else:
+            u = torch.rand(shape, generator=generator, device=cdf.device, dtype=cdf.dtype)
+    u = u.contiguous()
+
+    # cdf is non-decreasing, so searchsorted(right=True) equals the count of
+    # cdf entries <= u, as the JAX version computes it.
+    inds = torch.searchsorted(cdf.contiguous(), u, right=True)
+    below = torch.clamp(inds - 1, min=0)
+    above = torch.clamp(inds, max=cdf.shape[-1] - 1)
+
+    cdf_below = torch.gather(cdf, -1, below)
+    cdf_above = torch.gather(cdf, -1, above)
+    bins_below = torch.gather(bins, -1, below)
+    bins_above = torch.gather(bins, -1, above)
+
+    denom = cdf_above - cdf_below
+    denom = torch.where(denom < 1e-5, torch.ones_like(denom), denom)
+    t = (u - cdf_below) / denom
+    return bins_below + t * (bins_above - bins_below)

@@ -1,0 +1,64 @@
+"""The PyTorch port stands alone: no file of hashnerf_torch/ (nor
+chip_smoke.py) imports jax or the JAX package, and importing every module of
+the port loads no jax."""
+import ast
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+torch.set_num_threads(2)
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "hashnerf_tpu"}
+
+
+def _port_files():
+    out = [os.path.join(ROOT, "chip_smoke.py")]
+    for d, _, files in os.walk(os.path.join(ROOT, "hashnerf_torch")):
+        out += [os.path.join(d, f) for f in files if f.endswith(".py")]
+    return sorted(out)
+
+
+def _imported_roots(path):
+    tree = ast.parse(open(path).read(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.module and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+def test_port_files_exist():
+    files = _port_files()
+    assert len(files) > 20
+    assert os.path.join(ROOT, "hashnerf_torch", "kernels", "segment_accum.py") in files
+
+
+@pytest.mark.parametrize("path", _port_files(), ids=lambda p: os.path.relpath(p, ROOT))
+def test_no_jax_or_reference_import(path):
+    bad = sorted(set(_imported_roots(path)) & FORBIDDEN)
+    assert not bad, f"{os.path.relpath(path, ROOT)} imports {bad}"
+
+
+def test_importing_the_port_loads_no_jax():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import hashnerf_torch\n"
+        "mods = [m.name for m in pkgutil.walk_packages(hashnerf_torch.__path__, 'hashnerf_torch.')]\n"
+        "for m in mods: importlib.import_module(m)\n"
+        "import chip_smoke\n"
+        "assert len(mods) > 20, mods\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{sorted(FORBIDDEN)!r})\n"
+        "assert not bad, bad\n"
+        "print('OK', len(mods))\n"
+    )
+    env = dict(os.environ, OMP_NUM_THREADS="2")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.startswith("OK")
