@@ -404,7 +404,7 @@ def phase_main_path(torch, np, profile: bool):
 
         prof = None
         if profile:
-            prof = profile_steps(torch, trainer, 3)
+            prof = profile_steps(torch, trainer, 3, statistics.median(notv_s))
 
         ckpt = os.path.join(workdir, "restore", "{:06d}.ckpt".format(trainer.global_step))
         trainer.save(ckpt)
@@ -456,9 +456,14 @@ def phase_main_path(torch, np, profile: bool):
         shutil.rmtree(workdir, ignore_errors=True)
 
 
-def profile_steps(torch, trainer, n: int):
+def profile_steps(torch, trainer, n: int, step_s: float):
     """torch.profiler over n steps: device time by kernel (device-side
-    events only, so operator ranges are not counted twice), and busy share."""
+    events only, so operator ranges are not counted twice), and busy share.
+
+    The profiler slows the host about twofold, so the busy share of a real
+    step divides the device time per step by `step_s`, the median
+    unprofiled step of the same run; the share of the profiled wall is
+    printed beside it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -479,11 +484,14 @@ def profile_steps(torch, trainer, n: int):
         if dt > 0:
             rows.append((dt, ev.key, ev.count))
     rows.sort(reverse=True)
-    busy_us = sum(r[0] for r in rows)
+    busy_s = sum(r[0] for r in rows) / 1e6 / n
     return {
-        "phase": "profile", "steps": n, "wall_ms": wall * 1e3,
-        "device_busy_ms": busy_us / 1e3,
-        "device_busy_share": busy_us / 1e6 / wall if wall > 0 else None,
+        "phase": "profile", "steps": n,
+        "device_busy_ms_per_step": busy_s * 1e3,
+        "step_ms_unprofiled": step_s * 1e3,
+        "device_busy_share": busy_s / step_s,
+        "step_ms_profiled": wall * 1e3 / n,
+        "device_busy_share_of_profiled_wall": busy_s * n / wall,
         "device_ops_per_step": sum(r[2] for r in rows) / n,
         "top": [{"name": k[:90], "ms_per_step": dt / 1e3 / n, "calls_per_step": c / n}
                 for dt, k, c in rows[:25]],

@@ -29,7 +29,6 @@ class RenderConfig:
     white_bkgd: bool = False
     lindisp: bool = False
     use_viewdirs: bool = True
-    retraw: bool = False
 
     def eval_mode(self) -> "RenderConfig":
         """perturb off, noise off."""
@@ -75,17 +74,16 @@ def render_rays(
     def march(z_vals, noise, fine):
         pts = rays_o[:, None, :] + rays_d[:, None, :] * z_vals[..., None]
         raw = query_fn(state, pts, viewdirs, bbox, fine=fine)
-        out = raw2outputs(
+        return raw2outputs(
             raw, z_vals, rays_d, cfg.raw_noise_std, cfg.white_bkgd,
             noise=noise, generator=generator,
         )
-        return out, raw
 
     z_vals = stratified_z_vals(near, far, cfg.N_samples, cfg.lindisp)
     if cfg.perturb:
         z_vals = perturb_z_vals(z_vals, draws.t_strat, generator)
 
-    out, raw = march(z_vals, draws.noise0, fine=False)
+    out = march(z_vals, draws.noise0, fine=False)
 
     ret = {}
     if cfg.N_importance > 0:
@@ -99,15 +97,13 @@ def render_rays(
             det=not cfg.perturb, u=draws.u_pdf, generator=generator,
         ).detach()
         z_vals, _ = torch.sort(torch.cat([z_vals, z_samples], -1), dim=-1)
-        out, raw = march(z_vals, draws.noise1, fine=True)
+        out = march(z_vals, draws.noise1, fine=True)
         ret["z_std"] = torch.std(z_samples, dim=-1, correction=0)
 
     ret.update(
         rgb_map=out.rgb_map, depth_map=out.depth_map, acc_map=out.acc_map,
         disp_map=out.disp_map, sparsity_loss=out.sparsity_loss,
     )
-    if cfg.retraw:
-        ret["raw"] = raw
     return ret
 
 
@@ -119,23 +115,19 @@ def render(
     K,
     bbox: torch.Tensor,
     cfg: RenderConfig,
+    c2w,
     chunk: int = 1024 * 32,
-    rays=None,
-    c2w=None,
     near: float = 0.0,
     far: float = 1.0,
     generator: Optional[torch.Generator] = None,
 ):
-    """Chunked rendering of a ray batch (rays=(o, d)) or a full image (c2w).
+    """Chunked rendering of the full (H, W) image seen from c2w.
 
     PyTorch runs eagerly, so the chunks are a host loop (the JAX package
     scans them in one program). Runs without autograd. Returns (rgb_map,
-    depth_map, acc_map, extras) shaped like the input ray layout.
+    depth_map, acc_map, extras), each shaped (H, W, ...).
     """
-    if c2w is not None:
-        rays_o, rays_d = get_rays(H, W, K, torch.as_tensor(c2w, device=bbox.device))
-    else:
-        rays_o, rays_d = rays
+    rays_o, rays_d = get_rays(H, W, K, torch.as_tensor(c2w, device=bbox.device))
     sh = rays_d.shape
     viewdirs = None
     if cfg.use_viewdirs:

@@ -213,8 +213,9 @@ def config_parser() -> argparse.ArgumentParser:
                         help="packed fine-level block rows per level "
                         "(-1 = auto: log2_hashmap_size - 3)")
     parser.add_argument("--preset", type=str, default=None,
-                        choices=list(PRESETS),
-                        help="named flag bundle; explicit CLI flags override")
+                        choices=("tpu-fast", "tpu-quality"),
+                        help="named flag bundle of the opt-in execution set "
+                        "(not ported yet: raises, ROADMAP A7)")
     parser.add_argument("--device", type=str, default=None,
                         help="torch device to run on (default: cuda; the "
                         "entry point raises when no GPU is present)")
@@ -263,56 +264,17 @@ def check_supported(args) -> None:
         no(f"render_path video at --i_video {args.i_video} (pass --i_video 0)", "A3")
 
 
-# The JAX package's named flag bundles, spliced before the CLI args (CLI and
-# config override the preset). Every bundle selects the opt-in execution set,
-# so --preset raises in check_supported until ROADMAP A7 ports it.
-PRESETS = {
-    "tpu-fast": [
-        "--n_levels", "4",
-        "--n_features_per_level", "8",
-        "--compute_dtype", "bfloat16",
-        "--use_occupancy",
-        "--occ_keep_fraction", "0.125",
-        "--occ_keep_coarse", "0.375",
-        "--occ_keep_schedule", "0:0.5,512:0.25,1024:0.125",
-        "--occ_block", "8",
-        "--occ_adaptive_update",
-        "--share_fine",
-        "--aabb_clip",
-        "--packed_layout",
-        "--steps_per_dispatch", "16",
-    ],
-    "tpu-quality": [
-        "--n_levels", "8",
-        "--n_features_per_level", "4",
-        "--compute_dtype", "bfloat16",
-        "--use_occupancy",
-        "--occ_keep_fraction", "0.5",
-        "--share_fine",
-        "--packed_layout",
-        "--steps_per_dispatch", "16",
-    ],
-}
-
-
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     """Two-phase parse: pull --config, splice its tokens before CLI args
     (CLI overrides config, matching configargparse precedence)."""
     parser = config_parser()
     pre, _ = parser.parse_known_args(argv)
-    tokens: List[str] = []
-    if pre.preset:
-        tokens += PRESETS[pre.preset]
-    if pre.config:
-        tokens += _parse_config_file(pre.config)
-    if tokens:
-        import sys
+    if not pre.config:
+        return parser.parse_args(argv)
+    import sys
 
-        base = list(argv) if argv is not None else sys.argv[1:]
-        args = parser.parse_args(tokens + base)
-    else:
-        args = parser.parse_args(argv)
-    return args
+    base = list(argv) if argv is not None else sys.argv[1:]
+    return parser.parse_args(_parse_config_file(pre.config) + base)
 
 
 def create_expname(args) -> str:
