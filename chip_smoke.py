@@ -9,24 +9,38 @@ Imports hashnerf_torch (never jax or hashnerf_tpu) and, on one CUDA card:
     kernel of the port from hashnerf_torch/csrc (all nvcc runs at once) and
     prints the build seconds and ptxas' register report;
  2. kernels: holds each CUDA kernel against its plain PyTorch version on the
-    card, on the five cases of tests/test_kernels.py and at the chair shapes
-    of the main path (N = 196,608 points = 1024 rays x 192 samples, L = 16,
-    T = 2^19, F = 2, so M = 25,165,824 table-gradient updates), and times
-    kernel, plain version, library call and the sort with CUDA events;
- 3. main path: trains the reference-exact hash-grid step at the width of
-    configs/chair.txt on the procedural scene (128 x 128, 8 train views)
-    through hashnerf_torch.train.driver.train_loop (40 steps with TV, a
-    checkpoint, a test-set render), times 10 steps with TV and 20 without,
-    saves and restores a checkpoint, renders one test view through the
-    chunked renderer, and checks that every kernel was launched there;
+    card and times kernel, plain version, library call and the sort with
+    CUDA events:
+    - K1, K2, K3 on the five cases of tests/test_kernels.py and at the chair
+      shapes of the reference-exact path (N = 196,608 points = 1024 rays x
+      192 samples, L = 16, T = 2^19, F = 2, so M = 25,165,824 updates);
+    - K4 on the wide case of tests/test_kernels.py, at F = 16 ... 216 into
+      131,072 rows, on one hot row and on a large same-sign sum against a
+      float64 oracle; then at the packed path's shapes (fine and coarse
+      slabs, dense voxel rows, TV rows), beside K1 at F = 8, 16 and 64 and
+      over a range of window sizes;
+    - the packed row-id gate: the dense and fine rows that packed_encode
+      picks for 196,608 points on the card equal those it picks on the CPU;
+ 3. main paths, each at the width of configs/chair.txt on the procedural
+    scene (128 x 128, 8 train views) through
+    hashnerf_torch.train.driver.train_loop (40 steps with TV, a checkpoint,
+    a test-set render), then 10 timed steps with TV and 20 without, a
+    checkpoint restored bit for bit and one test view rendered:
+    - chair: the reference-exact hash-grid step (K1, K2, K3);
+    - packed: the same with --n_levels 4 --n_features_per_level 8
+      --packed_layout --share_fine --compute_dtype bfloat16 --aabb_clip
+      (K1 and K4);
+    the launch counts are set to 0 before each path and read after it, and
+    each kernel of a path must have been launched there;
  4. prints one line {"kernels": [...]} with each kernel's launches on the
-    main path, error, times and bound, and as the last line
+    main paths, error, times and bound, and as the last line
     {"ok": true, "device": {...}}.
 
 Any failed check raises, and the script exits non-zero without the last
 line. It exits non-zero at once when no CUDA device is present or when
 hashnerf_torch cannot be imported (a directory holding only this script).
-`--profile` adds a torch.profiler breakdown of three steps without TV.
+`--profile` adds a torch.profiler breakdown of three steps without TV of
+each path.
 """
 from __future__ import annotations
 
@@ -61,8 +75,16 @@ GEOM_OPS = 36 + 19 + 64
 K2_OPS = GEOM_OPS + 16 * HASH_F
 K3_OPS = GEOM_OPS + 8 * HASH_F + 8
 
+# Packed path (--n_levels 4 --n_features_per_level 8 --packed_layout at the
+# chair widths): 2 dense levels (res 16, 50) and 2 fine levels of 2^16 block
+# rows; a fine slab is 27 * 8 = 216 floats, a dense voxel row 8 * 8 = 64.
+PACKED_FLAGS = ["--n_levels", "4", "--n_features_per_level", "8", "--packed_layout",
+                "--share_fine", "--compute_dtype", "bfloat16", "--aabb_clip"]
+PACKED_L, PACKED_F, PACKED_LOG2_BLOCKS = 4, 8, 16
+N_COARSE = 1024 * 64
+
 KERNEL_INFO = {
-    "segment_accumulate_sorted": {
+    "segment_accumulate_k1": {
         "source": "hashnerf_torch/csrc/segment_accum.cu",
         "replaces": "hashnerf_tpu/kernels/pallas_segment_accum.py:134",
     },
@@ -74,6 +96,15 @@ KERNEL_INFO = {
         "source": "hashnerf_torch/csrc/hash_encode.cu",
         "replaces": "hashnerf_tpu/kernels/hash_encode_vjp.py:82",
     },
+    "segment_accumulate_k4": {
+        "source": "hashnerf_torch/csrc/segment_accum.cu",
+        "replaces": "hashnerf_tpu/kernels/pallas_segment_accum.py:134",
+    },
+}
+# kernels each main path must launch
+PATH_KERNELS = {
+    "chair": ("segment_accumulate_k1", "hash_encode_fwd", "hash_encode_bwd_expand"),
+    "packed": ("segment_accumulate_k1", "segment_accumulate_k4"),
 }
 
 
@@ -153,7 +184,7 @@ def cuda_ms(torch, fn, reps: int = 10, warmup: int = 2) -> float:
 def phase_k1_cases(torch, np):
     """The five cases of tests/test_kernels.py on the card."""
     from hashnerf_torch.kernels.segment_accum import (
-        segment_accumulate_sorted_plain, sorted_segment_accumulate,
+        segment_accumulate_k1, segment_accumulate_sorted_plain, sort_segments,
     )
 
     rng = np.random.default_rng(0)
@@ -161,9 +192,8 @@ def phase_k1_cases(torch, np):
     cases = []
 
     def run(name, idx, vals, T, check):
-        i = torch.as_tensor(idx, device=dev)
-        v = torch.as_tensor(vals, device=dev)
-        got = sorted_segment_accumulate(i, v, T)
+        i, v = sort_segments(torch.as_tensor(idx, device=dev), torch.as_tensor(vals, device=dev))
+        got = segment_accumulate_k1(i, v, T)
         want = segment_accumulate_sorted_plain(i, v, T)
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
@@ -219,7 +249,7 @@ def phase_hash_kernels(torch, np):
         hash_encode_fwd, hash_encode_fwd_plain,
     )
     from hashnerf_torch.kernels.segment_accum import (
-        segment_accumulate_sorted, segment_accumulate_sorted_plain, sort_segments,
+        segment_accumulate_k1, segment_accumulate_sorted_plain, sort_segments,
     )
     from hashnerf_torch.ops.hash_encoding import HashGridConfig, encode_with_resolutions
 
@@ -254,7 +284,7 @@ def phase_hash_kernels(torch, np):
 
     # K1 at the fine-backward shape, on K3's own output
     sidx, svals = sort_segments(flat_idx, vals)
-    d_table = segment_accumulate_sorted(sidx, svals, L * T)
+    d_table = segment_accumulate_k1(sidx, svals, L * T)
     d_plain = segment_accumulate_sorted_plain(sidx, svals, L * T)
     torch.cuda.synchronize()
     k1_err = float((d_table - d_plain).abs().max())
@@ -287,7 +317,7 @@ def phase_hash_kernels(torch, np):
     k3_ms = cuda_ms(torch, lambda: hash_encode_bwd_expand(x, bmin, bmax, res, g, T))
     k3_plain_ms = cuda_ms(
         torch, lambda: hash_encode_bwd_expand_plain(x, bmin, bmax, res, g, T), reps=5)
-    k1_ms = cuda_ms(torch, lambda: segment_accumulate_sorted(sidx, svals, L * T))
+    k1_ms = cuda_ms(torch, lambda: segment_accumulate_k1(sidx, svals, L * T))
     k1_plain_ms = cuda_ms(torch, lambda: segment_accumulate_sorted_plain(sidx, svals, L * T))
     idx64 = flat_idx.to(torch.int64)
     k1_library_ms = cuda_ms(torch, lambda: torch.zeros(
@@ -299,11 +329,11 @@ def phase_hash_kernels(torch, np):
     m_hot = 1 << 20
     hot_idx = torch.full((m_hot,), 12345, dtype=torch.int32, device=dev)
     hot_vals = torch.ones((m_hot, F), device=dev)
-    hot = segment_accumulate_sorted(hot_idx, hot_vals, L * T)
+    hot = segment_accumulate_k1(hot_idx, hot_vals, L * T)
     require(float(hot[12345, 0]) == m_hot and float(hot.abs().sum()) == m_hot * F,
             "K1 hot row: wrong sum")
     hot_rec = {
-        "M": m_hot, "kernel_ms": cuda_ms(torch, lambda: segment_accumulate_sorted(
+        "M": m_hot, "kernel_ms": cuda_ms(torch, lambda: segment_accumulate_k1(
             hot_idx, hot_vals, L * T)),
         "plain_ms": cuda_ms(torch, lambda: segment_accumulate_sorted_plain(
             hot_idx, hot_vals, L * T)),
@@ -331,7 +361,7 @@ def phase_hash_kernels(torch, np):
             "kernel_ms": k3_ms, "plain_ms": k3_plain_ms, "library_ms": None,
             "bound_ms": k3_bound[0], "bound_by": k3_bound[1],
         },
-        "segment_accumulate_sorted": {
+        "segment_accumulate_k1": {
             "shape": {"M": M, "num_rows": L * T, "F": F}, "max_abs_err": k1_err,
             "kernel_ms": k1_ms, "plain_ms": k1_plain_ms, "library_ms": k1_library_ms,
             "library_call": "torch.zeros(num_rows, F).index_add_(0, idx, vals) on unsorted idx",
@@ -345,6 +375,192 @@ def phase_hash_kernels(torch, np):
     del d_table, d_plain, idx64
     torch.cuda.empty_cache()
     return out
+
+
+def seg_bytes(M: int, F: int, rows: int) -> int:
+    """Bytes a segment-sum must move: ids and values read, the table written."""
+    return M * 4 + M * F * 4 + rows * F * 4
+
+
+def phase_k4_cases(torch, np):
+    """K4 against its plain version (index_add_) on the card."""
+    from hashnerf_torch.kernels.segment_accum import (
+        segment_accumulate_k4, segment_accumulate_sorted_plain, sort_segments,
+    )
+
+    dev = DEV
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4)
+    cases = []
+
+    def run(name, idx, vals, T, want=None, rtol=1e-4, atol=1e-5):
+        sidx, svals = sort_segments(idx, vals)
+        got = segment_accumulate_k4(sidx, svals, T)
+        if want is None:
+            want = segment_accumulate_sorted_plain(sidx, svals, T)
+        torch.cuda.synchronize()
+        err = float((got - want.float()).abs().max())
+        ok = bool(torch.allclose(got.double(), want.double(), rtol=rtol, atol=atol))
+        cases.append({"case": name, "M": int(idx.shape[0]), "F": int(vals.shape[1]),
+                      "num_rows": T, "max_abs_err": err, "rtol": rtol, "atol": atol, "ok": ok})
+        require(ok, f"K4 case {name}: max_abs_err {err}")
+
+    # the wide-F case of tests/test_kernels.py
+    rng = np.random.default_rng(0)
+    idx = rng.integers(0, 2048, 4000).astype(np.int32)
+    vals = rng.normal(size=(4000, 8)).astype(np.float32)
+    run("wide_f8", torch.as_tensor(idx, device=dev), torch.as_tensor(vals, device=dev), 2048)
+    # the packed widths, at the fine pass's element and row counts
+    M, T = 2 * N_POINTS, 2 << PACKED_LOG2_BLOCKS
+    for F in (16, 54, 64, 108, 216):
+        idx = torch.randint(0, T, (M,), generator=gen, device=dev, dtype=torch.int32)
+        run(f"f{F}", idx, torch.randn((M, F), generator=gen, device=dev), T)
+    # every update into one row: exact
+    m_hot = 1 << 16
+    hot_idx = torch.full((m_hot,), 12345, dtype=torch.int32, device=dev)
+    hot_vals = torch.ones((m_hot, 216), device=dev)
+    got = segment_accumulate_k4(hot_idx, hot_vals, T)
+    hot_ok = bool((got[12345] == m_hot).all()) and float(got.abs().sum()) == m_hot * 216
+    require(hot_ok, "K4 hot row: wrong sum")
+    hot = {"M": m_hot, "F": 216, "num_rows": T,
+           "kernel_ms": cuda_ms(torch, lambda: segment_accumulate_k4(hot_idx, hot_vals, T)),
+           "plain_ms": cuda_ms(torch, lambda: segment_accumulate_sorted_plain(hot_idx, hot_vals, T))}
+    del hot_idx, hot_vals, got
+    # float64 oracle at rtol 2e-5: same-sign values must not lose small rows
+    M2 = 200_000
+    idx = torch.randint(0, 1024, (M2,), generator=gen, device=dev, dtype=torch.int32)
+    vals = torch.rand((M2, 216), generator=gen, device=dev) + 0.5
+    oracle = torch.zeros((1024, 216), dtype=torch.float64, device=dev).index_add_(
+        0, idx.long(), vals.double())
+    run("large_m_same_sign_f216", idx, vals, 1024, want=oracle, rtol=2e-5, atol=0.0)
+    torch.cuda.synchronize()
+    emit({"phase": "k4_cases", "cases": cases, "hot_row": hot})
+    return hot
+
+
+def packed_config():
+    from hashnerf_torch.ops.packed_grid import PackedGridConfig
+
+    return PackedGridConfig(n_levels=PACKED_L, n_features_per_level=PACKED_F,
+                            log2_hashmap_size=LOG2_T, log2_blocks=PACKED_LOG2_BLOCKS)
+
+
+def phase_packed_rows(torch, np):
+    """Row-id gate: packed_encode's geometry on the card against the CPU for
+    the same 196,608 points (1% snapped onto grid vertices)."""
+    from hashnerf_torch.ops.packed_grid import packed_geometry
+
+    pcfg = packed_config()
+    x = chair_points(np, N_POINTS, -1.6, 1.6, pcfg.resolutions, seed=1)
+    bmin, bmax = np.full(3, -1.6, np.float32), np.full(3, 1.6, np.float32)
+    on = [torch.as_tensor(a, device=DEV) for a in (x, bmin, bmax)]
+    off = [torch.as_tensor(a) for a in (x, bmin, bmax)]
+    g_card = packed_geometry(*on, pcfg)
+    g_cpu = packed_geometry(*off, pcfg)
+    N = N_POINTS
+    dense_bad = int((g_card.dense_rows.cpu() != g_cpu.dense_rows).reshape(-1, N).any(0).sum())
+    fine_bad = int((g_card.fine_rows.cpu() != g_cpu.fine_rows).reshape(-1, N).any(0).sum())
+    keep_bad = int((g_card.keep.cpu() != g_cpu.keep).sum())
+    w_err = max(float((g_card.dense_w.cpu() - g_cpu.dense_w).abs().max()),
+                float((g_card.fine_w.cpu() - g_cpu.fine_w).abs().max()))
+    rec = {"phase": "packed_rows", "points": N, "resolutions": list(pcfg.resolutions),
+           "dense_levels": pcfg.dense_level_count, "dense_row_mismatch_points": dense_bad,
+           "fine_row_mismatch_points": fine_bad, "keep_mismatch_points": keep_bad,
+           "weight_max_abs_err": w_err}
+    emit(rec)
+    require(dense_bad == 0 and fine_bad == 0 and keep_bad == 0,
+            f"packed row ids differ between card and CPU: {rec}")
+    require(w_err <= 1e-6, f"packed blend weights differ by {w_err}")
+    return g_card
+
+
+def phase_packed_kernels(torch, np, geo):
+    """K4 (and K1 where it takes the rows) at the packed path's shapes, on
+    the row ids of the gate's points; K1 against K4 at F = 8, 16, 64; K4's
+    window size."""
+    from hashnerf_torch.kernels import segment_accum as sa
+
+    dev = DEV
+    pcfg = packed_config()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    n_fine_rows = len(pcfg.fine_resolutions) * pcfg.n_block_rows
+    n_packed = pcfg.packed_offsets[-1]
+    coarse = slice(0, N_COARSE)  # the coarse pass encodes 1024 x 64 points
+    fine_rows = geo.fine_rows.reshape(-1, N_POINTS)
+    dense_rows = geo.dense_rows.reshape(-1, N_POINTS)
+    shapes = {
+        # name: (row ids, F, num_rows)
+        "fine_slabs": (fine_rows.reshape(-1), 27 * PACKED_F, n_fine_rows),
+        "coarse_slabs": (fine_rows[:, coarse].reshape(-1), 27 * PACKED_F, n_fine_rows),
+        "dense_voxels": (dense_rows.reshape(-1), 8 * PACKED_F, n_packed),
+        "coarse_dense_voxels": (dense_rows[:, coarse].reshape(-1), 8 * PACKED_F, n_packed),
+        "tv_fine_rows": (torch.randint(0, n_fine_rows, (4096,), generator=gen, device=dev),
+                         27 * PACKED_F, n_fine_rows),
+        "tv_dense_cube": (torch.randint(0, pcfg.dense_offsets[-1], (2 * 16**3,), generator=gen,
+                                        device=dev), PACKED_F, pcfg.dense_offsets[-1]),
+    }
+    out = {}
+    for name, (idx, F, T) in shapes.items():
+        M = idx.numel()
+        vals = torch.randn((M, F), generator=gen, device=dev)
+        sidx, svals = sa.sort_segments(idx, vals)
+        kern = sa.segment_accumulate_k4 if F >= sa.K4_MIN_F else sa.segment_accumulate_k1
+        got = kern(sidx, svals, T)
+        want = sa.segment_accumulate_sorted_plain(sidx, svals, T)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        require(bool(torch.allclose(got, want, rtol=1e-4, atol=1e-5)), f"{name}: max_abs_err {err}")
+        idx64 = idx.long()
+        b = bound(seg_bytes(M, F, T), M * F)
+        out[name] = {
+            "kernel": kern.__name__, "M": M, "F": F, "num_rows": T,
+            "unique_rows": int(torch.unique(sidx).numel()), "max_abs_err": err,
+            "kernel_ms": cuda_ms(torch, lambda: kern(sidx, svals, T)),
+            "plain_ms": cuda_ms(torch, lambda: sa.segment_accumulate_sorted_plain(sidx, svals, T)),
+            "library_ms": cuda_ms(torch, lambda: torch.zeros((T, F), device=dev).index_add_(
+                0, idx64, vals)),
+            "sort_ms": cuda_ms(torch, lambda: sa.sort_segments(idx, vals)),
+            "bound_ms": b[0], "bound_by": b[1],
+        }
+        emit({"phase": "packed_kernel", "shape": name, **out[name]})
+    del got, want, vals, svals
+
+    # the F threshold: both kernels at M = 393,216 into 131,072 rows, and on
+    # the dense voxel rows of the gate's points (skewed: level 0 has 4,096)
+    threshold = {}
+    M, T = 2 * N_POINTS, n_fine_rows
+    idx = torch.randint(0, T, (M,), generator=gen, device=dev, dtype=torch.int32)
+    cases = [(F, idx, T) for F in (8, 16, 64)]
+    cases.append(("64_dense_voxels", shapes["dense_voxels"][0], n_packed))
+    for F, ids, rows in cases:
+        f = 64 if isinstance(F, str) else F
+        sidx, svals = sa.sort_segments(ids, torch.randn((ids.numel(), f), generator=gen, device=dev))
+        threshold[F] = {
+            "k1_ms": cuda_ms(torch, lambda: sa.segment_accumulate_k1(sidx, svals, rows)),
+            "k4_ms": cuda_ms(torch, lambda: sa.segment_accumulate_k4(sidx, svals, rows)),
+            "bound_ms": bound(seg_bytes(ids.numel(), f, rows), ids.numel() * f)[0],
+        }
+    emit({"phase": "k1_k4_threshold", "M": M, "num_rows": T, "K4_MIN_F": sa.K4_MIN_F,
+          "times": threshold})
+
+    # K4's window (R rows, R * F floats of shared memory) at the fine slabs
+    # and the dense voxel rows
+    windows, default = {}, sa._K4_WINDOW_ROWS
+    for name in ("fine_slabs", "dense_voxels"):
+        idx, F, T = shapes[name]
+        sidx, svals = sa.sort_segments(idx, torch.randn((idx.numel(), F), generator=gen, device=dev))
+        windows[name] = {}
+        try:
+            for r in (4, 8, 16, 32, 64, 128, 256):
+                sa._K4_WINDOW_ROWS = r
+                windows[name][r] = cuda_ms(torch, lambda: sa.segment_accumulate_k4(sidx, svals, T))
+        finally:
+            sa._K4_WINDOW_ROWS = default
+    emit({"phase": "k4_window", "window_rows_default": default, "ms_by_window_rows": windows})
+    del sidx, svals
+    torch.cuda.empty_cache()
+    return {"shapes": out, "threshold": threshold, "windows": windows}
 
 
 # --------------------------------------------------------------------------- #
@@ -370,7 +586,8 @@ def timed_steps(torch, trainer, n: int):
     return ts, losses
 
 
-def phase_main_path(torch, np, profile: bool):
+def phase_main_path(torch, np, path: str, flags, profile: bool):
+    """One main path: the chair widths plus `flags`; `path` names it."""
     from hashnerf_torch import kernels
     from hashnerf_torch.data.synthetic import make_synthetic_scene
     from hashnerf_torch.train.config import parse_args
@@ -382,13 +599,14 @@ def phase_main_path(torch, np, profile: bool):
             "--config", os.path.join(ROOT, "configs", "chair.txt"),
             "--dataset_type", "synthetic", "--basedir", workdir, "--no_reload",
             "--N_iters", "40", "--i_print", "1", "--i_weights", "40",
-            "--i_testset", "40", "--i_video", "0", "--device", DEV,
+            "--i_testset", "40", "--i_video", "0", "--device", DEV, *flags,
         ])
         t0 = time.perf_counter()
         scene = make_synthetic_scene(H=128, W=128, n_train=8, n_test=2)
         scene_s = time.perf_counter() - t0
 
         logs = []
+        torch.cuda.reset_peak_memory_stats()
         kernels.reset_launch_counts()
         t0 = time.perf_counter()
         trainer = train_loop(args, scene, log_fn=logs.append)
@@ -396,15 +614,18 @@ def phase_main_path(torch, np, profile: bool):
         loop_s = time.perf_counter() - t0
 
         c0 = kernels.launch_counts()
+        loop_peak = torch.cuda.max_memory_allocated() / 2**30  # its test-set render included
+        torch.cuda.reset_peak_memory_stats()
         tv_s, tv_losses = timed_steps(torch, trainer, 10)  # global_step 41-50: TV on
         c1 = kernels.launch_counts()
         trainer.global_step = 1001  # past the TV warmup, as bench.py does
         notv_s, notv_losses = timed_steps(torch, trainer, 20)
         c2 = kernels.launch_counts()
+        train_peak = torch.cuda.max_memory_allocated() / 2**30  # training steps only
 
         prof = None
         if profile:
-            prof = profile_steps(torch, trainer, 3, statistics.median(notv_s))
+            prof = {"path": path, **profile_steps(torch, trainer, 3, statistics.median(notv_s))}
 
         ckpt = os.path.join(workdir, "restore", "{:06d}.ckpt".format(trainer.global_step))
         trainer.save(ckpt)
@@ -428,12 +649,12 @@ def phase_main_path(torch, np, profile: bool):
         require(bool(torch.isfinite(rgb).all()), "non-finite render")
         require(all(np.isfinite(losses)), "non-finite loss")
         require(np.mean(losses[-5:]) < np.mean(losses[:5]), "loss did not fall")
-        for name, n in counts.items():
-            require(n > 0, f"kernel {name} was not launched on the main path")
+        for name in PATH_KERNELS[path]:
+            require(counts[name] > 0, f"kernel {name} was not launched on the {path} path")
 
         per_step = lambda a, b, n: {k: (b[k] - a[k]) / n for k in a}
         rec = {
-            "phase": "main_path",
+            "phase": "main_path", "path": path, "flags": list(flags),
             "config": "configs/chair.txt widths on make_synthetic_scene(128, 128, 8 train, 2 test)",
             "N_rand": args.N_rand, "samples": args.N_samples + args.N_importance,
             "scene_s": scene_s, "train_loop_40_steps_s": loop_s,
@@ -445,7 +666,8 @@ def phase_main_path(torch, np, profile: bool):
             "launches_per_step_tv": per_step(c0, c1, len(tv_s)),
             "launches_per_step_no_tv": per_step(c1, c2, len(notv_s)),
             "render_s": render_s, "test_psnr": test_psnr,
-            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "peak_mem_gib_training": train_peak,
+            "peak_mem_gib": max(loop_peak, torch.cuda.max_memory_allocated() / 2**30),
             "launches": counts,
         }
         emit(rec)
@@ -523,14 +745,29 @@ def main(argv=None) -> int:
     dev = phase_device(torch)
     phase_k1_cases(torch, np)
     kern = phase_hash_kernels(torch, np)
-    main_rec = phase_main_path(torch, np, opts.profile)
+    k4_hot = phase_k4_cases(torch, np)
+    geo = phase_packed_rows(torch, np)
+    packed = phase_packed_kernels(torch, np, geo)
+    del geo
+    torch.cuda.empty_cache()
+    paths = {
+        "chair": phase_main_path(torch, np, "chair", [], opts.profile),
+        "packed": phase_main_path(torch, np, "packed", PACKED_FLAGS, opts.profile),
+    }
 
+    fine = packed["shapes"]["fine_slabs"]
+    kern["segment_accumulate_k4"] = {
+        "max_abs_err": fine["max_abs_err"], "kernel_ms": fine["kernel_ms"],
+        "plain_ms": fine["plain_ms"], "library_ms": fine["library_ms"],
+        "bound_ms": fine["bound_ms"], "bound_by": fine["bound_by"],
+    }
     lines = []
     for name, info in KERNEL_INFO.items():
         k = kern[name]
+        by_path = {p: rec["launches"][name] for p, rec in paths.items()}
         lines.append({
             "name": name, "route": "cuda", **info,
-            "launches": main_rec["launches"][name],
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
             "max_abs_err": k["max_abs_err"], "ms": k["kernel_ms"], "plain_ms": k["plain_ms"],
             "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
             "library_ms": k["library_ms"],
@@ -539,8 +776,8 @@ def main(argv=None) -> int:
     if opts.out:
         os.makedirs(os.path.dirname(os.path.abspath(opts.out)), exist_ok=True)
         with open(opts.out, "w") as f:
-            json.dump({"device": dev, "kernels": kern, "main_path": main_rec,
-                       "seconds": time.perf_counter() - t_start}, f, indent=1)
+            json.dump({"device": dev, "kernels": kern, "k4_hot_row": k4_hot, "packed_kernels": packed,
+                       "main_paths": paths, "seconds": time.perf_counter() - t_start}, f, indent=1)
     print(f"card: {dev['smi']}", flush=True)
     emit(summary)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

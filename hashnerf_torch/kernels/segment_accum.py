@@ -1,14 +1,16 @@
-"""K1: segment-sum of sorted (row, F-vector) updates, and the scatter-add
-built on it.
+"""K1 and K4: segment-sum of sorted (row, F-vector) updates, and the
+scatter-add built on it.
 
 Counterpart of hashnerf_tpu/kernels/pallas_segment_accum.py
 (segment_accumulate_sorted, the repo's one Pallas kernel) and
-hashnerf_tpu/kernels/segment_scatter.py (sorted_segment_accumulate). The
-CUDA kernel is csrc/segment_accum.cu; its note says what bounds it and how
-it is built.
+hashnerf_tpu/kernels/segment_scatter.py (sorted_segment_accumulate). Both
+CUDA kernels are in csrc/segment_accum.cu, whose notes say what bounds them
+and how they are built: K1 for narrow rows (the per-corner hash table,
+F = 2), K4 for wide rows (the packed layout's 8F- and 27F-wide rows, up to
+216 floats at F = 8). `segment_accumulate_sorted` routes by F.
 
 A wrapper takes the plain PyTorch version only for tensors on the CPU. For
-a CUDA tensor it launches the kernel or raises.
+a CUDA tensor it launches a kernel or raises.
 """
 from __future__ import annotations
 
@@ -18,15 +20,21 @@ import torch
 
 from hashnerf_torch.kernels import build
 
-# Widest feature count the kernel takes (its window is R*F floats of
-# shared memory, with R = _WINDOW_FLOATS // F rows).
-MAX_F = 64
-_WINDOW_FLOATS = 4096
+# Widest rows each kernel takes. K1's window is R*F floats of shared memory
+# with R = _K1_WINDOW_FLOATS // F rows; K4's is _K4_WINDOW_ROWS rows, since
+# skewed ids (a few hot rows, as the dense levels have) want short windows.
+K1_MAX_F = 64
+K4_MAX_F = 256
+# F from which segment_accumulate_sorted takes K4: chip_smoke.py times both
+# kernels at F = 8, 16 and 64 (M = 393,216 into 131,072 rows); on an H100
+# K1 won at F = 8 and K4 at 16 and 64 (PERF.md has the times).
+K4_MIN_F = 16
+_K1_WINDOW_FLOATS = 4096
+_K4_WINDOW_ROWS = 32
 
 
-def _lib():
-    lib = build.load("segment_accum")
-    fn = lib.segment_accumulate_sorted
+def _lib(name: str):
+    fn = getattr(build.load("segment_accum"), name)
     if fn.argtypes is None:
         fn.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -40,9 +48,57 @@ def _lib():
 def segment_accumulate_sorted_plain(
     sidx: torch.Tensor, svals: torch.Tensor, num_rows: int
 ) -> torch.Tensor:
-    """Plain version of K1: zeros((num_rows, F)).index_add_(0, sidx, svals)."""
+    """Plain version of K1 and K4: zeros((num_rows, F)).index_add_(0, sidx, svals)."""
     out = torch.zeros((num_rows, svals.shape[1]), dtype=svals.dtype, device=svals.device)
     return out.index_add_(0, sidx.to(torch.int64), svals)
+
+
+def _check(what: str, sidx: torch.Tensor, svals: torch.Tensor, num_rows: int, max_f: int):
+    if sidx.dim() != 1 or svals.dim() != 2 or svals.shape[0] != sidx.shape[0]:
+        raise ValueError(
+            f"{what}: want sidx (M,) and svals (M, F), got "
+            f"{tuple(sidx.shape)} and {tuple(svals.shape)}"
+        )
+    if sidx.device.type != "cuda" or svals.device != sidx.device:
+        raise ValueError(f"{what}: tensors on {sidx.device} and {svals.device}")
+    if sidx.dtype != torch.int32 or svals.dtype != torch.float32:
+        raise TypeError(f"{what}: want int32 and float32, got {sidx.dtype} and {svals.dtype}")
+    if not (sidx.is_contiguous() and svals.is_contiguous()):
+        raise ValueError(f"{what}: inputs must be contiguous")
+    if not 1 <= svals.shape[1] <= max_f:
+        raise ValueError(f"{what}: F={svals.shape[1]} outside [1, {max_f}]")
+    if num_rows >= 2**31:
+        raise ValueError(f"{what}: num_rows={num_rows} exceeds int32")
+
+
+def _launch(entry: str, sidx, svals, num_rows: int, window_rows: int) -> torch.Tensor:
+    M, F = svals.shape
+    out = torch.empty((num_rows, F), dtype=torch.float32, device=svals.device)
+    stream = torch.cuda.current_stream(svals.device).cuda_stream
+    err = _lib(entry)(sidx.data_ptr(), svals.data_ptr(), out.data_ptr(), M, F, num_rows,
+                      window_rows, stream)
+    build.check(err, entry)
+    return out
+
+
+def segment_accumulate_k1(sidx: torch.Tensor, svals: torch.Tensor, num_rows: int) -> torch.Tensor:
+    """K1 on CUDA tensors, F <= 64 (contract of segment_accumulate_sorted)."""
+    _check("segment_accumulate_k1", sidx, svals, num_rows, K1_MAX_F)
+    out = _launch("segment_accumulate_k1", sidx, svals, num_rows, _K1_WINDOW_FLOATS // svals.shape[1])
+    segment_accumulate_k1.launches += 1
+    return out
+
+
+def segment_accumulate_k4(sidx: torch.Tensor, svals: torch.Tensor, num_rows: int) -> torch.Tensor:
+    """K4 on CUDA tensors, F <= 256 (contract of segment_accumulate_sorted)."""
+    _check("segment_accumulate_k4", sidx, svals, num_rows, K4_MAX_F)
+    out = _launch("segment_accumulate_k4", sidx, svals, num_rows, _K4_WINDOW_ROWS)
+    segment_accumulate_k4.launches += 1
+    return out
+
+
+segment_accumulate_k1.launches = 0
+segment_accumulate_k4.launches = 0
 
 
 def segment_accumulate_sorted(
@@ -51,7 +107,9 @@ def segment_accumulate_sorted(
     """out[r] = sum of svals[j] over j with sidx[j] == r -> (num_rows, F).
 
     sidx: (M,) int32 sorted ascending, every value in [0, num_rows);
-    svals: (M, F) float32 in the same element order.
+    svals: (M, F) float32 in the same element order, F <= 256.
+    CPU tensors take the plain version; CUDA tensors K1 below F = K4_MIN_F,
+    K4 from it.
     """
     if sidx.dim() != 1 or svals.dim() != 2 or svals.shape[0] != sidx.shape[0]:
         raise ValueError(
@@ -60,38 +118,17 @@ def segment_accumulate_sorted(
         )
     if sidx.device.type == "cpu" and svals.device.type == "cpu":
         return segment_accumulate_sorted_plain(sidx, svals, num_rows)
-    if sidx.device.type != "cuda" or svals.device != sidx.device:
-        raise ValueError(
-            f"segment_accumulate_sorted: tensors on {sidx.device} and {svals.device}"
-        )
-    if sidx.dtype != torch.int32 or svals.dtype != torch.float32:
-        raise TypeError(
-            f"segment_accumulate_sorted: want int32 and float32, got {sidx.dtype} and {svals.dtype}"
-        )
-    if not (sidx.is_contiguous() and svals.is_contiguous()):
-        raise ValueError("segment_accumulate_sorted: inputs must be contiguous")
-    M, F = svals.shape
-    if not 1 <= F <= MAX_F:
-        raise ValueError(f"segment_accumulate_sorted: F={F} outside [1, {MAX_F}]")
-    if num_rows >= 2**31:
-        raise ValueError(f"segment_accumulate_sorted: num_rows={num_rows} exceeds int32")
-    out = torch.empty((num_rows, F), dtype=torch.float32, device=svals.device)
-    fn = _lib()
-    stream = torch.cuda.current_stream(svals.device).cuda_stream
-    err = fn(sidx.data_ptr(), svals.data_ptr(), out.data_ptr(), M, F, num_rows,
-             _WINDOW_FLOATS // F, stream)
-    build.check(err, "segment_accumulate_sorted")
-    segment_accumulate_sorted.launches += 1
-    return out
-
-
-segment_accumulate_sorted.launches = 0
+    if svals.shape[1] < K4_MIN_F:
+        return segment_accumulate_k1(sidx, svals, num_rows)
+    return segment_accumulate_k4(sidx, svals, num_rows)
 
 
 def sort_segments(idx: torch.Tensor, vals: torch.Tensor):
     """Sort (idx, vals) by idx: (sidx int32, svals). The sort stays a
-    library call (torch.sort), as the JAX package leaves it to XLA."""
-    sidx, perm = torch.sort(idx.reshape(-1).to(torch.int32))
+    library call (torch.sort), as the JAX package leaves it to XLA. It is
+    stable, so the plain version adds each row's values in their original
+    order, as XLA's scatter-add does on the CPU."""
+    sidx, perm = torch.sort(idx.reshape(-1).to(torch.int32), stable=True)
     return sidx, vals.index_select(0, perm)
 
 
@@ -101,9 +138,9 @@ def sorted_segment_accumulate(
     """Dense equivalent of zeros((num_rows, F)).index_add_(0, idx, vals).
 
     idx: (M,) row ids in any order, all in [0, num_rows) (callers pass
-    hash-table rows, in range by construction; K1 drops a row outside its
-    windows, as XLA's scatter does); vals: (M, F).
-    Sorts with torch.sort and permutes the values, then runs K1.
+    table rows, in range by construction; the kernels drop a row outside
+    their windows, as XLA's scatter does); vals: (M, F), F <= 256.
+    Sorts with torch.sort and permutes the values, then runs K1 or K4.
     """
     sidx, svals = sort_segments(idx, vals.contiguous())
     return segment_accumulate_sorted(sidx, svals, num_rows)

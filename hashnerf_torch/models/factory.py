@@ -2,16 +2,20 @@
 
 Counterpart of hashnerf_tpu/models/factory.py for the hash-grid path
 (i_embed = 1, SH view encoding). The state is one nn.Module holding the
-(L, 2^T, F) table as an nn.Parameter and the two MLPs. The point encoder is
-kernels/hash_encode.py's HashEncode (K2 forward, K3 + K1 backward). Points
-outside the bbox get sigma (channel 3) zeroed, as in the JAX query_fn.
-Positional encoding and the NeRF / NeRFGradient MLPs come in a later slice
-(ROADMAP A1/A2).
+table and the MLPs:
+  * the per-corner layout: one (L, 2^T, F) nn.Parameter, encoded by
+    kernels/hash_encode.py's HashEncode (K2 forward, K3 + K1 backward);
+  * `packed_layout`: an nn.ParameterDict {"dense", "fine"} encoded by
+    ops/packed_grid.py's packed_encode (take_rows, backward sort + K1/K4).
+With `share_fine` there is no fine net: the coarse net answers both passes.
+Points outside the bbox get sigma (channel 3) zeroed, as in the JAX
+query_fn. Positional encoding and the NeRF / NeRFGradient MLPs come in a
+later slice (ROADMAP A1/A2).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import List, Optional
 
 import torch
 from torch import nn
@@ -19,6 +23,7 @@ from torch import nn
 from hashnerf_torch.kernels.hash_encode import hash_encode
 from hashnerf_torch.models.nerf import NeRFSmall, NeRFSmallConfig
 from hashnerf_torch.ops.hash_encoding import HashGridConfig, init_hash_table
+from hashnerf_torch.ops.packed_grid import PackedGridConfig, init_packed_tables, packed_encode
 from hashnerf_torch.ops.sh_encoding import sh_encode, sh_out_dim
 
 EMBED_HASH = 1
@@ -32,7 +37,13 @@ class ModelConfig:
     use_viewdirs: bool = True
     N_importance: int = 0
     sh_degree: int = 4
+    # one net for both render passes: the state has no fine net
+    share_fine: bool = False
     hash_grid: HashGridConfig = dataclasses.field(default_factory=HashGridConfig)
+    compute_dtype: Optional[str] = None  # None (float32) or "bfloat16" MLPs
+    # corner-packed table layout (ops/packed_grid.py)
+    packed_layout: bool = False
+    log2_blocks: int = -1  # packed fine rows per level; -1 = log2_hashmap_size - 3
 
     def __post_init__(self):
         if self.i_embed != EMBED_HASH or self.i_embed_views != EMBED_SH:
@@ -42,28 +53,58 @@ class ModelConfig:
                 "ROADMAP A1/A2"
             )
 
+    @property
+    def packed_grid(self) -> PackedGridConfig:
+        if self.log2_blocks != -1 and self.log2_blocks <= 0:
+            # an explicit 0 is a config error, not a request for the default
+            raise ValueError(f"log2_blocks must be > 0 or -1 (auto); got {self.log2_blocks}")
+        h = self.hash_grid
+        return PackedGridConfig(
+            n_levels=h.n_levels,
+            n_features_per_level=h.n_features_per_level,
+            log2_hashmap_size=h.log2_hashmap_size,
+            base_resolution=h.base_resolution,
+            finest_resolution=h.finest_resolution,
+            log2_blocks=self.log2_blocks if self.log2_blocks > 0 else h.log2_hashmap_size - 3,
+        )
+
     def mlp_config(self) -> NeRFSmallConfig:
         return NeRFSmallConfig(
             input_ch=self.hash_grid.out_dim,
             input_ch_views=sh_out_dim(self.sh_degree) if self.use_viewdirs else 0,
+            compute_dtype=self.compute_dtype,
         )
 
 
 class NGPState(nn.Module):
-    """All learnable state: hash_table (L, 2^T, F), coarse, fine (or None)."""
+    """All learnable state: hash_table ((L, 2^T, F), or {"dense", "fine"}
+    under packed_layout), coarse, fine (or None)."""
 
     def __init__(self, cfg: ModelConfig, generator: Optional[torch.Generator] = None, device=None):
         super().__init__()
         self.cfg = cfg
-        self.hash_table = nn.Parameter(init_hash_table(cfg.hash_grid, generator, device))
+        if cfg.packed_layout:
+            self.packed_cfg = cfg.packed_grid
+            self.hash_table = nn.ParameterDict({
+                k: nn.Parameter(t)
+                for k, t in init_packed_tables(self.packed_cfg, generator, device).items()
+            })
+        else:
+            self.hash_table = nn.Parameter(init_hash_table(cfg.hash_grid, generator, device))
+            self.register_buffer(
+                "resolutions", cfg.hash_grid.resolutions_tensor(device), persistent=False
+            )
         mcfg = cfg.mlp_config()
         self.coarse = NeRFSmall(mcfg, generator, device)
-        self.fine = NeRFSmall(mcfg, generator, device) if cfg.N_importance > 0 else None
-        self.register_buffer(
-            "resolutions", cfg.hash_grid.resolutions_tensor(device), persistent=False
-        )
+        has_fine = cfg.N_importance > 0 and not cfg.share_fine
+        self.fine = NeRFSmall(mcfg, generator, device) if has_fine else None
 
-    def net_parameters(self):
+    def table_parameters(self) -> List[nn.Parameter]:
+        if isinstance(self.hash_table, nn.ParameterDict):
+            return list(self.hash_table.values())
+        return [self.hash_table]
+
+    def net_parameters(self) -> List[nn.Parameter]:
         nets = [self.coarse] + ([self.fine] if self.fine is not None else [])
         return [p for n in nets for p in n.parameters()]
 
@@ -74,9 +115,12 @@ def query_fn(state: NGPState, pts, viewdirs, bbox, fine: bool = False) -> torch.
     -> raw (R, S, 4)."""
     R, S = pts.shape[0], pts.shape[1]
     flat = pts.reshape(-1, 3).contiguous()
-    embedded, keep = hash_encode(
-        state.hash_table, flat, bbox[0].contiguous(), bbox[1].contiguous(), state.resolutions
-    )
+    if state.cfg.packed_layout:
+        embedded, keep = packed_encode(state.hash_table, flat, bbox[0], bbox[1], state.packed_cfg)
+    else:
+        embedded, keep = hash_encode(
+            state.hash_table, flat, bbox[0].contiguous(), bbox[1].contiguous(), state.resolutions
+        )
     if state.cfg.use_viewdirs and viewdirs is not None:
         dirs = viewdirs[:, None, :].expand(R, S, 3).reshape(-1, 3)
         embedded = torch.cat([embedded, sh_encode(dirs, state.cfg.sh_degree)], dim=-1)

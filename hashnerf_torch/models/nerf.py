@@ -6,6 +6,13 @@ color net over [view encoding, geo features] to 3 rgb logits. Weights are
 nn.Linear's (out, in); the JAX package stores (in, out) (see convert.py).
 Init is U(-1/sqrt(fan_in), 1/sqrt(fan_in)), nn.Linear's default bound,
 drawn from an explicit torch.Generator.
+
+compute_dtype "bfloat16" follows the JAX package's bf16 compute mode: the
+input and the weight of each layer are rounded to bf16 and multiplied with
+a float32 product, whose output is not rounded. The port writes that as a
+float32 `linear` of the rounded values (products of bf16 values are exact in
+float32); autograd's casts then round the gradients of x and w to bf16 as
+JAX's transpose of the bf16 dot does. A bf16 matmul would round its output.
 """
 from __future__ import annotations
 
@@ -14,6 +21,7 @@ import math
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 
@@ -26,6 +34,7 @@ class NeRFSmallConfig:
     hidden_dim_color: int = 64
     input_ch: int = 32
     input_ch_views: int = 16
+    compute_dtype: Optional[str] = None  # None (float32) or "bfloat16"
 
 
 def _linear(fan_in: int, fan_out: int, generator, device) -> nn.Linear:
@@ -57,6 +66,16 @@ class NeRFSmall(nn.Module):
             color.append(_linear(in_dim, out_dim, generator, device))
         self.sigma_net = nn.ModuleList(sigma)
         self.color_net = nn.ModuleList(color)
+        if cfg.compute_dtype not in (None, "bfloat16"):
+            raise NotImplementedError(
+                f"NeRFSmall: compute_dtype {cfg.compute_dtype!r} is not ported (ROADMAP A7.4)"
+            )
+
+    def _layer(self, layer: nn.Linear, h: torch.Tensor) -> torch.Tensor:
+        if self.cfg.compute_dtype is None:
+            return layer(h)
+        bf16 = torch.bfloat16
+        return F.linear(h.to(bf16).float(), layer.weight.to(bf16).float())
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x: (N, input_ch + input_ch_views) -> (N, 4) = [rgb logits, sigma]."""
@@ -64,14 +83,14 @@ class NeRFSmall(nn.Module):
         h = x[..., : cfg.input_ch]
         views = x[..., cfg.input_ch : cfg.input_ch + cfg.input_ch_views]
         for l, layer in enumerate(self.sigma_net):
-            h = layer(h)
+            h = self._layer(layer, h)
             if l != cfg.num_layers - 1:
                 h = torch.relu(h)
         sigma, geo_feat = h[..., :1], h[..., 1:]
 
         h = torch.cat([views, geo_feat], dim=-1)
         for l, layer in enumerate(self.color_net):
-            h = layer(h)
+            h = self._layer(layer, h)
             if l != cfg.num_layers_color - 1:
                 h = torch.relu(h)
         return torch.cat([h, sigma], dim=-1)

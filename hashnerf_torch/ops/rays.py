@@ -1,6 +1,7 @@
-"""Pinhole ray generation.
+"""Pinhole ray generation and the ray-bbox clip.
 
-Counterpart of get_rays / get_rays_np in hashnerf_tpu/ops/rays.py. The NDC
+Counterpart of get_rays / get_rays_np / ray_aabb_near_far in
+hashnerf_tpu/ops/rays.py. The NDC
 warp, camera-frame direction fields and equirect directions come with the
 loaders that use them (ROADMAP A1/A6).
 """
@@ -42,3 +43,24 @@ def get_rays_np(H: int, W: int, K, c2w) -> Tuple[np.ndarray, np.ndarray]:
     rays_d = np.sum(dirs[..., np.newaxis, :] * c2w[:3, :3], -1)
     rays_o = np.broadcast_to(c2w[:3, -1], np.shape(rays_d))
     return rays_o, rays_d
+
+
+def ray_aabb_near_far(rays_o, rays_d, bbox, near, far):
+    """Tighten per-ray [near, far] to the ray's bbox intersection (slab test).
+
+    rays_o/rays_d (R, 3), bbox (2, 3), near/far (R,) -> (near', far'). A ray
+    that misses the bbox collapses to [near, near + 1e-3]: its samples lie
+    outside the bbox, get sigma 0 and stay transparent. A direction component
+    with |d| <= 1e-10 counts as 1e10 in the inverse.
+    """
+    inv = torch.where(rays_d.abs() > 1e-10, 1.0 / rays_d, torch.full_like(rays_d, 1e10))
+    t1 = (bbox[0] - rays_o) * inv
+    t2 = (bbox[1] - rays_o) * inv
+    tmin = torch.minimum(t1, t2).amax(dim=-1)
+    tmax = torch.maximum(t1, t2).amin(dim=-1)
+    lo = torch.minimum(torch.maximum(tmin, near), far)
+    hi = torch.minimum(torch.maximum(tmax, near), far)
+    hit = tmax > torch.clamp(tmin, min=0.0)
+    new_near = torch.where(hit, lo, near)
+    new_far = torch.where(hit, torch.maximum(hi, lo + 1e-4), near + 1e-3)
+    return new_near, new_far

@@ -12,6 +12,21 @@ from typing import Optional
 import torch
 
 
+def linspace01(n: int, device=None, dtype=torch.float32) -> torch.Tensor:
+    """n points from 0 to 1 as jnp.linspace(0, 1, n) defines them in float32:
+    i / (n - 1) for i < n - 1, then exactly 1. torch.linspace rounds
+    differently (2 of 8 values, 30 of 64 differ by an ulp). XLA's jit turns
+    the division into a product with the reciprocal, which rounds otherwise
+    again; the port follows the JAX source, as the JAX package runs it op by
+    op. The divisor is a tensor: CUDA PyTorch would take a Python number's
+    reciprocal too."""
+    if n == 1:
+        return torch.zeros(1, device=device, dtype=dtype)
+    i = torch.arange(n - 1, device=device, dtype=dtype)
+    t = i / torch.full_like(i, float(n - 1))
+    return torch.cat([t, torch.ones(1, device=device, dtype=dtype)])
+
+
 def stratified_z_vals(
     near: torch.Tensor, far: torch.Tensor, N_samples: int, lindisp: bool = False
 ) -> torch.Tensor:
@@ -19,7 +34,7 @@ def stratified_z_vals(
     near/far (N_rays,) -> (N_rays, N_samples)."""
     near = near.reshape(-1, 1)
     far = far.reshape(-1, 1)
-    t_vals = torch.linspace(0.0, 1.0, N_samples, device=near.device, dtype=near.dtype)
+    t_vals = linspace01(N_samples, device=near.device, dtype=near.dtype)
     if not lindisp:
         return near * (1.0 - t_vals) + far * t_vals
     return 1.0 / (1.0 / near * (1.0 - t_vals) + 1.0 / far * t_vals)
@@ -63,7 +78,7 @@ def sample_pdf(
     if u is None:
         shape = cdf.shape[:-1] + (N_samples,)
         if det:
-            u = torch.linspace(0.0, 1.0, N_samples, device=cdf.device, dtype=cdf.dtype)
+            u = linspace01(N_samples, device=cdf.device, dtype=cdf.dtype)
             u = u.expand(shape)
         else:
             u = torch.rand(shape, generator=generator, device=cdf.device, dtype=cdf.dtype)

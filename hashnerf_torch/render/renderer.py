@@ -1,8 +1,8 @@
 """Volume renderer: stratified + hierarchical ray-march, chunked rendering.
 
-Counterpart of hashnerf_tpu/render/renderer.py for the reference-exact path
-(no occupancy culling, no fast_merge, no NDC, no aabb_clip; those are
-ROADMAP A3/A7). The JAX renderer splits one key into k_strat, k_noise0,
+Counterpart of hashnerf_tpu/render/renderer.py without occupancy culling,
+fast_merge and NDC (ROADMAP A7.1, A7.2, A3); `aabb_clip` tightens each ray's
+[near, far] to the bbox before the stratified samples. The JAX renderer splits one key into k_strat, k_noise0,
 k_pdf and k_noise1; here each of those draws is a tensor in `RenderDraws`
 that the caller may hand in, and any draw left out is taken from the
 torch.Generator.
@@ -15,7 +15,7 @@ from typing import Callable, Dict, NamedTuple, Optional
 import numpy as np
 import torch
 
-from hashnerf_torch.ops.rays import get_rays
+from hashnerf_torch.ops.rays import get_rays, ray_aabb_near_far
 from hashnerf_torch.ops.sampling import perturb_z_vals, sample_pdf, stratified_z_vals
 from hashnerf_torch.ops.volume import raw2outputs
 
@@ -29,6 +29,7 @@ class RenderConfig:
     white_bkgd: bool = False
     lindisp: bool = False
     use_viewdirs: bool = True
+    aabb_clip: bool = False  # off = reference-exact z ranges
 
     def eval_mode(self) -> "RenderConfig":
         """perturb off, noise off."""
@@ -70,6 +71,8 @@ def render_rays(
     R = rays_o.shape[0]
     near = torch.as_tensor(near, dtype=rays_o.dtype, device=rays_o.device).expand(R)
     far = torch.as_tensor(far, dtype=rays_o.dtype, device=rays_o.device).expand(R)
+    if cfg.aabb_clip:
+        near, far = ray_aabb_near_far(rays_o, rays_d, bbox, near, far)
 
     def march(z_vals, noise, fine):
         pts = rays_o[:, None, :] + rays_d[:, None, :] * z_vals[..., None]

@@ -215,7 +215,7 @@ def config_parser() -> argparse.ArgumentParser:
     parser.add_argument("--preset", type=str, default=None,
                         choices=("tpu-fast", "tpu-quality"),
                         help="named flag bundle of the opt-in execution set "
-                        "(not ported yet: raises, ROADMAP A7)")
+                        "(not ported yet: raises, ROADMAP A7.3)")
     parser.add_argument("--device", type=str, default=None,
                         help="torch device to run on (default: cuda; the "
                         "entry point raises when no GPU is present)")
@@ -231,7 +231,7 @@ def check_supported(args) -> None:
         )
 
     if args.preset:
-        no(f"--preset {args.preset}", "A7")
+        no(f"--preset {args.preset}", "A7.3")
     if args.dataset_type != "synthetic":
         no(f"dataset_type {args.dataset_type!r}", "A5/A6")
     if args.i_embed != 1:
@@ -240,18 +240,12 @@ def check_supported(args) -> None:
         no(f"--i_embed_views {args.i_embed_views} (only SH, 2)", "A1")
     if not args.no_batching:
         no("ray batching across images (set no_batching)", "A6")
-    if args.packed_layout:
-        no("--packed_layout", "A7")
     if args.use_occupancy:
-        no("--use_occupancy", "A7")
-    if args.share_fine:
-        no("--share_fine", "A7")
-    if args.compute_dtype is not None:
-        no(f"--compute_dtype {args.compute_dtype}", "A7")
+        no("--use_occupancy", "A7.1")
     if args.fast_merge:
-        no("--fast_merge", "A7")
-    if args.aabb_clip:
-        no("--aabb_clip", "A7")
+        no("--fast_merge", "A7.2")
+    if args.compute_dtype not in (None, "bfloat16"):
+        no(f"--compute_dtype {args.compute_dtype} (only bfloat16)", "A7.4")
     if (args.num_devices or 0) > 1:
         no(f"--num_devices {args.num_devices}", "A8")
     if args.steps_per_dispatch > 1:

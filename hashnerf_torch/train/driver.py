@@ -1,13 +1,15 @@
 """Training driver: the train step, the Trainer and the training loop.
 
-Counterpart of hashnerf_tpu/train/driver.py for the reference-exact
-per-image (`no_batching`) path: losses = fine MSE + coarse MSE + entropy
-sparsity + TV while global_step <= 1000, RAdam with two parameter groups and
-exponential LR decay, periodic print / checkpoint / test-set render.
+Counterpart of hashnerf_tpu/train/driver.py for the per-image
+(`no_batching`) path: losses = fine MSE + coarse MSE + entropy sparsity + TV
+while global_step <= 1000, RAdam with two parameter groups and exponential
+LR decay, periodic print / checkpoint / test-set render. Besides the
+reference-exact step it takes the packed layout (with its own TV),
+`share_fine`, bf16 MLPs and `aabb_clip`.
 
 PyTorch runs the step eagerly; the JAX package compiles it into one XLA
 program. Every random draw of a step (stratified jitter, sigma noise,
-importance samples, TV cuboids) can be handed in through `TrainDraws`, which
+importance samples, TV cuboids and rows) can be handed in through `TrainDraws`, which
 is how the tests give the port the draws JAX took from its keys.
 """
 from __future__ import annotations
@@ -29,7 +31,7 @@ from hashnerf_torch.render.renderer import (
 )
 from hashnerf_torch.train.checkpoint import latest_checkpoint, load_checkpoint, save_checkpoint
 from hashnerf_torch.train.config import check_supported
-from hashnerf_torch.train.losses import total_variation_loss_all_levels
+from hashnerf_torch.train.losses import total_variation_loss_all_levels, total_variation_loss_packed
 from hashnerf_torch.train.radam import RAdam
 from hashnerf_torch.utils.io import save_loss_history, save_psnr_pickle
 from hashnerf_torch.utils.metrics import img2mse, mse2psnr
@@ -40,7 +42,9 @@ class TrainDraws(NamedTuple):
     from the Trainer's torch.Generator."""
 
     render: RenderDraws = RenderDraws()
-    tv_min_vertices: Optional[torch.Tensor] = None  # (L, 3)
+    # (L, 3) cuboid corners; under packed_layout (Ld, 3), of the dense levels
+    tv_min_vertices: Optional[torch.Tensor] = None
+    tv_fine_rows: Optional[torch.Tensor] = None  # packed_layout: (Lf, k_rows), level-local
 
 
 def model_config_from_args(args) -> ModelConfig:
@@ -49,16 +53,22 @@ def model_config_from_args(args) -> ModelConfig:
         i_embed_views=args.i_embed_views,
         use_viewdirs=args.use_viewdirs,
         N_importance=args.N_importance,
+        share_fine=args.share_fine,
         hash_grid=HashGridConfig(
             n_levels=args.n_levels,
             n_features_per_level=args.n_features_per_level,
             log2_hashmap_size=args.log2_hashmap_size,
             finest_resolution=args.finest_res,
         ),
+        compute_dtype=args.compute_dtype,
+        packed_layout=args.packed_layout,
+        log2_blocks=args.log2_blocks,
     )
 
 
 def render_config_from_args(args, lindisp: bool = False) -> RenderConfig:
+    """The JAX package turns aabb_clip off for NDC scenes; the port has no
+    NDC scenes yet (ROADMAP A6)."""
     return RenderConfig(
         N_samples=args.N_samples,
         N_importance=args.N_importance,
@@ -67,6 +77,7 @@ def render_config_from_args(args, lindisp: bool = False) -> RenderConfig:
         white_bkgd=args.white_bkgd,
         lindisp=lindisp,
         use_viewdirs=args.use_viewdirs,
+        aabb_clip=args.aabb_clip,
     )
 
 
@@ -82,11 +93,11 @@ def make_lr_schedule(lrate: float, lrate_decay: int):
 
 def make_optimizer(args, state: NGPState) -> RAdam:
     """RAdam with two groups: the MLPs (wd 1e-6, eps 1e-8) and the hash
-    table (wd 0, eps 1e-15), both betas (0.9, 0.99)."""
+    table, or both packed tables (wd 0, eps 1e-15), both betas (0.9, 0.99)."""
     return RAdam(
         [
             {"params": state.net_parameters(), "eps": 1e-8, "weight_decay": 1e-6},
-            {"params": [state.hash_table], "eps": 1e-15, "weight_decay": 0.0},
+            {"params": state.table_parameters(), "eps": 1e-15, "weight_decay": 0.0},
         ],
         lr=make_lr_schedule(args.lrate, args.lrate_decay),
         betas=(0.9, 0.99),
@@ -94,8 +105,9 @@ def make_optimizer(args, state: NGPState) -> RAdam:
 
 
 def make_loss_fn(args, render_cfg: RenderConfig, bbox: torch.Tensor,
-                 hcfg: HashGridConfig, with_tv: bool = True):
-    """The training loss: image + coarse image + entropy sparsity (+ TV).
+                 model_cfg: ModelConfig, with_tv: bool = True):
+    """The training loss: image + coarse image + entropy sparsity (+ TV, the
+    packed TV under packed_layout).
 
     loss_fn(state, batch, tv_weight, draws=None, generator=None)
       -> (loss, (psnr, img_loss)).
@@ -120,10 +132,17 @@ def make_loss_fn(args, render_cfg: RenderConfig, bbox: torch.Tensor,
             sparsity = sparsity + ret["sparsity_loss0"].sum()
         loss = loss + sparse_w * sparsity
         if with_tv:
-            tv = total_variation_loss_all_levels(
-                state.hash_table, hcfg.base_resolution, hcfg.finest_resolution,
-                hcfg.log2_hashmap_size, draws.tv_min_vertices, generator,
-            )
+            if model_cfg.packed_layout:
+                tv = total_variation_loss_packed(
+                    state.hash_table, state.packed_cfg, draws.tv_min_vertices,
+                    draws.tv_fine_rows, generator,
+                )
+            else:
+                hcfg = model_cfg.hash_grid
+                tv = total_variation_loss_all_levels(
+                    state.hash_table, hcfg.base_resolution, hcfg.finest_resolution,
+                    hcfg.log2_hashmap_size, draws.tv_min_vertices, generator,
+                )
             loss = loss + tv_weight * tv
         return loss, (psnr, img_loss)
 
@@ -150,9 +169,9 @@ class Trainer:
         self.near, self.far = scene.near, scene.far
         self._images = torch.as_tensor(scene.images, dtype=torch.float32, device=self.device)
         self._poses = torch.as_tensor(scene.poses[:, :3, :4], dtype=torch.float32, device=self.device)
-        hcfg = self.model_cfg.hash_grid
-        self._loss_tv = make_loss_fn(args, self.render_cfg, self.bbox, hcfg, with_tv=True)
-        self._loss_no_tv = make_loss_fn(args, self.render_cfg, self.bbox, hcfg, with_tv=False)
+        self._loss_tv = make_loss_fn(args, self.render_cfg, self.bbox, self.model_cfg, with_tv=True)
+        self._loss_no_tv = make_loss_fn(args, self.render_cfg, self.bbox, self.model_cfg,
+                                        with_tv=False)
 
     def step(self, batch: Dict[str, torch.Tensor], draws: Optional[TrainDraws] = None):
         """One optimization step. batch: rays_o/rays_d/near/far/target

@@ -5,12 +5,13 @@ for every level, squared forward differences over a random cuboid of the
 hashed grid, divided by the cube size, summed over levels. All levels' cube
 rows are gathered in one take_rows on the flat (L*2^T, F) table, so the
 backward is one sort + K1 pass. The entropy sparsity term lives in
-ops/volume.py. The packed-layout TV is ROADMAP A7.
+ops/volume.py. `total_variation_loss_packed` is the TV of the corner-packed
+layout (ops/packed_grid.py).
 """
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -86,4 +87,90 @@ def total_variation_loss_all_levels(
         tv_y = torch.sum((cube[:, 1:] - cube[:, :-1]) ** 2)
         tv_z = torch.sum((cube[:, :, 1:] - cube[:, :, :-1]) ** 2)
         total = total + (tv_x + tv_y + tv_z) / cube_size
+    return total
+
+
+def fine_tv_rows_per_level(n_fine: int) -> int:
+    """Block rows a fine level contributes to the packed TV."""
+    return max(4096 // n_fine, 512)
+
+
+def draw_packed_tv(pcfg, generator: Optional[torch.Generator] = None, device=None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The packed TV's draws: dense cuboid corners (Ld, 3), dense level l
+    uniform in [0, max(res_l - cube_l, 1)), and fine block rows (Lf, k_rows),
+    uniform over each level's rows (level-local)."""
+    corners = []
+    for li, res in enumerate(pcfg.dense_resolutions):
+        _, cube = tv_level_geometry(pcfg.base_resolution, pcfg.finest_resolution, li, pcfg.n_levels)
+        hi = max(res - min(cube, res), 1)
+        corners.append(torch.randint(0, hi, (3,), generator=generator, device=device))
+    n_fine = len(pcfg.fine_resolutions)
+    k_rows = fine_tv_rows_per_level(n_fine) if n_fine else 0
+    rows = torch.randint(0, pcfg.n_block_rows, (n_fine, k_rows), generator=generator, device=device)
+    dense = torch.stack(corners) if corners else torch.zeros((0, 3), dtype=torch.int64, device=device)
+    return dense, rows
+
+
+def total_variation_loss_packed(
+    tables,
+    pcfg,
+    dense_min_vertices: Optional[torch.Tensor] = None,
+    fine_rows: Optional[torch.Tensor] = None,
+    generator: Optional[torch.Generator] = None,
+) -> torch.Tensor:
+    """TV of the corner-packed tables {"dense", "fine"} (pcfg a
+    PackedGridConfig), as hashnerf_tpu/train/losses.py computes it:
+
+      * dense levels: the exact random-cuboid TV of the vertex grid (no
+        hashing), cube edge min(cube_l, res_l), divided by the cube size;
+      * fine levels: within-slab forward differences over a batch of k_rows
+        random block rows a level, weighted cube^3 / (k_rows * 18) / cube so
+        that a level counts as much as a cube of the reference TV.
+
+    dense_min_vertices (Ld, 3) and fine_rows (Lf, k_rows), level-local, are
+    drawn together from `generator` unless both are given.
+    """
+    F = pcfg.n_features_per_level
+    n_levels = pcfg.n_levels
+    dev = next(iter(tables.values())).device
+    if dense_min_vertices is None or fine_rows is None:
+        dense_min_vertices, fine_rows = draw_packed_tv(pcfg, generator, dev)
+    total = torch.zeros((), dtype=torch.float32, device=dev)
+
+    for li, res in enumerate(pcfg.dense_resolutions):
+        _, cube_size = tv_level_geometry(pcfg.base_resolution, pcfg.finest_resolution, li, n_levels)
+        cube_size = min(cube_size, res)  # dense grid edge guard
+        r = torch.arange(cube_size + 1, dtype=torch.int64, device=dev)
+        idx = torch.as_tensor(dense_min_vertices[li], device=dev).to(torch.int64)[None, :] + r[:, None]
+        gx, gy, gz = torch.meshgrid(idx[:, 0], idx[:, 1], idx[:, 2], indexing="ij")
+        v = (gx * (res + 1) + gy) * (res + 1) + gz + pcfg.dense_offsets[li]
+        c1 = cube_size + 1
+        cube = take_rows(tables["dense"], v.reshape(-1)).reshape(c1, c1, c1, F)
+        tv_x = torch.sum((cube[1:] - cube[:-1]) ** 2)
+        tv_y = torch.sum((cube[:, 1:] - cube[:, :-1]) ** 2)
+        tv_z = torch.sum((cube[:, :, 1:] - cube[:, :, :-1]) ** 2)
+        total = total + (tv_x + tv_y + tv_z) / cube_size
+
+    n_fine = len(pcfg.fine_resolutions)
+    if n_fine:
+        fine = tables["fine"]
+        n_dense = len(pcfg.dense_resolutions)
+        rows_per_level = fine.shape[0] // n_fine
+        k_rows = fine_tv_rows_per_level(n_fine)
+        weights = []
+        for fi in range(n_fine):
+            _, cube_size = tv_level_geometry(
+                pcfg.base_resolution, pcfg.finest_resolution, n_dense + fi, n_levels)
+            weights.append((float(cube_size) ** 3 / (k_rows * 18.0)) / cube_size)
+        rows = torch.as_tensor(fine_rows, device=dev).to(torch.int64)
+        rows = rows + rows_per_level * torch.arange(n_fine, device=dev)[:, None]
+        slabs = take_rows(fine, rows.reshape(-1)).reshape(n_fine, k_rows, 3, 3, 3, F)
+        per_level = (
+            torch.sum((slabs[:, :, 1:] - slabs[:, :, :-1]) ** 2, dim=(1, 2, 3, 4, 5))
+            + torch.sum((slabs[:, :, :, 1:] - slabs[:, :, :, :-1]) ** 2, dim=(1, 2, 3, 4, 5))
+            + torch.sum((slabs[..., 1:, :] - slabs[..., :-1, :]) ** 2, dim=(1, 2, 3, 4, 5))
+        )
+        w = torch.tensor(weights, dtype=torch.float32, device=dev)
+        total = total + torch.dot(per_level, w)
     return total

@@ -17,7 +17,8 @@ torch.set_num_threads(2)
 from hashnerf_torch.kernels import launch_counts
 from hashnerf_torch.kernels import hash_encode as he
 from hashnerf_torch.kernels.segment_accum import (
-    segment_accumulate_sorted_plain, sorted_segment_accumulate,
+    K4_MIN_F, segment_accumulate_k4, segment_accumulate_sorted_plain, sort_segments,
+    sorted_segment_accumulate,
 )
 from hashnerf_torch.ops.hash_encoding import HashGridConfig, encode_with_resolutions
 
@@ -68,9 +69,9 @@ def test_k1_on_card_matches_plain(cuda_device, case):
     idx, vals, T = k1_case(case)
     i = torch.from_numpy(idx).to(cuda_device)
     v = torch.from_numpy(vals).to(cuda_device)
-    before = launch_counts()["segment_accumulate_sorted"]
+    before = launch_counts()["segment_accumulate_k1"]
     got = sorted_segment_accumulate(i, v, T)
-    assert launch_counts()["segment_accumulate_sorted"] == before + 1
+    assert launch_counts()["segment_accumulate_k1"] == before + 1
     # float32 sums of the same terms in another order
     torch.testing.assert_close(got, segment_accumulate_sorted_plain(i, v, T), rtol=1e-4, atol=1e-5)
 
@@ -88,7 +89,8 @@ def test_hash_encode_on_card_matches_plain(cuda_device):
     f, k = he.hash_encode(tt, *args)
     (f * g).sum().backward()
     after = launch_counts()
-    assert all(after[n] == before[n] + 1 for n in after)
+    path = ("hash_encode_fwd", "hash_encode_bwd_expand", "segment_accumulate_k1")
+    assert all(after[n] == before[n] + (n in path) for n in after)
 
     fp, kp = he.hash_encode_fwd_plain(tt.detach(), *args)
     assert torch.equal(k, kp)
@@ -98,3 +100,37 @@ def test_hash_encode_on_card_matches_plain(cuda_device):
     fq, _ = encode_with_resolutions(tp, *args, 14)
     (fq * g).sum().backward()
     torch.testing.assert_close(tt.grad, tp.grad, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["fine_slabs", "hot_row", "large_m_same_sign"])
+def test_k4_at_f216_on_card_matches_plain(cuda_device, case):
+    """K4 at the packed fine slab's width, 27 * 8 = 216 floats."""
+    F, T = 216, 1 << 14
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    if case == "fine_slabs":
+        idx = torch.randint(0, T, (50_000,), generator=gen, device=cuda_device, dtype=torch.int32)
+        vals = torch.randn((50_000, F), generator=gen, device=cuda_device)
+    elif case == "hot_row":
+        idx = torch.full((20_000,), 77, dtype=torch.int32, device=cuda_device)
+        vals = torch.ones((20_000, F), device=cuda_device)
+    else:
+        idx = torch.randint(0, 512, (100_000,), generator=gen, device=cuda_device, dtype=torch.int32)
+        vals = torch.rand((100_000, F), generator=gen, device=cuda_device) + 0.5
+    assert F >= K4_MIN_F
+    before = launch_counts()["segment_accumulate_k4"]
+    got = sorted_segment_accumulate(idx, vals, T)
+    assert launch_counts()["segment_accumulate_k4"] == before + 1
+    sidx, svals = sort_segments(idx, vals)
+    if case == "hot_row":
+        assert bool((got[77] == 20_000).all()) and float(got.abs().sum()) == 20_000 * F
+    elif case == "large_m_same_sign":
+        # float64 oracle at rtol 2e-5: same-sign values must not lose small rows
+        oracle = torch.zeros((T, F), dtype=torch.float64, device=cuda_device).index_add_(
+            0, idx.long(), vals.double())
+        torch.testing.assert_close(got.double(), oracle, rtol=2e-5, atol=0.0)
+    else:
+        # float32 sums of the same terms in another order
+        torch.testing.assert_close(got, segment_accumulate_sorted_plain(sidx, svals, T),
+                                   rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(segment_accumulate_k4(sidx, svals, T), got, rtol=1e-4, atol=1e-5)

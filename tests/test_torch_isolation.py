@@ -36,6 +36,7 @@ def test_port_files_exist():
     files = _port_files()
     assert len(files) > 20
     assert os.path.join(ROOT, "hashnerf_torch", "kernels", "segment_accum.py") in files
+    assert os.path.join(ROOT, "hashnerf_torch", "ops", "packed_grid.py") in files
 
 
 @pytest.mark.parametrize("path", _port_files(), ids=lambda p: os.path.relpath(p, ROOT))

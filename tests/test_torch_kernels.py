@@ -69,8 +69,9 @@ def test_cpu_tensors_take_plain_versions_without_launching():
     f, _ = the.hash_encode(table, torch.zeros(4, 3), torch.full((3,), -1.0),
                            torch.ones(3), cfg.resolutions_tensor("cpu"))
     f.sum().backward()
-    assert launch_counts() == {"segment_accumulate_sorted": 0, "hash_encode_fwd": 0,
-                               "hash_encode_bwd_expand": 0}
+    sorted_segment_accumulate(_t(idx), torch.ones((idx.shape[0], 216)), T)  # K4's width
+    assert launch_counts() == {"segment_accumulate_k1": 0, "hash_encode_fwd": 0,
+                               "hash_encode_bwd_expand": 0, "segment_accumulate_k4": 0}
 
 
 @pytest.mark.parametrize("L,log2_T,base,finest,lo,hi", [

@@ -284,3 +284,16 @@ def test_golden_get_rays(g):
     ro, rd = get_rays(H, W, _t(g["rays_K"]), _t(g["rays_c2w"]))
     np.testing.assert_allclose(ro.numpy(), g["rays_o"], rtol=1e-5, atol=1e-6)
     np.testing.assert_allclose(rd.numpy(), g["rays_d"], rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("n", [2, 8, 64, 128, 192])
+def test_linspace01_matches_jnp_linspace(n):
+    """The port's t values equal jnp.linspace(0, 1, n) as the JAX package
+    computes it op by op; torch.linspace rounds some of them otherwise."""
+    from hashnerf_torch.ops.sampling import linspace01
+
+    with jax.disable_jit():
+        want = np.asarray(jnp.linspace(0.0, 1.0, n))
+    np.testing.assert_array_equal(linspace01(n).numpy(), want)
+    if n in (8, 64):
+        assert (torch.linspace(0.0, 1.0, n).numpy() != want).any()

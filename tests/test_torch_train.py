@@ -194,14 +194,14 @@ def test_trainer_steps_match_jax():
 # --------------------------------------------------------------------------- #
 
 @pytest.mark.parametrize("flags,row", [
-    (["--preset", "tpu-fast"], "A7"),
+    (["--preset", "tpu-fast"], "A7.3"),
     (["--dataset_type", "blender"], "A5"),
     (["--i_embed", "0"], "A1"),
-    (["--packed_layout"], "A7"),
-    (["--use_occupancy"], "A7"),
-    (["--share_fine"], "A7"),
-    (["--compute_dtype", "bfloat16"], "A7"),
-    (["--fast_merge"], "A7"),
+    (["--packed_layout", "--use_occupancy"], "A7.1"),
+    (["--use_occupancy"], "A7.1"),
+    (["--preset", "tpu-quality"], "A7.3"),
+    (["--compute_dtype", "float16"], "A7.4"),
+    (["--fast_merge"], "A7.2"),
     (["--num_devices", "2"], "A8"),
     (["--steps_per_dispatch", "16"], "A4"),
     (["--render_only"], "A3"),
