@@ -14,6 +14,11 @@ Imports hashnerf_torch (never jax or hashnerf_tpu) and, on one CUDA card:
     - K1, K2, K3 on the five cases of tests/test_kernels.py and at the chair
       shapes of the reference-exact path (N = 196,608 points = 1024 rays x
       192 samples, L = 16, T = 2^19, F = 2, so M = 25,165,824 updates);
+    - K5, the sort-free scatter-add, on the same five cases and three at
+      F = 216, each with its ids shuffled and sorted, on ids outside the
+      table and on one hot row at each width; then at the chair shape and
+      at every packed shape below, beside the sort + K1/K4 route it
+      replaces and `index_add_`, and over its wide-row chunk sizes;
     - K4 on the wide case of tests/test_kernels.py, at F = 16 ... 216 into
       131,072 rows, on one hot row and on a large same-sign sum against a
       float64 oracle; then at the packed path's shapes (fine and coarse
@@ -26,10 +31,10 @@ Imports hashnerf_torch (never jax or hashnerf_tpu) and, on one CUDA card:
     hashnerf_torch.train.driver.train_loop (40 steps with TV, a checkpoint,
     a test-set render), then 10 timed steps with TV and 20 without, a
     checkpoint restored bit for bit and one test view rendered:
-    - chair: the reference-exact hash-grid step (K1, K2, K3);
+    - chair: the reference-exact hash-grid step (K2, K3, K5);
     - packed: the same with --n_levels 4 --n_features_per_level 8
       --packed_layout --share_fine --compute_dtype bfloat16 --aabb_clip
-      (K1 and K4);
+      (K5);
     the launch counts are set to 0 before each path and read after it, and
     each kernel of a path must have been launched there;
  4. prints one line {"kernels": [...]} with each kernel's launches on the
@@ -100,11 +105,16 @@ KERNEL_INFO = {
         "source": "hashnerf_torch/csrc/segment_accum.cu",
         "replaces": "hashnerf_tpu/kernels/pallas_segment_accum.py:134",
     },
+    "segment_accumulate_k5": {
+        "source": "hashnerf_torch/csrc/scatter_add.cu",
+        "replaces": "hashnerf_tpu/kernels/pallas_segment_accum.py:134",
+    },
 }
-# kernels each main path must launch
+# kernels each main path must launch (K1 and K4 keep the sorted contract,
+# which no path calls since K5)
 PATH_KERNELS = {
-    "chair": ("segment_accumulate_k1", "hash_encode_fwd", "hash_encode_bwd_expand"),
-    "packed": ("segment_accumulate_k1", "segment_accumulate_k4"),
+    "chair": ("segment_accumulate_k5", "hash_encode_fwd", "hash_encode_bwd_expand"),
+    "packed": ("segment_accumulate_k5",),
 }
 
 
@@ -119,6 +129,12 @@ class CheckFailed(RuntimeError):
 def require(cond: bool, what: str) -> None:
     if not cond:
         raise CheckFailed(what)
+
+
+def row_abs_ok(got, want, abs_sum) -> bool:
+    """Atomics add in an order that changes from run to run: each entry may
+    differ from the plain version by 2e-5 of its row's absolute sum."""
+    return bool(((got - want).abs() <= 2e-5 * abs_sum + 1e-6).all())
 
 
 def bound(nbytes: float, nops: float):
@@ -223,6 +239,95 @@ def phase_k1_cases(torch, np):
     emit({"phase": "k1_cases", "cases": cases})
 
 
+def phase_k5_cases(torch, np):
+    """K5 against its plain version (sort + index_add_) on the five cases of
+    tests/test_kernels.py and three at F = 216, each with its ids shuffled
+    and sorted; on ids outside the table (dropped); and on one hot row at
+    each of its two kernels' widths, timed."""
+    from hashnerf_torch.kernels.segment_accum import (
+        segment_accumulate_k5, segment_accumulate_k5_plain, sort_segments,
+    )
+
+    dev = DEV
+    rng = np.random.default_rng(0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(6)
+    t = lambda a: torch.as_tensor(a, device=dev)
+    randn = lambda m, f: torch.randn((m, f), generator=gen, device=dev)
+    randint = lambda hi, m: torch.randint(0, hi, (m,), generator=gen, device=dev)
+    cases = {
+        "dense": (t(rng.integers(0, 2048, 5000).astype(np.int32)),
+                  t(rng.normal(size=(5000, 2)).astype(np.float32)), 2048),
+        "single_hot_row": (t(np.full(100, 2500, np.int32)), t(np.ones((100, 2), np.float32)), 4096),
+        "sparse": (t(rng.integers(0, 1 << 16, 3000).astype(np.int32)),
+                   t(rng.normal(size=(3000, 2)).astype(np.float32)), 1 << 16),
+        "large_m_same_sign": (t(rng.integers(0, 1024, 200_000).astype(np.int32)),
+                              t(rng.uniform(0.5, 1.5, (200_000, 1)).astype(np.float32)), 1024),
+        "wide_f8": (t(rng.integers(0, 2048, 4000).astype(np.int32)),
+                    t(rng.normal(size=(4000, 8)).astype(np.float32)), 2048),
+        "f216": (randint(1 << 14, 50_000), randn(50_000, 216), 1 << 14),
+        "f216_hot_row": (torch.full((20_000,), 77, device=dev), torch.ones((20_000, 216), device=dev),
+                         1 << 14),
+        "f216_same_sign": (randint(512, 100_000), randn(100_000, 216).abs() + 0.5, 1 << 14),
+    }
+    recs = []
+    for name, (idx, vals, T) in cases.items():
+        for order in ("shuffled", "sorted"):
+            i, v = (idx, vals) if order == "shuffled" else sort_segments(idx, vals)
+            got = segment_accumulate_k5(i, v, T)
+            want = segment_accumulate_k5_plain(i, v, T)
+            if "same_sign" in name:
+                # float64 oracle at rtol 2e-5: same-sign values must not lose small rows
+                want = torch.zeros(got.shape, dtype=torch.float64, device=dev).index_add_(
+                    0, i.long(), v.double())
+                ok = bool(torch.allclose(got.double(), want, rtol=2e-5, atol=0.0))
+            elif "hot_row" in name:
+                ok = bool(torch.equal(got, want)) and float(got.sum()) == v.numel()
+            else:
+                ok = row_abs_ok(got, want, segment_accumulate_k5_plain(i, v.abs(), T))
+            torch.cuda.synchronize()
+            err = float((got.double() - want.double()).abs().max())
+            recs.append({"case": name, "order": order, "M": int(i.numel()), "F": int(v.shape[1]),
+                         "id_dtype": str(i.dtype), "num_rows": T, "max_abs_err": err, "ok": ok})
+            require(ok, f"K5 case {name} ({order}): max_abs_err {err}")
+
+    # ids outside [0, num_rows) are dropped, not written
+    T = 1000
+    idx = torch.randint(-50, T + 50, (30_000,), generator=gen, device=dev)
+    idx[::97] = 2**31 - 1
+    inside = (idx >= 0) & (idx < T)
+    for F in (2, 216):
+        vals = randn(30_000, F)
+        for ids in (idx, idx.int()):
+            got = segment_accumulate_k5(ids, vals, T)
+            torch.cuda.synchronize()  # a write out of bounds would fault here
+            want = segment_accumulate_k5_plain(idx[inside], vals[inside], T)
+            ok = row_abs_ok(got, want, segment_accumulate_k5_plain(idx[inside], vals[inside].abs(), T))
+            recs.append({"case": "out_of_range_ids", "F": F, "id_dtype": str(ids.dtype),
+                         "dropped": int((~inside).sum()), "ok": ok})
+            require(ok, f"K5 with ids outside the table, F = {F}, {ids.dtype}")
+
+    # every update into one row, at each kernel's width: exact
+    hot = {}
+    for F, m, T in ((2, 1 << 20, HASH_L << LOG2_T), (216, 1 << 16, 2 << PACKED_LOG2_BLOCKS)):
+        hidx = torch.full((m,), 12345, dtype=torch.int32, device=dev)
+        hvals = torch.ones((m, F), device=dev)
+        got = segment_accumulate_k5(hidx, hvals, T)
+        require(bool((got[12345] == m).all()) and float(got.abs().sum()) == m * F,
+                f"K5 hot row at F = {F}: wrong sum")
+        h64 = hidx.long()
+        hot[F] = {
+            "M": m, "F": F, "num_rows": T,
+            "kernel_ms": cuda_ms(torch, lambda: segment_accumulate_k5(hidx, hvals, T)),
+            "plain_ms": cuda_ms(torch, lambda: segment_accumulate_k5_plain(hidx, hvals, T)),
+            "library_ms": cuda_ms(torch, lambda: torch.zeros((T, F), device=dev).index_add_(
+                0, h64, hvals)),
+        }
+    del hidx, hvals, h64, got
+    emit({"phase": "k5_cases", "cases": recs, "hot_rows": hot})
+    return hot
+
+
 def chair_points(np, n: int, bmin: float, bmax: float, resolutions, seed: int = 0):
     """n points uniform in the bbox grown by 10% (about a quarter fall
     outside, as sample points off the object do), with 1% snapped onto grid
@@ -249,7 +354,8 @@ def phase_hash_kernels(torch, np):
         hash_encode_fwd, hash_encode_fwd_plain,
     )
     from hashnerf_torch.kernels.segment_accum import (
-        segment_accumulate_k1, segment_accumulate_sorted_plain, sort_segments,
+        segment_accumulate_k1, segment_accumulate_k5, segment_accumulate_k5_plain,
+        segment_accumulate_sorted_plain, sort_segments,
     )
     from hashnerf_torch.ops.hash_encoding import HashGridConfig, encode_with_resolutions
 
@@ -289,6 +395,10 @@ def phase_hash_kernels(torch, np):
     torch.cuda.synchronize()
     k1_err = float((d_table - d_plain).abs().max())
     unique_rows = int((sidx[1:] != sidx[:-1]).sum()) + 1
+    # K5 on K3's output as it comes, as HashEncode.backward calls it
+    d_k5 = segment_accumulate_k5(flat_idx, vals, L * T)
+    torch.cuda.synchronize()
+    k5_err = float((d_k5 - d_plain).abs().max())
 
     # K3 + K1 (the HashEncode backward) against autograd of the plain encode
     t_req = table.clone().requires_grad_(True)
@@ -301,6 +411,9 @@ def phase_hash_kernels(torch, np):
     # difference by the row's absolute sum
     bwd_ok = bool((bwd_err <= 2e-5 * abs_sum + 1e-6).all())
     bwd_err_max = float(bwd_err.max())
+    k5_ok = row_abs_ok(d_k5, d_plain, abs_sum)
+    bwd5_ok = row_abs_ok(d_k5, auto, abs_sum)
+    bwd5_err_max = float((d_k5 - auto).abs().max())
     del t_req, fp, auto, abs_sum, bwd_err
 
     require(keep_equal, "K2 keep mask differs from the plain version")
@@ -310,6 +423,8 @@ def phase_hash_kernels(torch, np):
     require(bool(torch.allclose(d_table, d_plain, rtol=1e-4, atol=1e-4)),
             f"K1 chair shape: max_abs_err {k1_err}")
     require(bwd_ok, f"K3+K1 vs autograd: max_abs_err {bwd_err_max}")
+    require(k5_ok, f"K5 chair shape: max_abs_err {k5_err}")
+    require(bwd5_ok, f"K3+K5 vs autograd: max_abs_err {bwd5_err_max}")
 
     # timings (median of CUDA events)
     k2_ms = cuda_ms(torch, lambda: hash_encode_fwd(table, x, bmin, bmax, res))
@@ -323,6 +438,9 @@ def phase_hash_kernels(torch, np):
     k1_library_ms = cuda_ms(torch, lambda: torch.zeros(
         (L * T, F), device=dev).index_add_(0, idx64, vals))
     sort_ms = cuda_ms(torch, lambda: sort_segments(flat_idx, vals))
+    k5_ms = cuda_ms(torch, lambda: segment_accumulate_k5(flat_idx, vals, L * T))
+    k5_plain_ms = cuda_ms(torch, lambda: segment_accumulate_k5_plain(flat_idx, vals, L * T))
+    route_ms = cuda_ms(torch, lambda: segment_accumulate_k1(*sort_segments(flat_idx, vals), L * T))
 
     # the worst case of the ownership scheme: every update into one row,
     # so one block walks them all
@@ -368,11 +486,20 @@ def phase_hash_kernels(torch, np):
             "sort_ms": sort_ms, "bound_ms": k1_bound[0], "bound_by": k1_bound[1],
             "hot_row": hot_rec,
         },
+        "segment_accumulate_k5": {
+            "shape": {"M": M, "num_rows": L * T, "F": F}, "max_abs_err": k5_err,
+            "backward_vs_autograd_max_abs_err": bwd5_err_max,
+            "kernel_ms": k5_ms, "plain_ms": k5_plain_ms, "library_ms": k1_library_ms,
+            "library_call": "torch.zeros(num_rows, F).index_add_(0, idx, vals) on unsorted idx",
+            "plain": "sort_segments + index_add_ on the sorted ids",
+            "sort_k1_route_ms": route_ms,
+            "bound_ms": k1_bound[0], "bound_by": k1_bound[1],
+        },
     }
     for name, rec in out.items():
         emit({"phase": "kernel", "name": name, **rec})
     del table, x, g, feats, feats_p, flat_idx, vals, flat_idx_p, vals_p, sidx, svals
-    del d_table, d_plain, idx64
+    del d_table, d_plain, d_k5, idx64
     torch.cuda.empty_cache()
     return out
 
@@ -475,9 +602,9 @@ def phase_packed_rows(torch, np):
 
 
 def phase_packed_kernels(torch, np, geo):
-    """K4 (and K1 where it takes the rows) at the packed path's shapes, on
-    the row ids of the gate's points; K1 against K4 at F = 8, 16, 64; K4's
-    window size."""
+    """K5, and the sort + K4 (K1 where it takes the rows) route it replaced,
+    at the packed path's shapes, on the row ids of the gate's points; K1
+    against K4 at F = 8, 16, 64; K4's window size; K5's chunk size."""
     from hashnerf_torch.kernels import segment_accum as sa
 
     dev = DEV
@@ -511,6 +638,11 @@ def phase_packed_kernels(torch, np, geo):
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
         require(bool(torch.allclose(got, want, rtol=1e-4, atol=1e-5)), f"{name}: max_abs_err {err}")
+        k5 = sa.segment_accumulate_k5(idx, vals, T)  # as take_rows calls it: int64 ids in any order
+        torch.cuda.synchronize()
+        k5_err = float((k5 - want).abs().max())
+        require(row_abs_ok(k5, want, sa.segment_accumulate_sorted_plain(sidx, svals.abs(), T)),
+                f"K5 {name}: max_abs_err {k5_err}")
         idx64 = idx.long()
         b = bound(seg_bytes(M, F, T), M * F)
         out[name] = {
@@ -521,10 +653,14 @@ def phase_packed_kernels(torch, np, geo):
             "library_ms": cuda_ms(torch, lambda: torch.zeros((T, F), device=dev).index_add_(
                 0, idx64, vals)),
             "sort_ms": cuda_ms(torch, lambda: sa.sort_segments(idx, vals)),
+            "route_ms": cuda_ms(torch, lambda: kern(*sa.sort_segments(idx, vals), T)),
+            "k5_max_abs_err": k5_err,
+            "k5_ms": cuda_ms(torch, lambda: sa.segment_accumulate_k5(idx, vals, T)),
+            "k5_plain_ms": cuda_ms(torch, lambda: sa.segment_accumulate_k5_plain(idx, vals, T)),
             "bound_ms": b[0], "bound_by": b[1],
         }
         emit({"phase": "packed_kernel", "shape": name, **out[name]})
-    del got, want, vals, svals
+    del got, want, vals, svals, k5
 
     # the F threshold: both kernels at M = 393,216 into 131,072 rows, and on
     # the dense voxel rows of the gate's points (skewed: level 0 has 4,096)
@@ -559,8 +695,23 @@ def phase_packed_kernels(torch, np, geo):
             sa._K4_WINDOW_ROWS = default
     emit({"phase": "k4_window", "window_rows_default": default, "ms_by_window_rows": windows})
     del sidx, svals
+
+    # K5's chunk (updates a wide-row group walks) at the same two shapes
+    chunks, default = {}, sa._K5_CHUNK
+    for name in ("fine_slabs", "dense_voxels"):
+        idx, F, T = shapes[name]
+        vals = torch.randn((idx.numel(), F), generator=gen, device=dev)
+        chunks[name] = {}
+        try:
+            for c in (1, 4, 16, 64):
+                sa._K5_CHUNK = c
+                chunks[name][c] = cuda_ms(torch, lambda: sa.segment_accumulate_k5(idx, vals, T))
+        finally:
+            sa._K5_CHUNK = default
+    emit({"phase": "k5_chunk", "chunk_default": default, "ms_by_chunk": chunks})
+    del vals
     torch.cuda.empty_cache()
-    return {"shapes": out, "threshold": threshold, "windows": windows}
+    return {"shapes": out, "threshold": threshold, "windows": windows, "k5_chunks": chunks}
 
 
 # --------------------------------------------------------------------------- #
@@ -746,6 +897,7 @@ def main(argv=None) -> int:
     phase_k1_cases(torch, np)
     kern = phase_hash_kernels(torch, np)
     k4_hot = phase_k4_cases(torch, np)
+    k5_hot = phase_k5_cases(torch, np)
     geo = phase_packed_rows(torch, np)
     packed = phase_packed_kernels(torch, np, geo)
     del geo
@@ -776,7 +928,8 @@ def main(argv=None) -> int:
     if opts.out:
         os.makedirs(os.path.dirname(os.path.abspath(opts.out)), exist_ok=True)
         with open(opts.out, "w") as f:
-            json.dump({"device": dev, "kernels": kern, "k4_hot_row": k4_hot, "packed_kernels": packed,
+            json.dump({"device": dev, "kernels": kern, "k4_hot_row": k4_hot, "k5_hot_rows": k5_hot,
+                       "packed_kernels": packed,
                        "main_paths": paths, "seconds": time.perf_counter() - t_start}, f, indent=1)
     print(f"card: {dev['smi']}", flush=True)
     emit(summary)

@@ -4,7 +4,7 @@
 // Replaces: hashnerf_tpu/kernels/hash_encode_vjp.py, hash_encode_fast.
 //   K2 hash_encode_fwd   <- _fwd_impl (:63-74) with _corner_geometry (:33-54)
 //   K3 hash_encode_bwd_expand <- _bwd_rule's recompute and corner expansion
-//                           (:82-92); its segment-sum is K1 (segment_accum.cu)
+//                           (:82-92); its scatter-add is K5 (scatter_add.cu)
 // These are XLA functions on the TPU, not Pallas kernels; they carry the work
 // around the Pallas kernel on the main path.
 //

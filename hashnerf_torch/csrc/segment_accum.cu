@@ -3,9 +3,9 @@
 // floats wide. kernels/segment_accum.py routes by F.
 //
 // Replaces: hashnerf_tpu/kernels/pallas_segment_accum.py,
-//   segment_accumulate_sorted (pl.pallas_call, body _kernel): the scatter-add
-//   of the hash-table gradients, reached through the hash-encode backward and
-//   through take_rows in the TV loss.
+//   segment_accumulate_sorted (pl.pallas_call, body _kernel), with its sorted
+//   contract. The training paths reach the scatter-add of the hash-table
+//   gradients through K5 (scatter_add.cu), which needs no sort.
 //
 // Computes out[r, :] = sum over j with sidx[j] == r of svals[j, :], for sidx
 // sorted ascending (int32) and svals (M, F) float32; out is (num_rows, F).

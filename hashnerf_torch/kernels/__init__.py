@@ -9,13 +9,16 @@ from __future__ import annotations
 from typing import Dict
 
 from hashnerf_torch.kernels.hash_encode import hash_encode_bwd_expand, hash_encode_fwd
-from hashnerf_torch.kernels.segment_accum import segment_accumulate_k1, segment_accumulate_k4
+from hashnerf_torch.kernels.segment_accum import (
+    segment_accumulate_k1, segment_accumulate_k4, segment_accumulate_k5,
+)
 
 KERNELS = {
     "segment_accumulate_k1": segment_accumulate_k1,
     "hash_encode_fwd": hash_encode_fwd,
     "hash_encode_bwd_expand": hash_encode_bwd_expand,
     "segment_accumulate_k4": segment_accumulate_k4,
+    "segment_accumulate_k5": segment_accumulate_k5,
 }
 
 

@@ -1,8 +1,9 @@
-"""Row gather whose backward is sort + K1.
+"""Row gather whose backward is the K5 scatter-add.
 
 Counterpart of hashnerf_tpu/kernels/gather_vjp.py (take_rows): forward is
 `table[idx]` (index_select), backward accumulates the row gradients through
-sorted_segment_accumulate instead of a scatter. Used by the TV loss.
+sorted_segment_accumulate (K5 on the card). Used by the TV losses and by
+packed_encode.
 permute_rows (used only by occupancy culling) comes with that slice.
 """
 from __future__ import annotations

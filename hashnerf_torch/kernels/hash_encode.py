@@ -1,12 +1,12 @@
-"""K2 and K3: the hash-grid encode with a sort + segment-sum backward.
+"""K2 and K3: the hash-grid encode, with a scatter-add backward.
 
 Counterpart of hashnerf_tpu/kernels/hash_encode_vjp.py (hash_encode_fast).
 `HashEncode` is a torch.autograd.Function:
 
   forward   K2 hash_encode_fwd -> (feats (N, L*F), keep (N,))
   backward  K3 hash_encode_bwd_expand -> (flat_idx, vals) for every
-            (level, point, corner), then sorted_segment_accumulate (torch.sort
-            + K1) into d_table (L, T, F).
+            (level, point, corner), then sorted_segment_accumulate (K5 on
+            the card, no sort) into d_table (L, T, F).
 
 Only x and the bbox are saved; the backward recomputes the geometry, as the
 JAX backward does. No gradient flows to x or the bbox. The CUDA kernels are

@@ -1,13 +1,18 @@
-"""K1 and K4: segment-sum of sorted (row, F-vector) updates, and the
-scatter-add built on it.
+"""K1 and K4: segment-sum of sorted (row, F-vector) updates; K5: the
+scatter-add of updates in any order.
 
 Counterpart of hashnerf_tpu/kernels/pallas_segment_accum.py
 (segment_accumulate_sorted, the repo's one Pallas kernel) and
-hashnerf_tpu/kernels/segment_scatter.py (sorted_segment_accumulate). Both
-CUDA kernels are in csrc/segment_accum.cu, whose notes say what bounds them
-and how they are built: K1 for narrow rows (the per-corner hash table,
-F = 2), K4 for wide rows (the packed layout's 8F- and 27F-wide rows, up to
-216 floats at F = 8). `segment_accumulate_sorted` routes by F.
+hashnerf_tpu/kernels/segment_scatter.py (sorted_segment_accumulate).
+- K1 and K4 (csrc/segment_accum.cu) keep the sorted contract of the Pallas
+  kernel: K1 for narrow rows (the per-corner hash table, F = 2), K4 for wide
+  rows (the packed layout's 8F- and 27F-wide rows, up to 216 floats at
+  F = 8). `segment_accumulate_sorted` routes by F.
+- K5 (csrc/scatter_add.cu) adds updates in any order with vector atomics,
+  so `sorted_segment_accumulate`, the contract every caller uses, needs no
+  sort on the card. On Hopper a radix sort of the ids and a permutation of
+  the values cost more than the whole scatter (PERF.md), where on the TPU
+  the sort was the cheap part.
 
 A wrapper takes the plain PyTorch version only for tensors on the CPU. For
 a CUDA tensor it launches a kernel or raises.
@@ -31,6 +36,10 @@ K4_MAX_F = 256
 K4_MIN_F = 16
 _K1_WINDOW_FLOATS = 4096
 _K4_WINDOW_ROWS = 32
+K5_MAX_F = 256
+# Updates a group of K5's wide-row kernel walks, keeping runs of equal ids
+# in registers (chip_smoke.py times 1 to 64).
+_K5_CHUNK = 16
 
 
 def _lib(name: str):
@@ -45,6 +54,14 @@ def _lib(name: str):
     return fn
 
 
+def _check_shapes(what: str, idx: torch.Tensor, vals: torch.Tensor) -> None:
+    if idx.dim() != 1 or vals.dim() != 2 or vals.shape[0] != idx.shape[0]:
+        raise ValueError(
+            f"{what}: want ids (M,) and vals (M, F), got "
+            f"{tuple(idx.shape)} and {tuple(vals.shape)}"
+        )
+
+
 def segment_accumulate_sorted_plain(
     sidx: torch.Tensor, svals: torch.Tensor, num_rows: int
 ) -> torch.Tensor:
@@ -54,11 +71,7 @@ def segment_accumulate_sorted_plain(
 
 
 def _check(what: str, sidx: torch.Tensor, svals: torch.Tensor, num_rows: int, max_f: int):
-    if sidx.dim() != 1 or svals.dim() != 2 or svals.shape[0] != sidx.shape[0]:
-        raise ValueError(
-            f"{what}: want sidx (M,) and svals (M, F), got "
-            f"{tuple(sidx.shape)} and {tuple(svals.shape)}"
-        )
+    _check_shapes(what, sidx, svals)
     if sidx.device.type != "cuda" or svals.device != sidx.device:
         raise ValueError(f"{what}: tensors on {sidx.device} and {svals.device}")
     if sidx.dtype != torch.int32 or svals.dtype != torch.float32:
@@ -111,11 +124,7 @@ def segment_accumulate_sorted(
     CPU tensors take the plain version; CUDA tensors K1 below F = K4_MIN_F,
     K4 from it.
     """
-    if sidx.dim() != 1 or svals.dim() != 2 or svals.shape[0] != sidx.shape[0]:
-        raise ValueError(
-            f"segment_accumulate_sorted: want sidx (M,) and svals (M, F), got "
-            f"{tuple(sidx.shape)} and {tuple(svals.shape)}"
-        )
+    _check_shapes("segment_accumulate_sorted", sidx, svals)
     if sidx.device.type == "cpu" and svals.device.type == "cpu":
         return segment_accumulate_sorted_plain(sidx, svals, num_rows)
     if svals.shape[1] < K4_MIN_F:
@@ -132,15 +141,72 @@ def sort_segments(idx: torch.Tensor, vals: torch.Tensor):
     return sidx, vals.index_select(0, perm)
 
 
+def segment_accumulate_k5_plain(idx: torch.Tensor, vals: torch.Tensor, num_rows: int) -> torch.Tensor:
+    """Plain version of K5: sort_segments, then the plain segment-sum
+    (index_add_ in the sorted order)."""
+    sidx, svals = sort_segments(idx, vals.contiguous())
+    return segment_accumulate_sorted_plain(sidx, svals, num_rows)
+
+
+def _k5_lib():
+    fn = build.load("scatter_add").segment_accumulate_k5
+    if fn.argtypes is None:
+        fn.argtypes = [
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+            ctypes.c_void_p,
+        ]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def segment_accumulate_k5(idx: torch.Tensor, vals: torch.Tensor, num_rows: int) -> torch.Tensor:
+    """K5 on CUDA tensors: out[r] = sum of vals[j] over j with idx[j] == r.
+
+    idx: (M,) int32 or int64 in any order; an id outside [0, num_rows) is
+    dropped. vals: (M, F) float32, 1 <= F <= 256, its rows aligned to their
+    vector width (16 bytes where F % 4 == 0, 8 where F % 2 == 0).
+    """
+    what = "segment_accumulate_k5"
+    _check_shapes(what, idx, vals)
+    if idx.dtype not in (torch.int32, torch.int64) or vals.dtype != torch.float32:
+        raise TypeError(f"{what}: want int32 or int64 ids and float32 values, got "
+                        f"{idx.dtype} and {vals.dtype}")
+    M, F = vals.shape
+    if not 1 <= F <= K5_MAX_F:
+        raise ValueError(f"{what}: F={F} outside [1, {K5_MAX_F}]")
+    if idx.device.type != "cuda" or vals.device != idx.device:
+        raise ValueError(f"{what}: tensors on {idx.device} and {vals.device}")
+    if not (idx.is_contiguous() and vals.is_contiguous()):
+        raise ValueError(f"{what}: inputs must be contiguous")
+    align = 16 if F % 4 == 0 else 8 if F % 2 == 0 else 4
+    if vals.data_ptr() % align:
+        raise ValueError(f"{what}: values at {vals.data_ptr():#x} not {align}-byte aligned")
+    out = torch.zeros((num_rows, F), dtype=torch.float32, device=vals.device)
+    err = _k5_lib()(idx.data_ptr(), idx.element_size(), vals.data_ptr(), out.data_ptr(),
+                    M, F, num_rows, _K5_CHUNK, torch.cuda.current_stream(vals.device).cuda_stream)
+    build.check(err, what)
+    segment_accumulate_k5.launches += 1
+    return out
+
+
+segment_accumulate_k5.launches = 0
+
+
 def sorted_segment_accumulate(
     idx: torch.Tensor, vals: torch.Tensor, num_rows: int
 ) -> torch.Tensor:
     """Dense equivalent of zeros((num_rows, F)).index_add_(0, idx, vals).
 
-    idx: (M,) row ids in any order, all in [0, num_rows) (callers pass
-    table rows, in range by construction; the kernels drop a row outside
-    their windows, as XLA's scatter does); vals: (M, F), F <= 256.
-    Sorts with torch.sort and permutes the values, then runs K1 or K4.
+    idx: row ids in any order, all in [0, num_rows) (callers pass table
+    rows, in range by construction; K5 drops a row outside it, as XLA's
+    scatter does); vals: (M, F), F <= 256.
+    CPU tensors take K5's plain version (a stable sort and index_add_, so
+    that each row adds its values in their original order, as XLA's
+    scatter-add does on the CPU); CUDA tensors K5, with no sort.
     """
-    sidx, svals = sort_segments(idx, vals.contiguous())
-    return segment_accumulate_sorted(sidx, svals, num_rows)
+    idx = idx.reshape(-1)
+    _check_shapes("sorted_segment_accumulate", idx, vals)
+    if idx.device.type == "cpu" and vals.device.type == "cpu":
+        return segment_accumulate_k5_plain(idx, vals, num_rows)
+    return segment_accumulate_k5(idx, vals.contiguous(), num_rows)

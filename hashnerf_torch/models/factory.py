@@ -4,9 +4,9 @@ Counterpart of hashnerf_tpu/models/factory.py for the hash-grid path
 (i_embed = 1, SH view encoding). The state is one nn.Module holding the
 table and the MLPs:
   * the per-corner layout: one (L, 2^T, F) nn.Parameter, encoded by
-    kernels/hash_encode.py's HashEncode (K2 forward, K3 + K1 backward);
+    kernels/hash_encode.py's HashEncode (K2 forward, K3 + K5 backward);
   * `packed_layout`: an nn.ParameterDict {"dense", "fine"} encoded by
-    ops/packed_grid.py's packed_encode (take_rows, backward sort + K1/K4).
+    ops/packed_grid.py's packed_encode (take_rows, backward K5).
 With `share_fine` there is no fine net: the coarse net answers both passes.
 Points outside the bbox get sigma (channel 3) zeroed, as in the JAX
 query_fn. Positional encoding and the NeRF / NeRFGradient MLPs come in a

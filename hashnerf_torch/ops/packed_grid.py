@@ -13,7 +13,7 @@ encoder: one table-row fetch per (sample, level) instead of eight.
     8 trilinear weights are routed to the slots of the voxel's parity.
 
 All dense levels go through one take_rows and all fine levels through
-another, so each backward is one sort and one K1/K4 pass. The blends are
+another, so each backward is one K5 scatter-add on the card. The blends are
 torch einsums (float32, TF32 off), as the JAX package leaves them to XLA.
 The geometry is computed in exactly the JAX order (grid = extent / res,
 rel = (xc - bmin) / grid, b = clip(floor(rel), 0, res - 1), w = rel - b): a

@@ -4,7 +4,7 @@ Counterpart of hashnerf_tpu/train/losses.py (total_variation_loss_all_levels):
 for every level, squared forward differences over a random cuboid of the
 hashed grid, divided by the cube size, summed over levels. All levels' cube
 rows are gathered in one take_rows on the flat (L*2^T, F) table, so the
-backward is one sort + K1 pass. The entropy sparsity term lives in
+backward is one K5 scatter-add on the card. The entropy sparsity term lives in
 ops/volume.py. `total_variation_loss_packed` is the TV of the corner-packed
 layout (ops/packed_grid.py).
 """

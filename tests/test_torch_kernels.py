@@ -2,10 +2,11 @@
 package on the CPU, where each wrapper takes its plain PyTorch version, and
 against the plain versions on the card in test_torch_cuda.py.
 
-K1 is held against the JAX TPU formulation `_sorted_segment_accumulate_tpu`,
-which runs the Pallas kernel in interpret mode on the CPU; HashEncode
-against `hash_encode_fast` and its custom VJP; take_rows against JAX
-take_rows.
+The sorted segment-sum (K1's contract) is held against the JAX TPU
+formulation `_sorted_segment_accumulate_tpu`, which runs the Pallas kernel
+in interpret mode on the CPU; the scatter-add (K5's contract) against JAX's
+`sorted_segment_accumulate`; HashEncode against `hash_encode_fast` and its
+custom VJP; take_rows against JAX take_rows.
 """
 import numpy as np
 import jax
@@ -16,16 +17,17 @@ import torch
 torch.set_num_threads(2)
 
 from hashnerf_tpu.kernels.segment_scatter import _sorted_segment_accumulate_tpu
+from hashnerf_tpu.kernels.segment_scatter import sorted_segment_accumulate as jax_scatter
 from hashnerf_tpu.ops.hash_encoding import HashGridConfig as JCfg
 from hashnerf_torch.kernels import launch_counts, reset_launch_counts
 from hashnerf_torch.kernels import hash_encode as the
 from hashnerf_torch.kernels.gather import take_rows
 from hashnerf_torch.kernels.segment_accum import (
-    segment_accumulate_sorted, sorted_segment_accumulate,
+    segment_accumulate_k5, segment_accumulate_sorted, sorted_segment_accumulate,
 )
 from hashnerf_torch.ops.hash_encoding import HashGridConfig
 
-from test_torch_cuda import K1_CASES, encode_inputs, k1_case as _k1_case
+from test_torch_cuda import K1_CASES, SCATTER_FAMILIES, encode_inputs, k1_case as _k1_case, scatter_family
 
 
 def _t(a):
@@ -60,6 +62,45 @@ def test_k1_wrapper_checks():
         segment_accumulate_sorted(_t(idx).to("meta"), _t(vals).to("meta"), T)
 
 
+@pytest.mark.parametrize("family", SCATTER_FAMILIES)
+def test_scatter_add_matches_jax(family):
+    """The scatter-add every caller uses, on CPU tensors (K5's plain version),
+    against the JAX package's sorted_segment_accumulate (XLA's scatter-add on
+    the CPU), for the callers' row widths and id types."""
+    idx, vals, T = scatter_family(family)
+    got = sorted_segment_accumulate(_t(idx), _t(vals), T).numpy()
+    want = np.asarray(jax_scatter(jnp.asarray(idx.astype(np.int32)), jnp.asarray(vals), T))
+    assert got.shape == (T, vals.shape[1])
+    if family == "single_hot_row":
+        assert got[2500, 0] == 100.0 and np.abs(got).sum() == 200.0
+        np.testing.assert_array_equal(got, want)
+    else:
+        # float32 sums of the same terms in another order
+        np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("bad", ["shape", "idx_dtype", "vals_dtype", "f0", "f257", "cpu", "meta"])
+def test_k5_wrapper_checks(bad):
+    idx, vals, T = _k1_case("dense")
+    idx, vals, M = _t(idx), _t(vals), idx.shape[0]
+    if bad == "meta":
+        # neither CPU nor CUDA: the router raises instead of taking a plain path
+        with pytest.raises(ValueError):
+            sorted_segment_accumulate(idx.to("meta"), vals.to("meta"), T)
+        return
+    # the checks come before the device's, so CPU tensors reach each of them
+    args = {
+        "shape": (idx, vals[:10]),
+        "idx_dtype": (idx.float(), vals),
+        "vals_dtype": (idx, vals.double()),
+        "f0": (idx, torch.zeros((M, 0))),
+        "f257": (idx, torch.zeros((M, 257))),
+        "cpu": (idx, vals),  # the kernel wrapper takes CUDA tensors only
+    }[bad]
+    with pytest.raises(TypeError if bad.endswith("dtype") else ValueError):
+        segment_accumulate_k5(*args, T)
+
+
 def test_cpu_tensors_take_plain_versions_without_launching():
     reset_launch_counts()
     idx, vals, T = _k1_case("dense")
@@ -69,9 +110,11 @@ def test_cpu_tensors_take_plain_versions_without_launching():
     f, _ = the.hash_encode(table, torch.zeros(4, 3), torch.full((3,), -1.0),
                            torch.ones(3), cfg.resolutions_tensor("cpu"))
     f.sum().backward()
-    sorted_segment_accumulate(_t(idx), torch.ones((idx.shape[0], 216)), T)  # K4's width
+    sorted_segment_accumulate(_t(idx), torch.ones((idx.shape[0], 216)), T)  # the fine slabs' width
+    take_rows(torch.zeros((T, 8), requires_grad=True), _t(idx).long()).sum().backward()
     assert launch_counts() == {"segment_accumulate_k1": 0, "hash_encode_fwd": 0,
-                               "hash_encode_bwd_expand": 0, "segment_accumulate_k4": 0}
+                               "hash_encode_bwd_expand": 0, "segment_accumulate_k4": 0,
+                               "segment_accumulate_k5": 0}
 
 
 @pytest.mark.parametrize("L,log2_T,base,finest,lo,hi", [
