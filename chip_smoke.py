@@ -11,9 +11,14 @@ Imports hashnerf_torch (never jax or hashnerf_tpu) and, on one CUDA card:
  2. kernels: holds each CUDA kernel against its plain PyTorch version on the
     card and times kernel, plain version, library call and the sort with
     CUDA events:
-    - K1, K2, K3 on the five cases of tests/test_kernels.py and at the chair
-      shapes of the reference-exact path (N = 196,608 points = 1024 rays x
-      192 samples, L = 16, T = 2^19, F = 2, so M = 25,165,824 updates);
+    - K1, K2, K3, K6 on the five cases of tests/test_kernels.py (K1) and at
+      the chair shapes of the reference-exact path (N = 196,608 points =
+      1024 rays x 192 samples, L = 16, T = 2^19, F = 2, so M = 25,165,824
+      corner updates; the coarse pass has 65,536 points): K6, the fused
+      encode backward, against its plain version, against autograd of the
+      plain encode and beside the K3 + K5 route it replaced; K2 and K6 on
+      uniform points and on points ordered along rays, over their level
+      groups and lane orders;
     - K5, the sort-free scatter-add, on the same five cases and three at
       F = 216, each with its ids shuffled and sorted, on ids outside the
       table and on one hot row at each width; then at the chair shape and
@@ -31,12 +36,14 @@ Imports hashnerf_torch (never jax or hashnerf_tpu) and, on one CUDA card:
     hashnerf_torch.train.driver.train_loop (40 steps with TV, a checkpoint,
     a test-set render), then 10 timed steps with TV and 20 without, a
     checkpoint restored bit for bit and one test view rendered:
-    - chair: the reference-exact hash-grid step (K2, K3, K5);
+    - chair: the reference-exact hash-grid step (K2, K6; K5 from the TV
+      loss only);
     - packed: the same with --n_levels 4 --n_features_per_level 8
       --packed_layout --share_fine --compute_dtype bfloat16 --aabb_clip
       (K5);
-    the launch counts are set to 0 before each path and read after it, and
-    each kernel of a path must have been launched there;
+    the launch counts are set to 0 before each path and read after it; each
+    kernel of a path must have been launched there, and K1, K3 and K4 on
+    neither path;
  4. prints one line {"kernels": [...]} with each kernel's launches on the
     main paths, error, times and bound, and as the last line
     {"ok": true, "device": {...}}.
@@ -75,10 +82,12 @@ HASH_L, HASH_F, LOG2_T = 16, 2, 19
 # Arithmetic of one (point, level) thread, counted from csrc/hash_encode.cu:
 # geometry 12 ops x 3 axes, 8 corner weights (3 subtractions + 16 products),
 # 8 hashes (3 adds, 2 multiplies, 2 xors, 1 and), then the blend (K2:
-# 8 x F multiply-adds) or the expansion (K3: 8 x F products + 8 level adds).
+# 8 x F multiply-adds), the expansion (K3: 8 x F products + 8 level adds)
+# or the reduction (K6: the same and 8 x F adds into the table).
 GEOM_OPS = 36 + 19 + 64
 K2_OPS = GEOM_OPS + 16 * HASH_F
 K3_OPS = GEOM_OPS + 8 * HASH_F + 8
+K6_OPS = K3_OPS + 8 * HASH_F
 
 # Packed path (--n_levels 4 --n_features_per_level 8 --packed_layout at the
 # chair widths): 2 dense levels (res 16, 50) and 2 fine levels of 2^16 block
@@ -109,13 +118,19 @@ KERNEL_INFO = {
         "source": "hashnerf_torch/csrc/scatter_add.cu",
         "replaces": "hashnerf_tpu/kernels/pallas_segment_accum.py:134",
     },
+    "hash_encode_bwd": {
+        "source": "hashnerf_torch/csrc/hash_encode.cu",
+        "replaces": "hashnerf_tpu/kernels/hash_encode_vjp.py:82",
+    },
 }
 # kernels each main path must launch (K1 and K4 keep the sorted contract,
-# which no path calls since K5)
+# which no path calls since K5; K3 is on no path since K6: OFF_PATH must
+# show 0 launches on every path)
 PATH_KERNELS = {
-    "chair": ("segment_accumulate_k5", "hash_encode_fwd", "hash_encode_bwd_expand"),
+    "chair": ("hash_encode_fwd", "hash_encode_bwd", "segment_accumulate_k5"),
     "packed": ("segment_accumulate_k5",),
 }
+OFF_PATH = ("segment_accumulate_k1", "segment_accumulate_k4", "hash_encode_bwd_expand")
 
 
 def emit(obj) -> None:
@@ -347,11 +362,25 @@ def chair_points(np, n: int, bmin: float, bmax: float, resolutions, seed: int = 
     return x
 
 
+def ray_points(np, n_rays: int, n_samples: int, seed: int):
+    """Sample points in the order the renderer encodes them: n_rays rays
+    from a sphere of radius 4 through the middle of the scene, each with
+    n_samples sorted depths in [2, 6] (the chair's near and far), so that
+    neighbouring points share voxels at the coarse levels."""
+    rng = np.random.default_rng(seed)
+    d = rng.normal(size=(n_rays, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    o = -4.0 * d + rng.uniform(-0.5, 0.5, (n_rays, 3))
+    t = np.sort(rng.uniform(2.0, 6.0, (n_rays, n_samples)), axis=1)
+    return (o[:, None, :] + t[..., None] * d[:, None, :]).reshape(-1, 3).astype(np.float32)
+
+
 def phase_hash_kernels(torch, np):
-    """K2, K3 and K1 at the chair shapes, against their plain versions."""
+    """K2, K6, K3 and K1 at the chair shapes, against their plain versions."""
+    from hashnerf_torch.kernels import hash_encode as he
     from hashnerf_torch.kernels.hash_encode import (
-        hash_encode_bwd_expand, hash_encode_bwd_expand_plain,
-        hash_encode_fwd, hash_encode_fwd_plain,
+        hash_encode_bwd, hash_encode_bwd_expand, hash_encode_bwd_expand_plain,
+        hash_encode_bwd_plain, hash_encode_fwd, hash_encode_fwd_plain,
     )
     from hashnerf_torch.kernels.segment_accum import (
         segment_accumulate_k1, segment_accumulate_k5, segment_accumulate_k5_plain,
@@ -395,12 +424,13 @@ def phase_hash_kernels(torch, np):
     torch.cuda.synchronize()
     k1_err = float((d_table - d_plain).abs().max())
     unique_rows = int((sidx[1:] != sidx[:-1]).sum()) + 1
-    # K5 on K3's output as it comes, as HashEncode.backward calls it
+    # K5 on K3's output as it comes: the route K6 replaced
     d_k5 = segment_accumulate_k5(flat_idx, vals, L * T)
     torch.cuda.synchronize()
     k5_err = float((d_k5 - d_plain).abs().max())
 
-    # K3 + K1 (the HashEncode backward) against autograd of the plain encode
+    # K3 + K1 and K3 + K5 (the encode backward's routes before K6) against
+    # autograd of the plain encode
     t_req = table.clone().requires_grad_(True)
     fp, _ = encode_with_resolutions(t_req, x, bmin, bmax, res, LOG2_T)
     (fp * g).sum().backward()
@@ -414,7 +444,15 @@ def phase_hash_kernels(torch, np):
     k5_ok = row_abs_ok(d_k5, d_plain, abs_sum)
     bwd5_ok = row_abs_ok(d_k5, auto, abs_sum)
     bwd5_err_max = float((d_k5 - auto).abs().max())
-    del t_req, fp, auto, abs_sum, bwd_err
+    # K6, the fused backward, as HashEncode.backward calls it
+    d_k6 = hash_encode_bwd(x, bmin, bmax, res, g, T).reshape(L * T, F)
+    d_k6_plain = hash_encode_bwd_plain(x, bmin, bmax, res, g, T).reshape(L * T, F)
+    torch.cuda.synchronize()
+    k6_err = float((d_k6 - d_k6_plain).abs().max())
+    k6_ok = row_abs_ok(d_k6, d_k6_plain, abs_sum)
+    k6_auto_ok = row_abs_ok(d_k6, auto, abs_sum)
+    k6_auto_err = float((d_k6 - auto).abs().max())
+    del t_req, fp, auto, abs_sum, bwd_err, d_k6, d_k6_plain
 
     require(keep_equal, "K2 keep mask differs from the plain version")
     require(feat_bad == 0, f"K2: {feat_bad} points outside rtol 1e-5 / atol 1e-7")
@@ -425,10 +463,10 @@ def phase_hash_kernels(torch, np):
     require(bwd_ok, f"K3+K1 vs autograd: max_abs_err {bwd_err_max}")
     require(k5_ok, f"K5 chair shape: max_abs_err {k5_err}")
     require(bwd5_ok, f"K3+K5 vs autograd: max_abs_err {bwd5_err_max}")
+    require(k6_ok, f"K6 vs its plain version: max_abs_err {k6_err}")
+    require(k6_auto_ok, f"K6 vs autograd: max_abs_err {k6_auto_err}")
 
     # timings (median of CUDA events)
-    k2_ms = cuda_ms(torch, lambda: hash_encode_fwd(table, x, bmin, bmax, res))
-    k2_plain_ms = cuda_ms(torch, lambda: hash_encode_fwd_plain(table, x, bmin, bmax, res), reps=5)
     k3_ms = cuda_ms(torch, lambda: hash_encode_bwd_expand(x, bmin, bmax, res, g, T))
     k3_plain_ms = cuda_ms(
         torch, lambda: hash_encode_bwd_expand_plain(x, bmin, bmax, res, g, T), reps=5)
@@ -459,18 +497,79 @@ def phase_hash_kernels(torch, np):
     del hot_idx, hot_vals, hot
 
     k1_bound = bound(M * 4 + M * F * 4 + L * T * F * 4, M * F)
-    k2_bound = bound(N * 12 + unique_rows * F * 4 + N * L * F * 4 + N + 24 + L * 4,
-                     N * L * K2_OPS)
     k3_bound = bound(N * 12 + N * L * F * 4 + M * 4 + M * F * 4 + 24 + L * 4,
                      N * L * K3_OPS)
+
+    # K2 and K6 at the fine and coarse passes' shapes, on the gate's uniform
+    # points and on points ordered along rays, beside their plain versions
+    # and the K3 + K5 route K6 replaced
+    point_sets = {
+        "fine": x, "coarse": x[:N_COARSE],
+        "fine_rays": torch.as_tensor(ray_points(np, 1024, 192, seed=2), device=dev),
+        "coarse_rays": torch.as_tensor(ray_points(np, 1024, 64, seed=3), device=dev),
+    }
+    shapes = {}
+    for name, xs in point_sets.items():
+        n = xs.shape[0]
+        gs = g[:n]
+        ids = hash_encode_bwd_expand(xs, bmin, bmax, res, gs, T)[0]
+        rows = int(torch.unique(ids).numel())
+        del ids
+        b2 = bound(n * 12 + rows * F * 4 + n * L * F * 4 + n + 24 + L * 4, n * L * K2_OPS)
+        b6 = bound(n * 12 + n * L * F * 4 + L * T * F * 4 + 24 + L * 4, n * L * K6_OPS)
+        shapes[name] = {
+            "N": n, "touched_rows": rows,
+            "k2_ms": cuda_ms(torch, lambda: hash_encode_fwd(table, xs, bmin, bmax, res)),
+            "k2_plain_ms": cuda_ms(torch, lambda: hash_encode_fwd_plain(table, xs, bmin, bmax, res),
+                                   reps=5),
+            "k2_bound_ms": b2[0], "k2_bound_by": b2[1],
+            "k6_ms": cuda_ms(torch, lambda: hash_encode_bwd(xs, bmin, bmax, res, gs, T)),
+            "k6_plain_ms": cuda_ms(torch, lambda: hash_encode_bwd_plain(xs, bmin, bmax, res, gs, T),
+                                   reps=3),
+            "k3_k5_route_ms": cuda_ms(torch, lambda: segment_accumulate_k5(
+                *hash_encode_bwd_expand(xs, bmin, bmax, res, gs, T), L * T)),
+            "k6_bound_ms": b6[0], "k6_bound_by": b6[1],
+        }
+        emit({"phase": "encode_shape", "points": name, **shapes[name]})
+
+    # launch layouts: levels in a group and the lane order, at the fine shape
+    layouts = {"k2": {}, "k6": {}}
+    saved = (he._K2_GROUP_LEVELS, he._K2_POINT_FASTEST, he._K6_GROUP_LEVELS, he._K6_POINT_FASTEST)
+    try:
+        for gl in (1, 2, 4, 8, 16):
+            for pf in (False, True):
+                he._K2_GROUP_LEVELS = he._K6_GROUP_LEVELS = gl
+                he._K2_POINT_FASTEST = he._K6_POINT_FASTEST = pf
+                key = f"GL{gl}_{'point' if pf else 'level'}_fastest"
+                for pts in ("fine", "fine_rays"):
+                    xs = point_sets[pts]
+                    layouts["k2"].setdefault(pts, {})[key] = cuda_ms(
+                        torch, lambda: hash_encode_fwd(table, xs, bmin, bmax, res))
+                    layouts["k6"].setdefault(pts, {})[key] = cuda_ms(
+                        torch, lambda: hash_encode_bwd(xs, bmin, bmax, res, g, T))
+    finally:
+        he._K2_GROUP_LEVELS, he._K2_POINT_FASTEST, he._K6_GROUP_LEVELS, he._K6_POINT_FASTEST = saved
+    emit({"phase": "encode_layouts", "defaults": {
+        "k2": {"group_levels": saved[0], "point_fastest": saved[1]},
+        "k6": {"group_levels": saved[2], "point_fastest": saved[3]}}, "ms": layouts})
+    del point_sets
+    fine = shapes["fine"]
     out = {
         "hash_encode_fwd": {
             "shape": {"N": N, "L": L, "T": T, "F": F}, "keep_equal": keep_equal,
             "keep_fraction": float(keep.float().mean()),
             "feat_mismatch_points": feat_bad, "corner_mismatch_points": corner_bad,
-            "max_abs_err": k2_err, "kernel_ms": k2_ms, "plain_ms": k2_plain_ms,
+            "max_abs_err": k2_err, "kernel_ms": fine["k2_ms"], "plain_ms": fine["k2_plain_ms"],
             "library_ms": None, "touched_rows": unique_rows,
-            "bound_ms": k2_bound[0], "bound_by": k2_bound[1],
+            "bound_ms": fine["k2_bound_ms"], "bound_by": fine["k2_bound_by"],
+        },
+        "hash_encode_bwd": {
+            "shape": {"N": N, "L": L, "T": T, "F": F}, "max_abs_err": k6_err,
+            "backward_vs_autograd_max_abs_err": k6_auto_err,
+            "kernel_ms": fine["k6_ms"], "plain_ms": fine["k6_plain_ms"], "library_ms": None,
+            "plain": "K3's plain expansion + sort_segments + index_add_",
+            "k3_k5_route_ms": fine["k3_k5_route_ms"],
+            "bound_ms": fine["k6_bound_ms"], "bound_by": fine["k6_bound_by"],
         },
         "hash_encode_bwd_expand": {
             "shape": {"N": N, "L": L, "M": M, "F": F},
@@ -501,6 +600,8 @@ def phase_hash_kernels(torch, np):
     del table, x, g, feats, feats_p, flat_idx, vals, flat_idx_p, vals_p, sidx, svals
     del d_table, d_plain, d_k5, idx64
     torch.cuda.empty_cache()
+    out["shapes"] = shapes
+    out["layouts"] = layouts
     return out
 
 
@@ -802,6 +903,11 @@ def phase_main_path(torch, np, path: str, flags, profile: bool):
         require(np.mean(losses[-5:]) < np.mean(losses[:5]), "loss did not fall")
         for name in PATH_KERNELS[path]:
             require(counts[name] > 0, f"kernel {name} was not launched on the {path} path")
+        for name in OFF_PATH:
+            require(counts[name] == 0, f"kernel {name} was launched on the {path} path")
+        if path == "chair":  # K5 only from the TV loss: K6 reduces the encode's gradient
+            require((c2["segment_accumulate_k5"] - c1["segment_accumulate_k5"]) == 0,
+                    "K5 was launched on the chair path without TV")
 
         per_step = lambda a, b, n: {k: (b[k] - a[k]) / n for k in a}
         rec = {

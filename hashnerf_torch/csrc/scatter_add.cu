@@ -3,10 +3,11 @@
 // Replaces: hashnerf_tpu/kernels/pallas_segment_accum.py:93-140,
 //   segment_accumulate_sorted (pl.pallas_call at :134), as the JAX package
 //   reaches it through kernels/segment_scatter.py::sorted_segment_accumulate
-//   (:43-59): the scatter-add of the hash-table gradients behind the hash
-//   encode's backward and every take_rows. On those paths K5 takes the place
-//   of torch.sort + K1 / K4 (segment_accum.cu), which stay for the sorted
-//   contract.
+//   (:43-59): the scatter-add of the table gradients behind every
+//   take_rows (the TV losses, the packed encode). On those paths K5 takes
+//   the place of torch.sort + K1 / K4 (segment_accum.cu), which stay for the
+//   sorted contract. The chair encode's backward reduces into its table
+//   itself (K6, hash_encode.cu), with the same device code.
 //
 // Computes out[r, :] += vals[j, :] for every j with 0 <= idx[j] < num_rows,
 // for ids in any order (int32 or int64), vals (M, F) float32 with
@@ -31,9 +32,9 @@
 //    one lane takes one update. __match_any_sync groups the lanes of a warp
 //    that hold the same row; each group sums its values by shuffles in
 //    log2(group size) rounds, and its first lane issues one reduction (two
-//    at F = 8). K3 emits updates in (level, point, corner) order, so at the
-//    coarse levels neighbouring samples of a ray share vertices: the grouping
-//    cuts the reductions where rows are hot.
+//    at F = 8): scatter_common.cuh::warp_group_add, which K6 shares. Where
+//    neighbouring updates share rows (hot TV rows, or K3's (level, point,
+//    corner) order at the coarse levels) the grouping cuts the reductions.
 //  * Wide rows, F > 8 (64-float voxel rows, 216-float slabs): a group of G
 //    lanes (a power of two: the fewest that give each lane one vector of the
 //    row, up to 32) takes a row; lane l holds vectors l, l + G,
@@ -50,6 +51,8 @@
 #include <cuda_runtime.h>
 #include <cstdint>
 
+#include "scatter_common.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -57,29 +60,8 @@ constexpr int kBlocksPerSM = 8;
 constexpr int kUnroll = 4;
 constexpr int kMaxF = 256;
 
-template <int VW>
-__device__ __forceinline__ void load_vec(const float* p, float* v) {
-  if constexpr (VW == 4) {
-    const float4 t = __ldcs(reinterpret_cast<const float4*>(p));
-    v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
-  } else if constexpr (VW == 2) {
-    const float2 t = __ldcs(reinterpret_cast<const float2*>(p));
-    v[0] = t.x; v[1] = t.y;
-  } else {
-    v[0] = __ldcs(p);
-  }
-}
-
-template <int VW>
-__device__ __forceinline__ void red_vec(float* p, const float* v) {
-  if constexpr (VW == 4) {
-    atomicAdd(reinterpret_cast<float4*>(p), make_float4(v[0], v[1], v[2], v[3]));
-  } else if constexpr (VW == 2) {
-    atomicAdd(reinterpret_cast<float2*>(p), make_float2(v[0], v[1]));
-  } else {
-    atomicAdd(p, v[0]);
-  }
-}
+using scatter::load_vec;
+using scatter::red_vec;
 
 // the row of update j, or -1 where it is dropped
 template <typename Idx>
@@ -92,13 +74,12 @@ template <typename Idx, int F>
 __global__ void __launch_bounds__(kThreads)
 scatter_narrow_kernel(const Idx* __restrict__ idx, const float* __restrict__ vals,
                       float* __restrict__ out, int64_t M, int64_t num_rows) {
-  constexpr int VW = F % 4 == 0 ? 4 : (F % 2 == 0 ? 2 : 1);
+  constexpr int VW = scatter::vec_width<F>();
   const int lane = threadIdx.x & 31;
-  const unsigned below = (1u << lane) - 1u;  // lanes under this one
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
 
-  // base is warp-uniform, so all 32 lanes run every iteration together and
-  // the full-mask votes and shuffles below are safe
+  // base is warp-uniform, so all 32 lanes run every iteration together, as
+  // warp_group_add's full-mask votes and shuffles require
   for (int64_t base = static_cast<int64_t>(blockIdx.x) * blockDim.x + (threadIdx.x & ~31);
        base < M; base += stride) {
     const int64_t j = base + lane;
@@ -110,29 +91,7 @@ scatter_narrow_kernel(const Idx* __restrict__ idx, const float* __restrict__ val
 #pragma unroll
       for (int f = 0; f < F; f += VW) load_vec<VW>(vals + j * F + f, v + f);
     }
-
-    // Lanes of one row (dropped lanes, key -1, form one group too). A tree
-    // sum: in each round every lane still in its group adds the value of the
-    // next lane still in it, then the lanes of odd rank leave. The first lane
-    // ends with the group's sum.
-    const unsigned peers = __match_any_sync(0xffffffffu, key);
-    unsigned rest = peers & ~below & ~(1u << lane);  // the group's lanes above this one
-    unsigned rank = __popc(peers & below);
-    while (__any_sync(0xffffffffu, rest != 0)) {
-      const int next = rest ? __ffs(rest) - 1 : lane;
-#pragma unroll
-      for (int f = 0; f < F; ++f) {
-        const float o = __shfl_sync(0xffffffffu, v[f], next);
-        if (next != lane) v[f] += o;
-      }
-      rest &= ~__ballot_sync(0xffffffffu, rank & 1u);
-      rank >>= 1;
-    }
-    if (key >= 0 && (peers & below) == 0) {
-      float* dst = out + static_cast<int64_t>(key) * F;
-#pragma unroll
-      for (int f = 0; f < F; f += VW) red_vec<VW>(dst + f, v + f);
-    }
+    scatter::warp_group_add<F>(key, v, out, F);
   }
 }
 

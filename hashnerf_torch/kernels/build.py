@@ -11,7 +11,8 @@ it, and fast math is never used: a contracted or approximate operation in
 the voxel geometry can flip `floor` at a cell boundary (hash_encode.cu).
 
 Libraries go into hashnerf_torch/build/ (git-ignored), named by a hash of
-their source, so an edited source is rebuilt and an unchanged one is
+their source and of every header in csrc/ (`*.cuh`, which a source may
+include), so an edited source or header is rebuilt and an unchanged one is
 reused. The build happens at first use; `build_all` starts every nvcc at
 once. A failed build raises: there is no fallback to the plain versions.
 """
@@ -48,10 +49,13 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> str:
-    src = os.path.join(CSRC_DIR, name + ".cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return os.path.join(BUILD_DIR, f"{name}-{digest}.so")
+    h = hashlib.sha1()
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for fname in [name + ".cu", *headers]:
+        with open(os.path.join(CSRC_DIR, fname), "rb") as f:
+            h.update(fname.encode() + b"\0" + f.read())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:12]}.so")
 
 
 def _start_build(name: str):

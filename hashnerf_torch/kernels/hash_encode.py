@@ -1,12 +1,15 @@
-"""K2 and K3: the hash-grid encode, with a scatter-add backward.
+"""K2, K6 and K3: the hash-grid encode and its backward.
 
 Counterpart of hashnerf_tpu/kernels/hash_encode_vjp.py (hash_encode_fast).
 `HashEncode` is a torch.autograd.Function:
 
   forward   K2 hash_encode_fwd -> (feats (N, L*F), keep (N,))
-  backward  K3 hash_encode_bwd_expand -> (flat_idx, vals) for every
-            (level, point, corner), then sorted_segment_accumulate (K5 on
-            the card, no sort) into d_table (L, T, F).
+  backward  K6 hash_encode_bwd -> d_table (L, T, F): the geometry recomputed
+            and each corner's cw * g added straight into the table.
+
+K3 (hash_encode_bwd_expand), which writes every (level, point, corner) as
+an (id, value) pair for K5 to add, is on no path since K6; it stays as the
+route K6 replaced and for the corner-id gate of chip_smoke.py.
 
 Only x and the bbox are saved; the backward recomputes the geometry, as the
 JAX backward does. No gradient flows to x or the bbox. The CUDA kernels are
@@ -22,14 +25,23 @@ from typing import Tuple
 import torch
 
 from hashnerf_torch.kernels import build
-from hashnerf_torch.kernels.segment_accum import sorted_segment_accumulate
+from hashnerf_torch.kernels.segment_accum import segment_accumulate_k5_plain
 from hashnerf_torch.ops.hash_encoding import corner_geometry, encode_with_resolutions
 
+# Launch layout of K2 and K6 (csrc/hash_encode.cu): levels in a group, and
+# whether the lanes of a warp take 32 points of one level (point-fastest)
+# or the group's levels of one point after another. chip_smoke.py times
+# groups of 1 to 16 levels in both orders on the card.
+_K2_GROUP_LEVELS = 4
+_K2_POINT_FASTEST = False
+_K6_GROUP_LEVELS = 4
+_K6_POINT_FASTEST = True
+
+_INTS = [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int]
 _ARGTYPES = {
-    "hash_encode_fwd": [ctypes.c_void_p] * 7
-    + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
-    "hash_encode_bwd_expand": [ctypes.c_void_p] * 7
-    + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
+    "hash_encode_fwd": [ctypes.c_void_p] * 7 + _INTS + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
+    "hash_encode_bwd": [ctypes.c_void_p] * 6 + _INTS + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
+    "hash_encode_bwd_expand": [ctypes.c_void_p] * 7 + _INTS + [ctypes.c_void_p],
 }
 
 
@@ -52,17 +64,30 @@ def _on_cpu(*ts: torch.Tensor) -> bool:
     return all(t.device.type == "cpu" for t in ts)
 
 
-def _check_cuda(name: str, ts, L: int, T: int) -> None:
-    dev = ts[0].device
+def _check_inputs(name: str, ts, L: int, T: int) -> None:
     for t in ts:
-        if t.device.type != "cuda" or t.device != dev:
-            raise ValueError(f"{name}: every tensor must be on one CUDA device")
         if t.dtype != torch.float32:
             raise TypeError(f"{name}: want float32, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: inputs must be contiguous")
     if L * T >= 2**31:
         raise ValueError(f"{name}: L*T = {L * T} exceeds int32 row ids")
+
+
+def _check_cuda(name: str, ts, L: int, T: int) -> None:
+    dev = ts[0].device
+    for t in ts:
+        if t.device.type != "cuda" or t.device != dev:
+            raise ValueError(f"{name}: every tensor must be on one CUDA device")
+    _check_inputs(name, ts, L, T)
+
+
+def _check_aligned(name: str, t: torch.Tensor, F: int) -> None:
+    """Rows of F floats are read as 16-byte (F % 4 == 0) or 8-byte (F = 2)
+    vectors: the first row must be aligned to that."""
+    align = 16 if F % 4 == 0 else 8 if F == 2 else 4
+    if t.data_ptr() % align:
+        raise ValueError(f"{name}: data at {t.data_ptr():#x} not {align}-byte aligned")
 
 
 def _check_geometry(name, x, bbox_min, bbox_max, resolutions, L):
@@ -100,10 +125,12 @@ def hash_encode_fwd(
     N = x.shape[0]
     feats = torch.empty((N, L * F), dtype=torch.float32, device=x.device)
     keep = torch.empty((N,), dtype=torch.bool, device=x.device)
+    _check_aligned("hash_encode_fwd", table, F)
     err = _fn("hash_encode_fwd")(
         table.data_ptr(), x.data_ptr(), bbox_min.data_ptr(), bbox_max.data_ptr(),
         resolutions.data_ptr(), feats.data_ptr(), keep.data_ptr(),
-        N, L, _log2(T), F, torch.cuda.current_stream(x.device).cuda_stream,
+        N, L, _log2(T), F, _K2_GROUP_LEVELS, int(_K2_POINT_FASTEST),
+        torch.cuda.current_stream(x.device).cuda_stream,
     )
     build.check(err, "hash_encode_fwd")
     hash_encode_fwd.launches += 1
@@ -114,7 +141,63 @@ hash_encode_fwd.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# K3
+# K6
+# ---------------------------------------------------------------------------
+
+def _check_g(name, x, g_feats, L):
+    N = x.shape[0]
+    if g_feats.dim() != 2 or g_feats.shape[0] != N or g_feats.shape[1] % L:
+        raise ValueError(f"{name}: g_feats {tuple(g_feats.shape)} for N={N}, L={L}")
+    return g_feats.shape[1] // L
+
+
+def hash_encode_bwd_plain(x, bbox_min, bbox_max, resolutions, g_feats, T):
+    """Plain version of K6: K3's plain expansion, then K5's plain scatter-add
+    (a stable sort and index_add_) -> d_table (L, T, F)."""
+    L = resolutions.shape[0]
+    flat_idx, vals = hash_encode_bwd_expand_plain(x, bbox_min, bbox_max, resolutions, g_feats, T)
+    return segment_accumulate_k5_plain(flat_idx, vals, L * T).reshape(L, T, vals.shape[1])
+
+
+def hash_encode_bwd(
+    x: torch.Tensor,
+    bbox_min: torch.Tensor,
+    bbox_max: torch.Tensor,
+    resolutions: torch.Tensor,
+    g_feats: torch.Tensor,
+    T: int,
+) -> torch.Tensor:
+    """The encode's table gradient: d_table[l, idx_c, :] += cw_c * g[n, l*F:(l+1)*F]
+    for every (level, point, corner). x (N, 3), bbox (3,) each,
+    resolutions (L,), g_feats (N, L*F), all float32 and contiguous
+    -> d_table (L, T, F) float32."""
+    name = "hash_encode_bwd"
+    L = resolutions.shape[0]
+    _check_geometry(name, x, bbox_min, bbox_max, resolutions, L)
+    F = _check_g(name, x, g_feats, L)
+    ts = (x, bbox_min, bbox_max, resolutions, g_feats)
+    _check_inputs(name, ts, L, T)
+    log2T = _log2(T)
+    if _on_cpu(*ts):
+        return hash_encode_bwd_plain(x, bbox_min, bbox_max, resolutions, g_feats, T)
+    _check_cuda(name, ts, L, T)
+    _check_aligned(name, g_feats, F)
+    d_table = torch.zeros((L, T, F), dtype=torch.float32, device=x.device)
+    err = _fn(name)(
+        x.data_ptr(), bbox_min.data_ptr(), bbox_max.data_ptr(), resolutions.data_ptr(),
+        g_feats.data_ptr(), d_table.data_ptr(), x.shape[0], L, log2T, F,
+        _K6_GROUP_LEVELS, int(_K6_POINT_FASTEST), torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    build.check(err, name)
+    hash_encode_bwd.launches += 1
+    return d_table
+
+
+hash_encode_bwd.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K3 (on no path since K6)
 # ---------------------------------------------------------------------------
 
 def hash_encode_bwd_expand_plain(x, bbox_min, bbox_max, resolutions, g_feats, T):
@@ -142,9 +225,7 @@ def hash_encode_bwd_expand(
     L = resolutions.shape[0]
     _check_geometry("hash_encode_bwd_expand", x, bbox_min, bbox_max, resolutions, L)
     N = x.shape[0]
-    if g_feats.dim() != 2 or g_feats.shape[0] != N or g_feats.shape[1] % L:
-        raise ValueError(f"hash_encode_bwd_expand: g_feats {tuple(g_feats.shape)} for N={N}, L={L}")
-    F = g_feats.shape[1] // L
+    F = _check_g("hash_encode_bwd_expand", x, g_feats, L)
     if _on_cpu(x, bbox_min, bbox_max, resolutions, g_feats):
         return hash_encode_bwd_expand_plain(x, bbox_min, bbox_max, resolutions, g_feats, T)
     _check_cuda("hash_encode_bwd_expand", (x, bbox_min, bbox_max, resolutions, g_feats), L, T)
@@ -178,11 +259,10 @@ class HashEncode(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g_feats, _g_keep):
         x, bbox_min, bbox_max, resolutions = ctx.saved_tensors
-        L, T, F = ctx.table_shape
-        flat_idx, vals = hash_encode_bwd_expand(
-            x, bbox_min, bbox_max, resolutions, g_feats.contiguous(), T
+        d_table = hash_encode_bwd(
+            x.contiguous(), bbox_min.contiguous(), bbox_max.contiguous(), resolutions.contiguous(),
+            g_feats.contiguous(), ctx.table_shape[1],
         )
-        d_table = sorted_segment_accumulate(flat_idx, vals, L * T).reshape(L, T, F)
         return d_table, None, None, None, None
 
 

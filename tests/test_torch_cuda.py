@@ -62,18 +62,34 @@ def scatter_family(name):
             rng.normal(size=(3000, F)).astype(np.float32), 4096)
 
 
-def encode_inputs(seed, L, log2_T, base, finest, n, lo, hi):
+def encode_inputs(seed, L, log2_T, base, finest, n, lo, hi, F=2):
     """(table, x, probe, bmin, bmax, cfg): a normal table, points in the bbox
     grown by 20% on each side, a normal cotangent for the features."""
     rng = np.random.default_rng(seed)
-    table = rng.normal(size=(L, 1 << log2_T, 2)).astype(np.float32)
+    table = rng.normal(size=(L, 1 << log2_T, F)).astype(np.float32)
     x = rng.uniform(lo - 0.2 * (hi - lo), hi + 0.2 * (hi - lo), (n, 3)).astype(np.float32)
-    probe = rng.normal(size=(n, 2 * L)).astype(np.float32)
+    probe = rng.normal(size=(n, F * L)).astype(np.float32)
     bmin = np.full(3, lo, np.float32)
     bmax = np.full(3, hi, np.float32)
-    cfg = HashGridConfig(n_levels=L, log2_hashmap_size=log2_T, base_resolution=base,
-                         finest_resolution=finest)
+    cfg = HashGridConfig(n_levels=L, n_features_per_level=F, log2_hashmap_size=log2_T,
+                         base_resolution=base, finest_resolution=finest)
     return table, x, probe, bmin, bmax, cfg
+
+
+def snap_to_vertices(x, cfg, lo, hi, frac, seed):
+    """x with a fraction `frac` of its points moved onto grid vertices of a
+    random level, computed in float32 as the encoder computes them, so that
+    floor() meets cell boundaries."""
+    rng = np.random.default_rng(seed)
+    n = x.shape[0]
+    res = np.asarray(cfg.resolutions, np.float32)[rng.integers(0, cfg.n_levels, n)]
+    grid = (np.float32(hi) - np.float32(lo)) / res
+    k = np.floor(rng.uniform(0, 1, (n, 3)) * res[:, None]).astype(np.float32)
+    snapped = (k * grid[:, None] + np.float32(lo)).astype(np.float32)
+    pick = rng.random(n) < frac
+    out = x.copy()
+    out[pick] = snapped[pick]
+    return out
 
 
 @pytest.fixture
@@ -110,7 +126,7 @@ def test_hash_encode_on_card_matches_plain(cuda_device):
     f, k = he.hash_encode(tt, *args)
     (f * g).sum().backward()
     after = launch_counts()
-    path = ("hash_encode_fwd", "hash_encode_bwd_expand", "segment_accumulate_k5")
+    path = ("hash_encode_fwd", "hash_encode_bwd")
     assert all(after[n] == before[n] + (n in path) for n in after)
 
     fp, kp = he.hash_encode_fwd_plain(tt.detach(), *args)
@@ -121,6 +137,54 @@ def test_hash_encode_on_card_matches_plain(cuda_device):
     fq, _ = encode_with_resolutions(tp, *args, 14)
     (fq * g).sum().backward()
     torch.testing.assert_close(tt.grad, tp.grad, rtol=1e-4, atol=1e-5)
+
+
+def layout_inputs(dev, F):
+    """K2 / K6 inputs with N = 4001 (not a multiple of 32: a warp tail), a
+    third of the points outside the bbox and a tenth on grid vertices."""
+    table, x, probe, bmin, bmax, cfg = encode_inputs(5, 16, 12, 16, 512, 4001, -1.6, 1.6, F=F)
+    x = snap_to_vertices(x, cfg, -1.6, 1.6, 0.1, seed=6)
+    to = lambda a: torch.from_numpy(a).to(dev)
+    return to(table), [to(x), to(bmin), to(bmax), cfg.resolutions_tensor(dev)], to(probe)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("point_fastest", [False, True])
+@pytest.mark.parametrize("group_levels", [1, 4, 16])
+@pytest.mark.parametrize("F", [1, 2, 3, 8])
+def test_k6_on_card_matches_plain(cuda_device, monkeypatch, F, group_levels, point_fastest):
+    monkeypatch.setattr(he, "_K6_GROUP_LEVELS", group_levels)
+    monkeypatch.setattr(he, "_K6_POINT_FASTEST", point_fastest)
+    table, args, g = layout_inputs(cuda_device, F)
+    T = table.shape[1]
+    before = launch_counts()
+    got = he.hash_encode_bwd(*args, g, T)
+    after = launch_counts()
+    assert all(after[n] == before[n] + (n == "hash_encode_bwd") for n in after)
+    torch.cuda.synchronize()
+    plain = he.hash_encode_bwd_plain(*args, g, T)
+    # atomics add in an order that changes from run to run: each entry may
+    # differ from the plain version by 2e-5 of its row's absolute sum
+    abs_sum = he.hash_encode_bwd_plain(*args, g.abs(), T)
+    assert got.shape == plain.shape == table.shape
+    assert bool(((got - plain).abs() <= 2e-5 * abs_sum + 1e-6).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("point_fastest", [False, True])
+@pytest.mark.parametrize("group_levels", [1, 4, 16])
+@pytest.mark.parametrize("F", [1, 2, 3, 8])
+def test_k2_layouts_on_card_match_plain(cuda_device, monkeypatch, F, group_levels, point_fastest):
+    monkeypatch.setattr(he, "_K2_GROUP_LEVELS", group_levels)
+    monkeypatch.setattr(he, "_K2_POINT_FASTEST", point_fastest)
+    table, args, _ = layout_inputs(cuda_device, F)
+    before = launch_counts()["hash_encode_fwd"]
+    f, k = he.hash_encode_fwd(table, *args)
+    assert launch_counts()["hash_encode_fwd"] == before + 1
+    fp, kp = he.hash_encode_fwd_plain(table, *args)
+    assert torch.equal(k, kp)
+    # same corners and weights; the blend may round its products differently
+    torch.testing.assert_close(f, fp, rtol=1e-5, atol=1e-7)
 
 
 @pytest.mark.cuda

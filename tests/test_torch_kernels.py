@@ -5,9 +5,13 @@ against the plain versions on the card in test_torch_cuda.py.
 The sorted segment-sum (K1's contract) is held against the JAX TPU
 formulation `_sorted_segment_accumulate_tpu`, which runs the Pallas kernel
 in interpret mode on the CPU; the scatter-add (K5's contract) against JAX's
-`sorted_segment_accumulate`; HashEncode against `hash_encode_fast` and its
-custom VJP; take_rows against JAX take_rows.
+`sorted_segment_accumulate`; HashEncode and its backward (K6's contract)
+against `hash_encode_fast` and its custom VJP; take_rows against JAX
+take_rows.
 """
+import os
+import shutil
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -19,7 +23,7 @@ torch.set_num_threads(2)
 from hashnerf_tpu.kernels.segment_scatter import _sorted_segment_accumulate_tpu
 from hashnerf_tpu.kernels.segment_scatter import sorted_segment_accumulate as jax_scatter
 from hashnerf_tpu.ops.hash_encoding import HashGridConfig as JCfg
-from hashnerf_torch.kernels import launch_counts, reset_launch_counts
+from hashnerf_torch.kernels import build, launch_counts, reset_launch_counts
 from hashnerf_torch.kernels import hash_encode as the
 from hashnerf_torch.kernels.gather import take_rows
 from hashnerf_torch.kernels.segment_accum import (
@@ -114,7 +118,68 @@ def test_cpu_tensors_take_plain_versions_without_launching():
     take_rows(torch.zeros((T, 8), requires_grad=True), _t(idx).long()).sum().backward()
     assert launch_counts() == {"segment_accumulate_k1": 0, "hash_encode_fwd": 0,
                                "hash_encode_bwd_expand": 0, "segment_accumulate_k4": 0,
-                               "segment_accumulate_k5": 0}
+                               "segment_accumulate_k5": 0, "hash_encode_bwd": 0}
+
+
+def test_library_path_follows_headers(tmp_path, monkeypatch):
+    """A source that includes csrc/*.cuh is rebuilt when a header changes."""
+    csrc = tmp_path / "csrc"
+    shutil.copytree(build.CSRC_DIR, csrc)
+    monkeypatch.setattr(build, "CSRC_DIR", str(csrc))
+    headers = sorted(f for f in os.listdir(csrc) if f.endswith(".cuh"))
+    assert headers, "csrc/ holds no header"
+    before = {name: build.library_path(name) for name in build.SOURCES}
+    assert before == {name: build.library_path(name) for name in build.SOURCES}
+    with open(csrc / headers[0], "ab") as f:
+        f.write(b"\n// edited\n")
+    after = {name: build.library_path(name) for name in build.SOURCES}
+    assert all(after[name] != before[name] for name in build.SOURCES)
+    assert all(os.path.dirname(p) == build.BUILD_DIR for p in after.values())
+
+
+@pytest.mark.parametrize("L,log2_T,F", [(4, 10, 2), (16, 12, 2), (4, 10, 8)])
+def test_hash_encode_bwd_matches_jax_vjp(L, log2_T, F):
+    """K6's contract on CPU tensors (its plain version) against the table
+    cotangent of jax.vjp(hash_encode_fast)."""
+    from hashnerf_tpu.kernels.hash_encode_vjp import hash_encode_fast
+
+    base, finest, lo, hi = (4, 32, -1.0, 1.0) if L == 4 else (16, 512, -1.6, 1.6)
+    table, x, probe, bmin, bmax, tcfg = encode_inputs(2, L, log2_T, base, finest, 300, lo, hi, F=F)
+    jcfg = JCfg(n_levels=L, n_features_per_level=F, log2_hashmap_size=log2_T,
+                base_resolution=base, finest_resolution=finest)
+    jargs = (jnp.asarray(x), jnp.asarray(bmin), jnp.asarray(bmax))
+    _, vjp = jax.vjp(lambda t: hash_encode_fast(t, *jargs, jcfg)[0], jnp.asarray(table))
+    (want,) = vjp(jnp.asarray(probe))
+
+    reset_launch_counts()
+    got = the.hash_encode_bwd(_t(x), _t(bmin), _t(bmax), tcfg.resolutions_tensor("cpu"),
+                              _t(probe), 1 << log2_T)
+    assert launch_counts()["hash_encode_bwd"] == 0
+    assert got.shape == (L, 1 << log2_T, F) and got.dtype == torch.float32
+    # the same corner values summed in another order
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4, atol=1e-7)
+
+
+@pytest.mark.parametrize("bad", ["x_shape", "g_shape", "bbox_shape", "dtype", "noncontiguous",
+                                 "rows", "meta"])
+def test_k6_wrapper_checks(bad):
+    table, x, probe, bmin, bmax, cfg = encode_inputs(3, 4, 10, 4, 32, 64, -1.0, 1.0)
+    x, probe, bmin, bmax = _t(x), _t(probe), _t(bmin), _t(bmax)
+    res, T = cfg.resolutions_tensor("cpu"), 1 << 10
+    # the checks come before the device's, so CPU tensors reach each of them
+    args = {
+        "x_shape": (x[:, :2], bmin, bmax, res, probe, T),
+        "g_shape": (x, bmin, bmax, res, probe[:, :7], T),
+        "bbox_shape": (x, bmin[:2], bmax, res, probe, T),
+        "dtype": (x, bmin, bmax, res, probe.double(), T),
+        "noncontiguous": (x, bmin, bmax, res, probe.t().contiguous().t(), T),
+        "rows": (x, bmin, bmax, res, probe, 2**29),  # L*T = 2^31 overflows int32 row ids
+        # neither CPU nor CUDA: the wrapper raises instead of taking a plain path
+        "meta": tuple(a.to("meta") if isinstance(a, torch.Tensor) else a
+                      for a in (x, bmin, bmax, res, probe, T)),
+    }[bad]
+    with pytest.raises(TypeError if bad == "dtype" else ValueError):
+        the.hash_encode_bwd(*args)
 
 
 @pytest.mark.parametrize("L,log2_T,base,finest,lo,hi", [
