@@ -17,8 +17,9 @@ Imports hashnerf_torch (never jax or hashnerf_tpu) and, on one CUDA card:
       corner updates; the coarse pass has 65,536 points): K6, the fused
       encode backward, against its plain version, against autograd of the
       plain encode and beside the K3 + K5 route it replaced; K2 and K6 on
-      uniform points and on points ordered along rays, over their level
-      groups and lane orders;
+      uniform points and on points ordered along rays, and over their
+      level groups, each checked against its plain version (K2 there by
+      the bound on the blend's summation order, BLEND_ORDER_RTOL);
     - K5, the sort-free scatter-add, on the same five cases and three at
       F = 216, each with its ids shuffled and sorted, on ids outside the
       table and on one hot row at each width; then at the chair shape and
@@ -150,6 +151,47 @@ def row_abs_ok(got, want, abs_sum) -> bool:
     """Atomics add in an order that changes from run to run: each entry may
     differ from the plain version by 2e-5 of its row's absolute sum."""
     return bool(((got - want).abs() <= 2e-5 * abs_sum + 1e-6).all())
+
+
+# K2 and its plain version sum the same 8 float32 products (cw_c * row_c) in
+# other orders. Each float32 sum of 8 terms is within gamma_7 = 7u / (1 - 7u)
+# (u = 2^-24) of the terms' absolute sum from the exact sum, so the two
+# differ by at most twice that.
+BLEND_ORDER_RTOL = 2 * 7 * 2.0**-24 / (1 - 7 * 2.0**-24)
+
+
+def blend_abs_sum(torch, table, xs, bmin, bmax, res):
+    """(N, L*F): sum over the 8 corners of |cw_c * row_c|, the scale of the
+    rounding of each blended feature."""
+    from hashnerf_torch.ops.hash_encoding import corner_geometry
+
+    L, T, F = table.shape
+    idx, cw, _ = corner_geometry(xs, bmin, bmax, res, T.bit_length() - 1)
+    flat = idx + (torch.arange(L, device=xs.device) * T)[:, None, None]
+    emb = table.reshape(L * T, F)[flat.reshape(-1)].reshape(L, -1, 8, F)
+    return (cw[..., None] * emb).abs().sum(dim=2).permute(1, 0, 2).reshape(xs.shape[0], L * F)
+
+
+def check_encode(torch, what: str, ref, k2_out, d_k6):
+    """K2's (feats, keep) and K6's d_table against their plain versions in
+    ref: keep equal, each feature within BLEND_ORDER_RTOL of its blend's
+    absolute sum, the table gradient within row_abs_ok. Returns the max
+    errors and the count of features outside the uniform gate's rtol 1e-5 /
+    atol 1e-7, which a sum that cancels can leave."""
+    feats, keep = k2_out
+    feats_p, keep_p = ref["k2"]
+    torch.cuda.synchronize()
+    require(bool(torch.equal(keep, keep_p)), f"K2 keep mask differs ({what})")
+    err = (feats - feats_p).abs()
+    ratio = float((err / ref["k2_abs_sum"].clamp_min(1e-30)).max())
+    require(ratio <= BLEND_ORDER_RTOL,
+            f"K2 ({what}): a feature differs by {ratio} of its blend's absolute sum")
+    k6_err = float((d_k6 - ref["k6"]).abs().max())
+    require(row_abs_ok(d_k6, ref["k6"], ref["k6_abs_sum"]),
+            f"K6 vs its plain version ({what}): max_abs_err {k6_err}")
+    return {"k2_max_abs_err": float(err.max()), "k2_max_err_over_abs_sum": ratio,
+            "k2_outside_rtol_1e-5_atol_1e-7": int((err > 1e-7 + 1e-5 * feats_p.abs()).sum()),
+            "k6_max_abs_err": k6_err}
 
 
 def bound(nbytes: float, nops: float):
@@ -501,24 +543,35 @@ def phase_hash_kernels(torch, np):
                      N * L * K3_OPS)
 
     # K2 and K6 at the fine and coarse passes' shapes, on the gate's uniform
-    # points and on points ordered along rays, beside their plain versions
+    # points and on points ordered along rays (where K6's warps group the
+    # most lanes), each held against its plain version, and timed beside it
     # and the K3 + K5 route K6 replaced
     point_sets = {
         "fine": x, "coarse": x[:N_COARSE],
         "fine_rays": torch.as_tensor(ray_points(np, 1024, 192, seed=2), device=dev),
         "coarse_rays": torch.as_tensor(ray_points(np, 1024, 64, seed=3), device=dev),
     }
-    shapes = {}
+    shapes, refs = {}, {}
     for name, xs in point_sets.items():
         n = xs.shape[0]
         gs = g[:n]
         ids = hash_encode_bwd_expand(xs, bmin, bmax, res, gs, T)[0]
         rows = int(torch.unique(ids).numel())
         del ids
+        refs[name] = {
+            "k2": hash_encode_fwd_plain(table, xs, bmin, bmax, res),
+            "k2_abs_sum": blend_abs_sum(torch, table, xs, bmin, bmax, res),
+            "k6": hash_encode_bwd_plain(xs, bmin, bmax, res, gs, T),
+            "k6_abs_sum": hash_encode_bwd_plain(xs, bmin, bmax, res, gs.abs(), T),
+        }
+        k2_out = hash_encode_fwd(table, xs, bmin, bmax, res)
+        refs[name]["k2_kernel"] = k2_out[0]
+        errs = check_encode(torch, name, refs[name], k2_out,
+                            hash_encode_bwd(xs, bmin, bmax, res, gs, T))
         b2 = bound(n * 12 + rows * F * 4 + n * L * F * 4 + n + 24 + L * 4, n * L * K2_OPS)
         b6 = bound(n * 12 + n * L * F * 4 + L * T * F * 4 + 24 + L * 4, n * L * K6_OPS)
         shapes[name] = {
-            "N": n, "touched_rows": rows,
+            "N": n, "touched_rows": rows, **errs,
             "k2_ms": cuda_ms(torch, lambda: hash_encode_fwd(table, xs, bmin, bmax, res)),
             "k2_plain_ms": cuda_ms(torch, lambda: hash_encode_fwd_plain(table, xs, bmin, bmax, res),
                                    reps=5),
@@ -531,27 +584,32 @@ def phase_hash_kernels(torch, np):
             "k6_bound_ms": b6[0], "k6_bound_by": b6[1],
         }
         emit({"phase": "encode_shape", "points": name, **shapes[name]})
+        if name not in ("fine", "fine_rays"):
+            del refs[name]
 
-    # launch layouts: levels in a group and the lane order, at the fine shape
+    # levels in a group, at the fine shape: each group size checked (K2's
+    # features do not depend on it, bit for bit), then timed
     layouts = {"k2": {}, "k6": {}}
-    saved = (he._K2_GROUP_LEVELS, he._K2_POINT_FASTEST, he._K6_GROUP_LEVELS, he._K6_POINT_FASTEST)
+    saved = (he._K2_GROUP_LEVELS, he._K6_GROUP_LEVELS)
     try:
         for gl in (1, 2, 4, 8, 16):
-            for pf in (False, True):
-                he._K2_GROUP_LEVELS = he._K6_GROUP_LEVELS = gl
-                he._K2_POINT_FASTEST = he._K6_POINT_FASTEST = pf
-                key = f"GL{gl}_{'point' if pf else 'level'}_fastest"
-                for pts in ("fine", "fine_rays"):
-                    xs = point_sets[pts]
-                    layouts["k2"].setdefault(pts, {})[key] = cuda_ms(
-                        torch, lambda: hash_encode_fwd(table, xs, bmin, bmax, res))
-                    layouts["k6"].setdefault(pts, {})[key] = cuda_ms(
-                        torch, lambda: hash_encode_bwd(xs, bmin, bmax, res, g, T))
+            he._K2_GROUP_LEVELS = he._K6_GROUP_LEVELS = gl
+            for pts in ("fine", "fine_rays"):
+                xs = point_sets[pts]
+                what = f"{pts}, {gl} levels a group"
+                k2_out = hash_encode_fwd(table, xs, bmin, bmax, res)
+                check_encode(torch, what, refs[pts], k2_out, hash_encode_bwd(xs, bmin, bmax, res, g, T))
+                require(bool(torch.equal(k2_out[0], refs[pts]["k2_kernel"])),
+                        f"K2 ({what}): features depend on the group size")
+                layouts["k2"].setdefault(pts, {})[gl] = cuda_ms(
+                    torch, lambda: hash_encode_fwd(table, xs, bmin, bmax, res))
+                layouts["k6"].setdefault(pts, {})[gl] = cuda_ms(
+                    torch, lambda: hash_encode_bwd(xs, bmin, bmax, res, g, T))
     finally:
-        he._K2_GROUP_LEVELS, he._K2_POINT_FASTEST, he._K6_GROUP_LEVELS, he._K6_POINT_FASTEST = saved
-    emit({"phase": "encode_layouts", "defaults": {
-        "k2": {"group_levels": saved[0], "point_fastest": saved[1]},
-        "k6": {"group_levels": saved[2], "point_fastest": saved[3]}}, "ms": layouts})
+        he._K2_GROUP_LEVELS, he._K6_GROUP_LEVELS = saved
+    emit({"phase": "encode_layouts", "group_levels_default": {"k2": saved[0], "k6": saved[1]},
+          "ms_by_group_levels": layouts})
+    del refs
     del point_sets
     fine = shapes["fine"]
     out = {

@@ -43,11 +43,13 @@
 //    outermost (GL, a launch argument, 4 levels = 16.8 MB of a 2^19 x 2
 //    table). The blocks in flight then gather from, or reduce into, one
 //    group's table slice, which stays in the L2; the whole table does not.
-//  * Inside a group, lanes take either the GL levels of one point and then
-//    the next point (level-fastest: a warp reads g and writes feats in whole
-//    sectors) or 32 points of one level per warp, the next warps taking the
-//    group's other levels of those points (point-fastest: __match_any_sync
-//    sees 32 samples of one level, which at the coarse levels share rows).
+//  * Inside a group, K2's lanes take the GL levels of one point, then the
+//    next point (level-fastest: a warp reads x and writes feats in whole
+//    sectors). K6's warps each take 32 points of one level, the next warps
+//    the group's other levels of those points (point-fastest:
+//    __match_any_sync sees 32 samples of one level, which along a ray share
+//    rows at the coarse levels). Each order was the faster one for its
+//    kernel on the card; PERF.md has the times.
 //    Points are padded to a multiple of 32, so every warp is whole.
 //  * Vector accesses for F = 2, 4, 8: a table row is one 8- or 16-byte load
 //    (two at F = 8), g one vector a (point, level), a feature row one store.
@@ -118,28 +120,32 @@ __device__ __forceinline__ float corner_weight(const Voxel& v, int c) {
   return __fmul_rn(__fmul_rn(wx, wy), wz);
 }
 
-// The (point, level) of thread t in the level-group order (see the notes at
+// The (point, level) of thread t in the level-group orders (see the notes at
 // the top); Np is N rounded up to 32. n >= N or l >= L marks a padding lane.
 struct Slot {
   int64_t n;
   int l;
 };
 
-__device__ __forceinline__ Slot slot_of(int64_t t, int64_t Np, int GL, bool point_fastest) {
+// K2: the group's levels of one point, then the next point.
+__device__ __forceinline__ Slot level_fastest_slot(int64_t t, int64_t Np, int GL) {
   const int64_t per_group = Np * GL;
   const int64_t grp = t / per_group;
   const int64_t i = t - grp * per_group;
   Slot s;
-  int lg;
-  if (point_fastest) {
-    const int64_t w = i >> 5;  // the warp's rank in its group
-    lg = static_cast<int>(w % GL);
-    s.n = (w / GL) * 32 + (i & 31);
-  } else {
-    s.n = i / GL;
-    lg = static_cast<int>(i - s.n * GL);
-  }
-  s.l = static_cast<int>(grp) * GL + lg;
+  s.n = i / GL;
+  s.l = static_cast<int>(grp) * GL + static_cast<int>(i - s.n * GL);
+  return s;
+}
+
+// K6: 32 points of one level a warp, the next warps the group's other levels.
+__device__ __forceinline__ Slot point_fastest_slot(int64_t t, int64_t Np, int GL) {
+  const int64_t per_group = Np * GL;
+  const int64_t grp = t / per_group;
+  const int64_t w = (t - grp * per_group) >> 5;  // the warp's rank in its group
+  Slot s;
+  s.n = (w / GL) * 32 + (t & 31);
+  s.l = static_cast<int>(grp) * GL + static_cast<int>(w % GL);
   return s;
 }
 
@@ -179,10 +185,10 @@ hash_encode_fwd_kernel(const float* __restrict__ table, const float* __restrict_
                        const float* __restrict__ bmin, const float* __restrict__ bmax,
                        const float* __restrict__ res, float* __restrict__ feats,
                        uint8_t* __restrict__ keep, int64_t N, int64_t Np, int64_t total,
-                       int L, int log2T, int Fr, int GL, bool point_fastest) {
+                       int L, int log2T, int Fr, int GL) {
   const int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (t >= total) return;
-  const Slot s = slot_of(t, Np, GL, point_fastest);
+  const Slot s = level_fastest_slot(t, Np, GL);
   if (s.n >= N || s.l >= L) return;  // K2 has no warp-wide operation
   const int F = FT > 0 ? FT : Fr;
 
@@ -231,14 +237,13 @@ __global__ void __launch_bounds__(kThreads)
 hash_encode_bwd_kernel(const float* __restrict__ x, const float* __restrict__ bmin,
                        const float* __restrict__ bmax, const float* __restrict__ res,
                        const float* __restrict__ g, float* __restrict__ d_table, int64_t N,
-                       int64_t Np, int64_t total, int L, int log2T, int Fr, int GL,
-                       bool point_fastest) {
+                       int64_t Np, int64_t total, int L, int log2T, int Fr, int GL) {
   const int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   // total is a multiple of 32 and blocks start at multiples of 32, so this
   // leaves whole warps; a padding lane below stays, with key -1, for the
   // full-mask votes of warp_group_add
   if (t >= total) return;
-  const Slot s = slot_of(t, Np, GL, point_fastest);
+  const Slot s = point_fastest_slot(t, Np, GL);
   const bool active = s.n < N && s.l < L;
   const int64_t n = active ? s.n : 0;
   const int l = active ? s.l : 0;
@@ -318,12 +323,11 @@ inline bool bad_args(int L, int log2T, int F, int GL) {
 
 }  // namespace
 
-// GL is the number of levels in a group (clamped to L); point_fastest picks
-// the lane order inside a group. Each entry returns a cudaError_t.
+// GL is the number of levels in a group (clamped to L). Each entry returns a
+// cudaError_t.
 extern "C" int hash_encode_fwd(const void* table, const void* x, const void* bmin,
                                const void* bmax, const void* res, void* feats, void* keep,
-                               long long N, int L, int log2T, int F, int GL, int point_fastest,
-                               void* stream) {
+                               long long N, int L, int log2T, int F, int GL, void* stream) {
   if (bad_args(L, log2T, F, GL)) return static_cast<int>(cudaErrorInvalidValue);
   if (N <= 0) return 0;
   GL = GL < L ? GL : L;
@@ -336,24 +340,23 @@ extern "C" int hash_encode_fwd(const void* table, const void* x, const void* bmi
   const auto* r = static_cast<const float*>(res);
   auto* out = static_cast<float*>(feats);
   auto* k = static_cast<uint8_t*>(keep);
-  const bool pf = point_fastest != 0;
   const unsigned blocks = blocks_for(grid.total);
   switch (F) {
     case 2:
       hash_encode_fwd_kernel<2><<<blocks, kThreads, 0, s>>>(
-          tab, xp, lo, hi, r, out, k, N, grid.Np, grid.total, L, log2T, F, GL, pf);
+          tab, xp, lo, hi, r, out, k, N, grid.Np, grid.total, L, log2T, F, GL);
       break;
     case 4:
       hash_encode_fwd_kernel<4><<<blocks, kThreads, 0, s>>>(
-          tab, xp, lo, hi, r, out, k, N, grid.Np, grid.total, L, log2T, F, GL, pf);
+          tab, xp, lo, hi, r, out, k, N, grid.Np, grid.total, L, log2T, F, GL);
       break;
     case 8:
       hash_encode_fwd_kernel<8><<<blocks, kThreads, 0, s>>>(
-          tab, xp, lo, hi, r, out, k, N, grid.Np, grid.total, L, log2T, F, GL, pf);
+          tab, xp, lo, hi, r, out, k, N, grid.Np, grid.total, L, log2T, F, GL);
       break;
     default:
       hash_encode_fwd_kernel<0><<<blocks, kThreads, 0, s>>>(
-          tab, xp, lo, hi, r, out, k, N, grid.Np, grid.total, L, log2T, F, GL, pf);
+          tab, xp, lo, hi, r, out, k, N, grid.Np, grid.total, L, log2T, F, GL);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -361,8 +364,7 @@ extern "C" int hash_encode_fwd(const void* table, const void* x, const void* bmi
 // d_table (L*T, F) must be zeroed by the caller; K6 adds into it.
 extern "C" int hash_encode_bwd(const void* x, const void* bmin, const void* bmax,
                                const void* res, const void* g, void* d_table, long long N,
-                               int L, int log2T, int F, int GL, int point_fastest,
-                               void* stream) {
+                               int L, int log2T, int F, int GL, void* stream) {
   if (bad_args(L, log2T, F, GL)) return static_cast<int>(cudaErrorInvalidValue);
   if (N <= 0) return 0;
   GL = GL < L ? GL : L;
@@ -374,24 +376,23 @@ extern "C" int hash_encode_bwd(const void* x, const void* bmin, const void* bmax
   const auto* r = static_cast<const float*>(res);
   const auto* gp = static_cast<const float*>(g);
   auto* out = static_cast<float*>(d_table);
-  const bool pf = point_fastest != 0;
   const unsigned blocks = blocks_for(grid.total);
   switch (F) {
     case 2:
       hash_encode_bwd_kernel<2><<<blocks, kThreads, 0, s>>>(
-          xp, lo, hi, r, gp, out, N, grid.Np, grid.total, L, log2T, F, GL, pf);
+          xp, lo, hi, r, gp, out, N, grid.Np, grid.total, L, log2T, F, GL);
       break;
     case 4:
       hash_encode_bwd_kernel<4><<<blocks, kThreads, 0, s>>>(
-          xp, lo, hi, r, gp, out, N, grid.Np, grid.total, L, log2T, F, GL, pf);
+          xp, lo, hi, r, gp, out, N, grid.Np, grid.total, L, log2T, F, GL);
       break;
     case 8:
       hash_encode_bwd_kernel<8><<<blocks, kThreads, 0, s>>>(
-          xp, lo, hi, r, gp, out, N, grid.Np, grid.total, L, log2T, F, GL, pf);
+          xp, lo, hi, r, gp, out, N, grid.Np, grid.total, L, log2T, F, GL);
       break;
     default:
       hash_encode_bwd_kernel<0><<<blocks, kThreads, 0, s>>>(
-          xp, lo, hi, r, gp, out, N, grid.Np, grid.total, L, log2T, F, GL, pf);
+          xp, lo, hi, r, gp, out, N, grid.Np, grid.total, L, log2T, F, GL);
   }
   return static_cast<int>(cudaGetLastError());
 }

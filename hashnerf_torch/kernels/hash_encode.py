@@ -28,19 +28,15 @@ from hashnerf_torch.kernels import build
 from hashnerf_torch.kernels.segment_accum import segment_accumulate_k5_plain
 from hashnerf_torch.ops.hash_encoding import corner_geometry, encode_with_resolutions
 
-# Launch layout of K2 and K6 (csrc/hash_encode.cu): levels in a group, and
-# whether the lanes of a warp take 32 points of one level (point-fastest)
-# or the group's levels of one point after another. chip_smoke.py times
-# groups of 1 to 16 levels in both orders on the card.
+# Levels in a group of K2's and K6's launch order (csrc/hash_encode.cu):
+# chip_smoke.py times groups of 1 to 16 levels on the card.
 _K2_GROUP_LEVELS = 4
-_K2_POINT_FASTEST = False
 _K6_GROUP_LEVELS = 4
-_K6_POINT_FASTEST = True
 
 _INTS = [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int]
 _ARGTYPES = {
-    "hash_encode_fwd": [ctypes.c_void_p] * 7 + _INTS + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
-    "hash_encode_bwd": [ctypes.c_void_p] * 6 + _INTS + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
+    "hash_encode_fwd": [ctypes.c_void_p] * 7 + _INTS + [ctypes.c_int, ctypes.c_void_p],
+    "hash_encode_bwd": [ctypes.c_void_p] * 6 + _INTS + [ctypes.c_int, ctypes.c_void_p],
     "hash_encode_bwd_expand": [ctypes.c_void_p] * 7 + _INTS + [ctypes.c_void_p],
 }
 
@@ -129,7 +125,7 @@ def hash_encode_fwd(
     err = _fn("hash_encode_fwd")(
         table.data_ptr(), x.data_ptr(), bbox_min.data_ptr(), bbox_max.data_ptr(),
         resolutions.data_ptr(), feats.data_ptr(), keep.data_ptr(),
-        N, L, _log2(T), F, _K2_GROUP_LEVELS, int(_K2_POINT_FASTEST),
+        N, L, _log2(T), F, _K2_GROUP_LEVELS,
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     build.check(err, "hash_encode_fwd")
@@ -186,7 +182,7 @@ def hash_encode_bwd(
     err = _fn(name)(
         x.data_ptr(), bbox_min.data_ptr(), bbox_max.data_ptr(), resolutions.data_ptr(),
         g_feats.data_ptr(), d_table.data_ptr(), x.shape[0], L, log2T, F,
-        _K6_GROUP_LEVELS, int(_K6_POINT_FASTEST), torch.cuda.current_stream(x.device).cuda_stream,
+        _K6_GROUP_LEVELS, torch.cuda.current_stream(x.device).cuda_stream,
     )
     build.check(err, name)
     hash_encode_bwd.launches += 1

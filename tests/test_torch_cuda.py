@@ -149,12 +149,10 @@ def layout_inputs(dev, F):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("point_fastest", [False, True])
 @pytest.mark.parametrize("group_levels", [1, 4, 16])
 @pytest.mark.parametrize("F", [1, 2, 3, 8])
-def test_k6_on_card_matches_plain(cuda_device, monkeypatch, F, group_levels, point_fastest):
+def test_k6_on_card_matches_plain(cuda_device, monkeypatch, F, group_levels):
     monkeypatch.setattr(he, "_K6_GROUP_LEVELS", group_levels)
-    monkeypatch.setattr(he, "_K6_POINT_FASTEST", point_fastest)
     table, args, g = layout_inputs(cuda_device, F)
     T = table.shape[1]
     before = launch_counts()
@@ -171,12 +169,10 @@ def test_k6_on_card_matches_plain(cuda_device, monkeypatch, F, group_levels, poi
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("point_fastest", [False, True])
 @pytest.mark.parametrize("group_levels", [1, 4, 16])
 @pytest.mark.parametrize("F", [1, 2, 3, 8])
-def test_k2_layouts_on_card_match_plain(cuda_device, monkeypatch, F, group_levels, point_fastest):
+def test_k2_layouts_on_card_match_plain(cuda_device, monkeypatch, F, group_levels):
     monkeypatch.setattr(he, "_K2_GROUP_LEVELS", group_levels)
-    monkeypatch.setattr(he, "_K2_POINT_FASTEST", point_fastest)
     table, args, _ = layout_inputs(cuda_device, F)
     before = launch_counts()["hash_encode_fwd"]
     f, k = he.hash_encode_fwd(table, *args)
