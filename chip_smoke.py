@@ -32,6 +32,14 @@ Imports hashnerf_torch (never jax or hashnerf_tpu) and, on one CUDA card:
       over a range of window sizes;
     - the packed row-id gate: the dense and fine rows that packed_encode
       picks for 196,608 points on the card equal those it picks on the CPU;
+    - occupancy: 196,608 points along 1024 rays of 192 samples scored on a
+      128^3 grid of few values; the card must give the CPU's cell indices
+      and scores, (kept_idx, order, inv_perm) from the sort1, sort2 and
+      cumsum partitions at block 1 and 8, and per-ray indices for each
+      selection, with 0 differences; then the flagship's cull (block
+      scores, partition, permute_rows forward and backward) is timed at the
+      fine and coarse passes' shapes, and K5 at the shapes of the kept
+      points (24,576 a pass), beside `index_add_`;
  3. main paths, each at the width of configs/chair.txt on the procedural
     scene (128 x 128, 8 train views) through
     hashnerf_torch.train.driver.train_loop (40 steps with TV, a checkpoint,
@@ -42,9 +50,17 @@ Imports hashnerf_torch (never jax or hashnerf_tpu) and, on one CUDA card:
     - packed: the same with --n_levels 4 --n_features_per_level 8
       --packed_layout --share_fine --compute_dtype bfloat16 --aabb_clip
       (K5);
+    - flagship: packed with the occupancy culling of the JAX package's
+      tpu-fast preset (global block-8 culling, coarse keep 0.375, fine keep
+      annealed 0.5 / 0.25 / 0.125 from steps 0 / 512 / 1024, adaptive grid
+      updates every 16 steps, warmup 256), all but --steps_per_dispatch.
+      Its 20 steps without TV start at global_step 1024, so each must run
+      culled at keep 0.125 (fine) and 0.375 (coarse), and K5 must launch in
+      them; the test view is rendered exact and culled (--occ_keep_eval
+      0.75 --occ_eval_transmittance);
     the launch counts are set to 0 before each path and read after it; each
     kernel of a path must have been launched there, and K1, K3 and K4 on
-    neither path;
+    no path;
  4. prints one line {"kernels": [...]} with each kernel's launches on the
     main paths, error, times and bound, and as the last line
     {"ok": true, "device": {...}}.
@@ -97,6 +113,15 @@ PACKED_FLAGS = ["--n_levels", "4", "--n_features_per_level", "8", "--packed_layo
                 "--share_fine", "--compute_dtype", "bfloat16", "--aabb_clip"]
 PACKED_L, PACKED_F, PACKED_LOG2_BLOCKS = 4, 8, 16
 N_COARSE = 1024 * 64
+# The flagship: tpu-fast (hashnerf_tpu/train/config.py:244-258) without
+# --steps_per_dispatch. Its no-TV steps start at the last schedule step.
+FLAGSHIP_FLAGS = PACKED_FLAGS + [
+    "--use_occupancy", "--occ_keep_fraction", "0.125", "--occ_keep_coarse", "0.375",
+    "--occ_keep_schedule", "0:0.5,512:0.25,1024:0.125", "--occ_block", "8",
+    "--occ_adaptive_update"]
+FLAGSHIP_KEEP = (0.125, 0.375)  # (fine, coarse) from step 1024 on
+EVAL_CULL_FLAGS = ["--occ_keep_eval", "0.75", "--occ_eval_transmittance"]
+OCC_R, OCC_BLOCK = 128, 8
 
 KERNEL_INFO = {
     "segment_accumulate_k1": {
@@ -130,6 +155,7 @@ KERNEL_INFO = {
 PATH_KERNELS = {
     "chair": ("hash_encode_fwd", "hash_encode_bwd", "segment_accumulate_k5"),
     "packed": ("segment_accumulate_k5",),
+    "flagship": ("segment_accumulate_k5",),
 }
 OFF_PATH = ("segment_accumulate_k1", "segment_accumulate_k4", "hash_encode_bwd_expand")
 
@@ -873,13 +899,157 @@ def phase_packed_kernels(torch, np, geo):
     return {"shapes": out, "threshold": threshold, "windows": windows, "k5_chunks": chunks}
 
 
+def occupancy_grid(np, seed: int = 0):
+    """A (128^3,) grid of few values: a ball of cells from {0.5, 1, 2}, a
+    fifth of it 0, zeros elsewhere, so that many cells share a score."""
+    rng = np.random.default_rng(seed)
+    R = OCC_R
+    c = (np.arange(R) + 0.5) / R * 2 - 1
+    x, y, z = np.meshgrid(c, c, c, indexing="ij")
+    ball = (x**2 + y**2 + z**2 < 0.5).reshape(-1)
+    vals = rng.choice(np.float32([0.5, 1.0, 2.0]), R**3)
+    vals[rng.random(R**3) < 0.2] = 0.0
+    return np.where(ball, vals, 0.0).astype(np.float32)
+
+
+def phase_occupancy(torch, np):
+    """Culling on the card against the CPU (0 differences allowed), then the
+    flagship's cull timed at the fine and coarse passes' shapes. Returns the
+    records and the fine pass's kept points for the K5 shapes."""
+    from hashnerf_torch.kernels.gather import permute_rows
+    from hashnerf_torch.render import occupancy as occ
+    from hashnerf_torch.render.renderer import _keep_k, _keep_per_ray
+
+    bbox_np = np.array([[-1.6] * 3, [1.6] * 3], np.float32)
+    grid_np = occupancy_grid(np)
+    diffs, recs = {}, {}
+    passes = {"fine": (192, FLAGSHIP_KEEP[0]), "coarse": (64, FLAGSHIP_KEEP[1])}
+    for name, (S, kf) in passes.items():
+        pts_np = ray_points(np, 1024, S, seed=4 if name == "fine" else 5)
+        on = {"pts": torch.as_tensor(pts_np, device=DEV), "grid": torch.as_tensor(grid_np, device=DEV),
+              "bbox": torch.as_tensor(bbox_np, device=DEV)}
+        off = {k: v.cpu() for k, v in on.items()}
+        cfg = occ.OccupancyConfig(resolution=OCC_R, block=OCC_BLOCK)
+        out = {}
+        for where, t in (("card", on), ("cpu", off)):
+            r = out[where] = {}
+            r["cells"] = occ._cell_index(t["pts"], t["bbox"], OCC_R)
+            r["scores"] = occ.occupancy_scores(t["grid"], t["pts"], t["bbox"], cfg)
+            n = r["scores"].numel()
+            for block in (1, OCC_BLOCK):
+                s = r["scores"] if block == 1 else r["scores"].reshape(-1, block).amax(-1)
+                for mode in ("sort1", "sort2", "cumsum"):
+                    r[(block, mode)] = occ.cull_points(s, _keep_k(n, kf) // block, mode=mode)
+            for select in ("sort", "topk", "approx"):
+                r[select] = occ.cull_per_ray(r["scores"].reshape(1024, S), _keep_per_ray(S, kf), select)
+        card, cpu = out["card"], out["cpu"]
+        d = {}
+        for key in card:
+            got = card[key] if isinstance(card[key], tuple) else (card[key],)
+            want = cpu[key] if isinstance(cpu[key], tuple) else (cpu[key],)
+            label = "/".join(map(str, key)) if isinstance(key, tuple) else key
+            d[label] = sum(int((g.cpu() != w).sum()) for g, w in zip(got, want))
+        diffs[name] = d
+        scores = cpu["scores"]
+        recs[name] = {"points": int(scores.numel()), "outside_bbox": int((scores == -1).sum()),
+                      "distinct_scores": int(torch.unique(scores).numel()),
+                      "keep_k": _keep_k(scores.numel(), kf)}
+        if name == "fine":
+            kept_blocks = card[(OCC_BLOCK, "sort1")][0]
+            kept_pts = on["pts"].reshape(-1, OCC_BLOCK, 3)[kept_blocks].reshape(-1, 3)
+
+        # the flagship's cull, timed: block scores, the partition, and the
+        # un-permute of (blocks, 8 x 4 floats) rows forward and backward
+        n = on["pts"].numel() // 3
+        nb, kb = n // OCC_BLOCK, _keep_k(n, kf) // OCC_BLOCK
+        C = 4 * OCC_BLOCK
+        gen = torch.Generator(device=DEV)
+        gen.manual_seed(7)
+        bscores = card["scores"].reshape(nb, OCC_BLOCK).amax(-1)
+        kept, order, inv = card[(OCC_BLOCK, "sort1")]
+        x = torch.randn((nb, C), generator=gen, device=DEV).requires_grad_(True)
+        g = torch.randn((nb, C), generator=gen, device=DEV)
+        y = permute_rows(x, inv, order)
+        (dx,) = torch.autograd.grad(y, x, g)
+        require(bool(torch.equal(y, x.detach()[inv])) and bool(torch.equal(dx, g[order])),
+                f"permute_rows on the card ({name})")
+
+        def fwd_bwd():
+            torch.autograd.grad(permute_rows(x, inv, order), x, g)
+
+        row_bytes = nb * C * 4 * 2 + nb * 8  # rows read and written, ids read
+        recs[name].update({
+            "blocks": nb, "kept_blocks": kb, "row_floats": C,
+            "block_scores_ms": cuda_ms(torch, lambda: occ.occupancy_scores(
+                on["grid"], on["pts"], on["bbox"], cfg).reshape(nb, OCC_BLOCK).amax(-1)),
+            "partition_sort1_ms": cuda_ms(torch, lambda: occ.cull_points(bscores, kb, "sort1")),
+            "partition_sort2_ms": cuda_ms(torch, lambda: occ.cull_points(bscores, kb, "sort2")),
+            "partition_cumsum_ms": cuda_ms(torch, lambda: occ.cull_points(bscores, kb, "cumsum")),
+            "permute_rows_fwd_ms": cuda_ms(torch, lambda: permute_rows(x.detach(), inv, order)),
+            "permute_rows_fwd_bwd_ms": cuda_ms(torch, fwd_bwd),
+            "permute_rows_bound_ms_each_way": bound(row_bytes, 0)[0],
+            "per_ray_sort_ms": cuda_ms(torch, lambda: occ.cull_per_ray(
+                card["scores"].reshape(1024, -1), _keep_per_ray(n // 1024, kf))),
+        })
+        del x, g, y, dx
+    bad = {p: {k: v for k, v in d.items() if v} for p, d in diffs.items()}
+    rec = {"phase": "occupancy", "grid": f"{OCC_R}^3", "differences": diffs, "passes": recs}
+    emit(rec)
+    require(not any(bad.values()), f"culling differs between card and CPU: {bad}")
+    return rec, kept_pts
+
+
+def phase_culled_k5(torch, np, kept_pts):
+    """K5 at the flagship's culled shapes: the packed rows of the 24,576
+    points the fine cull kept (the coarse pass keeps as many), beside its
+    plain version and index_add_."""
+    from hashnerf_torch.kernels import segment_accum as sa
+    from hashnerf_torch.ops.packed_grid import packed_geometry
+
+    pcfg = packed_config()
+    bmin = torch.full((3,), -1.6, device=DEV)
+    bmax = torch.full((3,), 1.6, device=DEV)
+    geo = packed_geometry(kept_pts.contiguous(), bmin, bmax, pcfg)
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(8)
+    shapes = {
+        "culled_slabs": (geo.fine_rows.reshape(-1), 27 * PACKED_F,
+                         len(pcfg.fine_resolutions) * pcfg.n_block_rows),
+        "culled_dense_voxels": (geo.dense_rows.reshape(-1), 8 * PACKED_F, pcfg.packed_offsets[-1]),
+    }
+    out = {}
+    for name, (idx, F, T) in shapes.items():
+        M = idx.numel()
+        vals = torch.randn((M, F), generator=gen, device=DEV)
+        got = sa.segment_accumulate_k5(idx, vals, T)
+        want = sa.segment_accumulate_k5_plain(idx, vals, T)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        require(row_abs_ok(got, want, sa.segment_accumulate_k5_plain(idx, vals.abs(), T)),
+                f"K5 {name}: max_abs_err {err}")
+        idx64 = idx.long()
+        b = bound(seg_bytes(M, F, T), M * F)
+        out[name] = {
+            "M": M, "F": F, "num_rows": T, "unique_rows": int(torch.unique(idx).numel()),
+            "max_abs_err": err,
+            "k5_ms": cuda_ms(torch, lambda: sa.segment_accumulate_k5(idx, vals, T)),
+            "plain_ms": cuda_ms(torch, lambda: sa.segment_accumulate_k5_plain(idx, vals, T)),
+            "library_ms": cuda_ms(torch, lambda: torch.zeros((T, F), device=DEV).index_add_(
+                0, idx64, vals)),
+            "bound_ms": b[0], "bound_by": b[1],
+        }
+        emit({"phase": "culled_k5", "shape": name, **out[name]})
+    return out
+
+
 # --------------------------------------------------------------------------- #
 # Phase 3
 # --------------------------------------------------------------------------- #
 
-def timed_steps(torch, trainer, n: int):
+def timed_steps(torch, trainer, n: int, keeps=None):
     """Host-clock seconds of n train steps (ray sampling included), each
-    closed by a synchronize; returns (seconds, losses)."""
+    closed by a synchronize; returns (seconds, losses). Appends each step's
+    culling keep fractions (or None) to `keeps` when given."""
     args, sc = trainer.args, trainer.scene
     ts, losses = [], []
     for _ in range(n):
@@ -893,6 +1063,8 @@ def timed_steps(torch, trainer, n: int):
         loss = float(m["loss"])
         ts.append(time.perf_counter() - t0)
         losses.append(loss)
+        if keeps is not None:
+            keeps.append(trainer.last_occ_keep)
     return ts, losses
 
 
@@ -928,10 +1100,17 @@ def phase_main_path(torch, np, path: str, flags, profile: bool):
         torch.cuda.reset_peak_memory_stats()
         tv_s, tv_losses = timed_steps(torch, trainer, 10)  # global_step 41-50: TV on
         c1 = kernels.launch_counts()
-        trainer.global_step = 1001  # past the TV warmup, as bench.py does
-        notv_s, notv_losses = timed_steps(torch, trainer, 20)
+        tv_peak = torch.cuda.max_memory_allocated() / 2**30
+        torch.cuda.reset_peak_memory_stats()
+        # past the TV warmup, as bench.py does; the flagship at its last
+        # keep-schedule step
+        trainer.global_step = 1024 if path == "flagship" else 1001
+        keeps = []
+        notv_s, notv_losses = timed_steps(torch, trainer, 20, keeps)
         c2 = kernels.launch_counts()
-        train_peak = torch.cuda.max_memory_allocated() / 2**30  # training steps only
+        # the flagship's steps with TV run in the occupancy warmup, unculled
+        notv_peak = torch.cuda.max_memory_allocated() / 2**30
+        train_peak = max(tv_peak, notv_peak)  # training steps only
 
         prof = None
         if profile:
@@ -951,7 +1130,36 @@ def phase_main_path(torch, np, path: str, flags, profile: bool):
         torch.cuda.synchronize()
         render_s = time.perf_counter() - t0
         gt = torch.as_tensor(scene.images[scene.i_test[0]], device=DEV)
-        test_psnr = float(-10.0 * torch.log10(torch.mean((rgb - gt) ** 2)))
+        psnr = lambda img: float(-10.0 * torch.log10(torch.mean((img - gt) ** 2)))
+        test_psnr = psnr(rgb)
+        culled = None
+        if path == "flagship":
+            # the test view once more, culled with the eval budgets on the
+            # trained grid (the restored trainer's grid is empty: exact)
+            from hashnerf_torch.models.factory import query_fn
+            from hashnerf_torch.render.renderer import render
+            from hashnerf_torch.train.driver import render_config_from_args
+
+            eval_cfg = render_config_from_args(parse_args([
+                "--config", os.path.join(ROOT, "configs", "chair.txt"), *flags, *EVAL_CULL_FLAGS,
+            ])).eval_mode()
+            require(trainer._occ_ready and restored._eval_occ_grid is None,
+                    "flagship: the trained grid is not ready, or the restored one culls")
+            t0 = time.perf_counter()
+            rgb_c, _, _, _ = render(trainer.state, query_fn, scene.H, scene.W, scene.K, trainer.bbox,
+                                    eval_cfg, c2w=torch.as_tensor(scene.poses[scene.i_test[0]],
+                                                                  device=DEV),
+                                    chunk=args.chunk, near=scene.near, far=scene.far,
+                                    occ_grid=trainer.occ_grid)
+            torch.cuda.synchronize()
+            culled = {"render_s": time.perf_counter() - t0, "test_psnr": psnr(rgb_c),
+                      "flags": EVAL_CULL_FLAGS, "occupied_cells": int((trainer.occ_grid > 0).sum())}
+            require(rgb_c.shape == (scene.H, scene.W, 3), f"culled render shape {tuple(rgb_c.shape)}")
+            require(bool(torch.isfinite(rgb_c).all()), "non-finite culled render")
+            require(all(k == FLAGSHIP_KEEP for k in keeps),
+                    f"flagship: steps without TV not all culled at {FLAGSHIP_KEEP}: {keeps}")
+            require(c2["segment_accumulate_k5"] - c1["segment_accumulate_k5"] > 0,
+                    "flagship: K5 was not launched in the culled steps")
         counts = kernels.launch_counts()
 
         losses = [h[1] for h in trainer.history] + tv_losses + notv_losses
@@ -980,8 +1188,9 @@ def phase_main_path(torch, np, path: str, flags, profile: bool):
             "train_rays_per_s_no_tv": args.N_rand / statistics.median(notv_s),
             "launches_per_step_tv": per_step(c0, c1, len(tv_s)),
             "launches_per_step_no_tv": per_step(c1, c2, len(notv_s)),
-            "render_s": render_s, "test_psnr": test_psnr,
-            "peak_mem_gib_training": train_peak,
+            "render_s": render_s, "test_psnr": test_psnr, "culled_eval_render": culled,
+            "keeps_no_tv": keeps,
+            "peak_mem_gib_training": train_peak, "peak_mem_gib_no_tv": notv_peak,
             "peak_mem_gib": max(loop_peak, torch.cuda.max_memory_allocated() / 2**30),
             "launches": counts,
         }
@@ -1065,10 +1274,14 @@ def main(argv=None) -> int:
     geo = phase_packed_rows(torch, np)
     packed = phase_packed_kernels(torch, np, geo)
     del geo
+    occupancy, kept_pts = phase_occupancy(torch, np)
+    culled_k5 = phase_culled_k5(torch, np, kept_pts)
+    del kept_pts
     torch.cuda.empty_cache()
     paths = {
         "chair": phase_main_path(torch, np, "chair", [], opts.profile),
         "packed": phase_main_path(torch, np, "packed", PACKED_FLAGS, opts.profile),
+        "flagship": phase_main_path(torch, np, "flagship", FLAGSHIP_FLAGS, opts.profile),
     }
 
     fine = packed["shapes"]["fine_slabs"]
@@ -1093,7 +1306,7 @@ def main(argv=None) -> int:
         os.makedirs(os.path.dirname(os.path.abspath(opts.out)), exist_ok=True)
         with open(opts.out, "w") as f:
             json.dump({"device": dev, "kernels": kern, "k4_hot_row": k4_hot, "k5_hot_rows": k5_hot,
-                       "packed_kernels": packed,
+                       "packed_kernels": packed, "occupancy": occupancy, "culled_k5": culled_k5,
                        "main_paths": paths, "seconds": time.perf_counter() - t_start}, f, indent=1)
     print(f"card: {dev['smi']}", flush=True)
     emit(summary)

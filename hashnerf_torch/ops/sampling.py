@@ -1,7 +1,8 @@
 """Ray-march z-value samplers: stratified and hierarchical (inverse-CDF).
 
 Counterpart of hashnerf_tpu/ops/sampling.py (stratified_z_vals,
-perturb_z_vals, sample_pdf). Every random draw can be handed in as a
+perturb_z_vals, sample_pdf, and fast_merge's sorted_uniform and
+merge_sorted). Every random draw can be handed in as a
 tensor (`t_rand=`, `u=`) instead of being drawn from a torch.Generator, so
 tests can feed both packages the same numbers.
 """
@@ -99,3 +100,28 @@ def sample_pdf(
     denom = torch.where(denom < 1e-5, torch.ones_like(denom), denom)
     t = (u - cdf_below) / denom
     return bins_below + t * (bins_above - bins_below)
+
+
+def sorted_uniform(shape, generator: Optional[torch.Generator] = None, device=None,
+                   dtype=torch.float32) -> torch.Tensor:
+    """Sorted iid U(0,1) along the last axis, without a sort: with E_1 ...
+    E_{n+1} ~ Exp(1), the partial sums of E over their total are
+    distributed as the order statistics of n uniforms."""
+    *lead, n = shape
+    e = torch.empty((*lead, n + 1), device=device, dtype=dtype).exponential_(generator=generator)
+    c = torch.cumsum(e, dim=-1)
+    return c[..., :-1] / c[..., -1:]
+
+
+def merge_sorted(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Merge rows a (..., n) and b (..., m), each sorted, into (..., n + m).
+
+    Each element's place is its own index plus the count of the other
+    row's elements before it, ties a first: a[i] goes to i + #{b < a[i]},
+    b[j] to j + #{a <= b[j]}, as in JAX. Equal to sorting the
+    concatenation, on distinct values."""
+    n, m = a.shape[-1], b.shape[-1]
+    pos_a = torch.arange(n, device=a.device) + (b[..., None, :] < a[..., :, None]).sum(-1)
+    pos_b = torch.arange(m, device=b.device) + (a[..., None, :] <= b[..., :, None]).sum(-1)
+    out = a.new_zeros(a.shape[:-1] + (n + m,))
+    return out.scatter_(-1, pos_a, a).scatter_(-1, pos_b, b)

@@ -29,14 +29,19 @@ def raw2outputs(
     white_bkgd: bool = False,
     noise: Optional[torch.Tensor] = None,
     generator: Optional[torch.Generator] = None,
+    dists: Optional[torch.Tensor] = None,
 ) -> VolumeOutputs:
     """raw: (N_rays, N_samples, C>=4); channels [:3] rgb logits, [3] sigma.
 
     With raw_noise_std > 0 the sigma noise is `noise` (a standard-normal
     draw of sigma's shape) when given, else drawn from `generator`.
+    `dists` (z units, z_vals' shape) replaces the forward differences with
+    their 1e10 tail: per-ray culling composites the kept samples with their
+    original intervals.
     """
-    dists = z_vals[..., 1:] - z_vals[..., :-1]
-    dists = torch.cat([dists, torch.full_like(dists[..., :1], 1e10)], -1)
+    if dists is None:
+        dists = z_vals[..., 1:] - z_vals[..., :-1]
+        dists = torch.cat([dists, torch.full_like(dists[..., :1], 1e10)], -1)
     dists = dists * torch.linalg.norm(rays_d[..., None, :], dim=-1)
 
     rgb = torch.sigmoid(raw[..., :3])

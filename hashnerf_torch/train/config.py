@@ -172,7 +172,9 @@ def config_parser() -> argparse.ArgumentParser:
     parser.add_argument("--occ_score_stride", type=int, default=1,
                         help="score every k-th sample on a 3^3-dilated "
                         "occupancy grid (k=2 halves the score-gather "
-                        "fetches; conservative coverage, quality-gated)")
+                        "fetches; conservative coverage, quality-gated). "
+                        "Only 1 or 2: the coverage needs consecutive probes "
+                        "at most two cells apart")
     parser.add_argument("--occ_eval_transmittance", action="store_true",
                         help="weight eval-time fine culling scores by the "
                         "coarse pass's transmittance (static-shape early "
@@ -240,10 +242,6 @@ def check_supported(args) -> None:
         no(f"--i_embed_views {args.i_embed_views} (only SH, 2)", "A1")
     if not args.no_batching:
         no("ray batching across images (set no_batching)", "A6")
-    if args.use_occupancy:
-        no("--use_occupancy", "A7.1")
-    if args.fast_merge:
-        no("--fast_merge", "A7.2")
     if args.compute_dtype not in (None, "bfloat16"):
         no(f"--compute_dtype {args.compute_dtype} (only bfloat16)", "A7.4")
     if (args.num_devices or 0) > 1:

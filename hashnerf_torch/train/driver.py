@@ -5,15 +5,20 @@ Counterpart of hashnerf_tpu/train/driver.py for the per-image
 while global_step <= 1000, RAdam with two parameter groups and exponential
 LR decay, periodic print / checkpoint / test-set render. Besides the
 reference-exact step it takes the packed layout (with its own TV),
-`share_fine`, bf16 MLPs and `aabb_clip`.
+`share_fine`, bf16 MLPs, `aabb_clip`, `fast_merge` and occupancy culling
+with its grid's lifecycle: updates every `update_every` steps, culling from
+`warmup_steps` on once the grid holds density, the keep schedule, and the
+eval budgets.
 
 PyTorch runs the step eagerly; the JAX package compiles it into one XLA
 program. Every random draw of a step (stratified jitter, sigma noise,
-importance samples, TV cuboids and rows) can be handed in through `TrainDraws`, which
-is how the tests give the port the draws JAX took from its keys.
+importance samples, TV cuboids and rows, and those of a grid update) can be
+handed in through `TrainDraws` and `OccUpdateDraws`, which is how the tests
+give the port the draws JAX took from its keys.
 """
 from __future__ import annotations
 
+import dataclasses
 import os
 import time
 from typing import Dict, NamedTuple, Optional
@@ -26,6 +31,9 @@ from hashnerf_torch.data.scene import Scene
 from hashnerf_torch.models.factory import ModelConfig, NGPState, query_fn
 from hashnerf_torch.ops.hash_encoding import HashGridConfig
 from hashnerf_torch.ops.rays import get_rays
+from hashnerf_torch.render.occupancy import (
+    OccupancyConfig, OccUpdateDraws, init_occupancy_grid, update_occupancy_grid,
+)
 from hashnerf_torch.render.renderer import (
     RenderConfig, RenderDraws, render, render_path, render_rays,
 )
@@ -66,9 +74,51 @@ def model_config_from_args(args) -> ModelConfig:
     )
 
 
+def _positive_or_none(v: float) -> Optional[float]:
+    return v if v > 0 else None
+
+
 def render_config_from_args(args, lindisp: bool = False) -> RenderConfig:
     """The JAX package turns aabb_clip off for NDC scenes; the port has no
     NDC scenes yet (ROADMAP A6)."""
+    occupancy = None
+    if args.use_occupancy:
+        occupancy = OccupancyConfig(
+            resolution=args.occ_resolution,
+            keep_fraction=args.occ_keep_fraction,
+            update_every=args.occ_update_every,
+            warmup_steps=args.occ_warmup,
+            partition=args.occ_partition,
+            adaptive_update=args.occ_adaptive_update,
+            per_ray=args.occ_per_ray,
+            per_ray_select=args.occ_per_ray_select,
+            block=args.occ_block,
+            keep_fraction_coarse=_positive_or_none(args.occ_keep_coarse),
+            keep_fraction_eval=_positive_or_none(args.occ_keep_eval),
+            keep_fraction_eval_coarse=_positive_or_none(args.occ_keep_eval_coarse),
+            eval_transmittance=args.occ_eval_transmittance,
+            score_stride=args.occ_score_stride,
+        )
+        # the block must divide both passes' sample counts and 128 (the
+        # rounding of the keep budget), or culling would fall back to single
+        # points without a word
+        B = occupancy.block
+        if B > 1 and not occupancy.per_ray:
+            S_fine = args.N_samples + args.N_importance
+            if args.N_samples % B or S_fine % B or 128 % B:
+                raise ValueError(
+                    f"--occ_block={B} must divide N_samples ({args.N_samples}), "
+                    f"N_samples+N_importance ({S_fine}), and 128 (the keep-"
+                    "budget rounding); pick a power-of-two block that divides "
+                    "all three or use --occ_block 1"
+                )
+        if args.fast_merge:
+            print(
+                "[config] note: with --use_occupancy, --fast_merge applies only to "
+                "renders without an active occupancy grid (the warmup steps, and "
+                "eval renders that are not culled); culled passes merge their z "
+                "values with the occupancy path's score-carrying sort"
+            )
     return RenderConfig(
         N_samples=args.N_samples,
         N_importance=args.N_importance,
@@ -78,6 +128,8 @@ def render_config_from_args(args, lindisp: bool = False) -> RenderConfig:
         lindisp=lindisp,
         use_viewdirs=args.use_viewdirs,
         aabb_clip=args.aabb_clip,
+        occupancy=occupancy,
+        fast_merge=args.fast_merge,
     )
 
 
@@ -109,18 +161,19 @@ def make_loss_fn(args, render_cfg: RenderConfig, bbox: torch.Tensor,
     """The training loss: image + coarse image + entropy sparsity (+ TV, the
     packed TV under packed_layout).
 
-    loss_fn(state, batch, tv_weight, draws=None, generator=None)
-      -> (loss, (psnr, img_loss)).
+    loss_fn(state, batch, tv_weight, draws=None, generator=None, occ_grid=None)
+      -> (loss, (psnr, img_loss)); occ_grid culls the render.
     """
     sparse_w = args.sparse_loss_weight
 
     def loss_fn(state, batch, tv_weight, draws: Optional[TrainDraws] = None,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None,
+                occ_grid: Optional[torch.Tensor] = None):
         draws = draws or TrainDraws()
         ret = render_rays(
             state, query_fn, batch["rays_o"], batch["rays_d"], batch.get("viewdirs"),
             batch["near"], batch["far"], bbox, render_cfg,
-            draws=draws.render, generator=generator,
+            draws=draws.render, generator=generator, occ_grid=occ_grid,
         )
         img_loss = img2mse(ret["rgb_map"], batch["target"])
         loss = img_loss
@@ -169,24 +222,91 @@ class Trainer:
         self.near, self.far = scene.near, scene.far
         self._images = torch.as_tensor(scene.images, dtype=torch.float32, device=self.device)
         self._poses = torch.as_tensor(scene.poses[:, :3, :4], dtype=torch.float32, device=self.device)
-        self._loss_tv = make_loss_fn(args, self.render_cfg, self.bbox, self.model_cfg, with_tv=True)
-        self._loss_no_tv = make_loss_fn(args, self.render_cfg, self.bbox, self.model_cfg,
-                                        with_tv=False)
+        # annealed keep budget "STEP:FRAC,...": from each STEP on, FRAC
+        self.keep_schedule = None
+        if args.occ_keep_schedule and self.render_cfg.occupancy is not None:
+            pairs = [tok.split(":") for tok in str(args.occ_keep_schedule).split(",")]
+            self.keep_schedule = sorted((int(a), float(b)) for a, b in pairs)
+        self._loss_fns = {}
+        # the grid starts empty; culling waits until an update found density
+        # somewhere, or it would cull everything
+        occ = self.render_cfg.occupancy
+        self.occ_grid = init_occupancy_grid(occ, self.device) if occ is not None else None
+        self._occ_ready = False
+        self.last_occ_keep = None
 
-    def step(self, batch: Dict[str, torch.Tensor], draws: Optional[TrainDraws] = None):
+    def _keep_at(self, step: int) -> float:
+        """The fine keep fraction at `step` (the last schedule entry <= step)."""
+        keep = self.render_cfg.occupancy.keep_fraction
+        for b, f in self.keep_schedule or ():
+            if step >= b:
+                keep = f
+        return keep
+
+    def _render_cfg_for(self, keep: Optional[float]) -> RenderConfig:
+        """render_cfg with the fine keep budget overridden (the schedule)."""
+        occ = self.render_cfg.occupancy
+        if keep is None or occ is None or keep == occ.keep_fraction:
+            return self.render_cfg
+        return dataclasses.replace(
+            self.render_cfg, occupancy=dataclasses.replace(occ, keep_fraction=keep))
+
+    def _loss_fn(self, with_tv: bool, keep: Optional[float]):
+        fn = self._loss_fns.get((with_tv, keep))
+        if fn is None:
+            fn = self._loss_fns[(with_tv, keep)] = make_loss_fn(
+                self.args, self._render_cfg_for(keep), self.bbox, self.model_cfg, with_tv=with_tv)
+        return fn
+
+    def occ_update(self, grid: torch.Tensor, draws: Optional[OccUpdateDraws] = None) -> torch.Tensor:
+        """One grid update: density-only queries of the live model at the
+        sampled cells (fine net, view direction +z), without autograd."""
+        occ = self.render_cfg.occupancy
+        fine = self.render_cfg.N_importance > 0
+        use_dirs = self.render_cfg.use_viewdirs
+
+        def sigma_fn(pts):
+            dirs = None
+            if use_dirs:
+                dirs = torch.zeros_like(pts)
+                dirs[:, 2] = 1.0
+            return query_fn(self.state, pts[:, None, :], dirs, self.bbox, fine=fine)[:, 0, 3]
+
+        return update_occupancy_grid(grid, self.bbox, occ, sigma_fn, draws, self.generator)
+
+    def step(self, batch: Dict[str, torch.Tensor], draws: Optional[TrainDraws] = None,
+             occ_draws: Optional[OccUpdateDraws] = None):
         """One optimization step. batch: rays_o/rays_d/near/far/target
-        (+viewdirs). Returns detached loss / psnr / img_loss tensors."""
+        (+viewdirs). occ_draws feed the grid update that follows the step,
+        if one does. Returns detached loss / psnr / img_loss tensors; sets
+        last_occ_keep to the (fine, coarse) keep fractions the step culled
+        at, or None."""
         # TV only during warmup (the reference zeroes it after iter 1000)
         tv_w = self.args.tv_loss_weight if self.global_step <= 1000 else 0.0
-        loss_fn = self._loss_tv if tv_w > 0 else self._loss_no_tv
+        occ = self.render_cfg.occupancy
+        keep = self._keep_at(self.global_step) if self.keep_schedule else None
+        loss_fn = self._loss_fn(tv_w > 0, keep)
         if "viewdirs" not in batch and self.render_cfg.use_viewdirs:
             d = batch["rays_d"]
             batch = dict(batch, viewdirs=d / torch.linalg.norm(d, dim=-1, keepdim=True))
+        active = occ is not None and self.global_step >= occ.warmup_steps and self._occ_ready
         self.optimizer.zero_grad(set_to_none=True)
-        loss, (psnr, img_loss) = loss_fn(self.state, batch, tv_w, draws, self.generator)
+        loss, (psnr, img_loss) = loss_fn(self.state, batch, tv_w, draws, self.generator,
+                                         occ_grid=self.occ_grid if active else None)
         loss.backward()
         self.optimizer.step()
         self.global_step += 1
+        self.last_occ_keep = None
+        if active:
+            fine_kf = self._render_cfg_for(keep).occupancy.keep_fraction
+            coarse_kf = occ.keep_fraction_coarse
+            self.last_occ_keep = (fine_kf, fine_kf if coarse_kf is None else coarse_kf)
+
+        if occ is not None and self.global_step % occ.update_every == 0:
+            self.occ_grid = self.occ_update(self.occ_grid, occ_draws)
+            if not self._occ_ready:
+                # one host read an update, until the field shows density
+                self._occ_ready = float(self.occ_grid.max()) > 0.0
         return {"loss": loss.detach(), "psnr": psnr.detach(), "img_loss": img_loss.detach()}
 
     def sample_image(self, img_i: int, n_rand: int, precrop: bool,
@@ -219,13 +339,27 @@ class Trainer:
             "far": torch.full((n_rand,), self.far, dtype=torch.float32, device=self.device),
         }
 
+    # Eval renders are exact by default: the training budget clips geometry
+    # on full-image ray grids. Culled eval is opt-in, by this switch (the
+    # training budgets) or by --occ_keep_eval (its own budgets).
+    eval_cull: bool = False
+
+    @property
+    def _eval_occ_grid(self) -> Optional[torch.Tensor]:
+        occ = self.render_cfg.occupancy
+        if occ is None or not self._occ_ready:
+            return None
+        if self.eval_cull or occ.keep_fraction_eval is not None:
+            return self.occ_grid
+        return None
+
     def render_image(self, c2w, chunk: Optional[int] = None):
         sc = self.scene
         return render(
             self.state, query_fn, sc.H, sc.W, sc.K, self.bbox,
             self.render_cfg.eval_mode(), chunk=chunk or self.args.chunk,
             c2w=torch.as_tensor(np.asarray(c2w)[:3, :4], dtype=torch.float32, device=self.device),
-            near=self.near, far=self.far,
+            near=self.near, far=self.far, occ_grid=self._eval_occ_grid,
         )
 
     def render_test_path(self, poses, gt_imgs=None, savedir: Optional[str] = None):
@@ -233,6 +367,7 @@ class Trainer:
         rgbs, depths, psnrs = render_path(
             self.state, query_fn, poses, sc.hwf, sc.K, self.bbox, self.render_cfg,
             chunk=self.args.chunk, near=self.near, far=self.far, gt_imgs=gt_imgs,
+            occ_grid=self._eval_occ_grid,
         )
         if savedir is not None:
             os.makedirs(savedir, exist_ok=True)

@@ -281,3 +281,119 @@ def test_k5_drops_out_of_range_ids(cuda_device, F):
         plain = segment_accumulate_k5_plain(idx[ok], vals[ok], T)
         assert within_row_abs_sum(got, plain, idx[ok], vals[ok], T)
 
+
+
+# --------------------------------------------------------------------------- #
+# Occupancy culling: the card gives the CPU's results
+# --------------------------------------------------------------------------- #
+
+OCC_BBOX = np.array([[-1.5] * 3, [1.5] * 3], np.float32)
+
+
+def occ_inputs(R=64, n_rays=256, S=48, seed=0):
+    """(grid (R^3,), points (n_rays, S, 3)): a ball of cells from {0.5, 1,
+    2} with a fifth at 0, zeros elsewhere (ties everywhere), and points
+    along rays at sorted depths in [2, 6], a tenth snapped onto cell
+    boundaries."""
+    rng = np.random.default_rng(seed)
+    c = (np.arange(R) + 0.5) / R * 2 - 1
+    x, y, z = np.meshgrid(c, c, c, indexing="ij")
+    ball = (x**2 + y**2 + z**2 < 0.4).reshape(-1)
+    vals = rng.choice(np.float32([0.5, 1.0, 2.0]), R**3)
+    vals[rng.random(R**3) < 0.2] = 0.0
+    grid = np.where(ball, vals, 0.0).astype(np.float32)
+    d = rng.normal(size=(n_rays, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    o = rng.uniform(-0.5, 0.5, (n_rays, 3)) - 4.0 * d
+    t = np.sort(rng.uniform(2.0, 6.0, (n_rays, S)), axis=1)
+    p = (o[:, None] + t[..., None] * d[:, None]).astype(np.float32)
+    cell = np.float32(3.0) / np.float32(R)
+    snapped = (np.round((p + 1.5) / cell) * cell - 1.5).astype(np.float32)
+    pick = rng.random((n_rays, S)) < 0.1
+    return grid, np.where(pick[..., None], snapped, p)
+
+
+def _both(dev, *arrays):
+    return [torch.from_numpy(a) for a in arrays], [torch.from_numpy(a).to(dev) for a in arrays]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block", [1, 8])
+@pytest.mark.parametrize("mode", ["sort1", "sort2", "cumsum"])
+def test_cull_points_on_card_matches_cpu(cuda_device, block, mode):
+    from hashnerf_torch.render import occupancy as occ
+
+    grid, pts = occ_inputs()
+    cfg = occ.OccupancyConfig(resolution=64)
+    cpu, card = _both(cuda_device, grid, pts.reshape(-1, 3), OCC_BBOX)
+    results = []
+    for g, p, b in (cpu, card):
+        s = occ.occupancy_scores(g, p, b, cfg)
+        results.append((occ._cell_index(p, b, 64), s) + occ.cull_points(
+            s.reshape(-1, block).amax(-1), 1536 // block, mode=mode))
+    for want, got in zip(*results):
+        assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("select", ["sort", "topk", "approx"])
+def test_cull_per_ray_on_card_matches_cpu(cuda_device, select):
+    from hashnerf_torch.render import occupancy as occ
+
+    grid, pts = occ_inputs(seed=1)
+    cfg = occ.OccupancyConfig(resolution=64, score_stride=2)
+    cpu, card = _both(cuda_device, grid, pts, OCC_BBOX)
+    out = []
+    for g, p, b in (cpu, card):
+        s = occ.occupancy_scores_strided(occ.dilate_grid(g, 64), p, b, cfg)
+        out.append((s, occ.cull_per_ray(s, 16, select)))
+    for want, got in zip(*out):
+        assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,adaptive", [(64, True), (24, False)])
+def test_grid_update_on_card_matches_cpu(cuda_device, R, adaptive):
+    """The same draws give the same cells and, up to float32 rounding of
+    sigma, the same grid; R = 24 divides by a number that is not a power of
+    two."""
+    from hashnerf_torch.render import occupancy as occ
+
+    grid, _ = occ_inputs(R=R, seed=2)
+    cfg = occ.OccupancyConfig(resolution=R, adaptive_update=adaptive, n_update_samples=8192)
+    g = torch.Generator().manual_seed(3)
+    n_half = 4096 if adaptive else 0
+    draws = occ.OccUpdateDraws(
+        uniform_cells=torch.randint(0, R**3, (8192 - n_half,), generator=g),
+        block_sel=torch.randint(0, 1024, (n_half,), generator=g),
+        offsets=torch.randint(-1, R // 32 + 1, (n_half, 3), generator=g),
+        jitter=torch.rand((8192, 3), generator=g),
+    )
+    sigma_fn = lambda p: 2.0 - 3.0 * (p[:, 0] * p[:, 0] + p[:, 1] * p[:, 1]) + p[:, 2]
+    out = []
+    for dev in ("cpu", cuda_device):
+        gr, b = torch.from_numpy(grid).to(dev), torch.from_numpy(OCC_BBOX).to(dev)
+        d = occ.OccUpdateDraws(*(t.to(dev) for t in draws))
+        out.append((occ.sample_update_cells(gr, cfg, d).cpu(),
+                    occ.update_occupancy_grid(gr, b, cfg, sigma_fn, d).cpu()))
+    assert torch.equal(out[1][0], out[0][0])
+    torch.testing.assert_close(out[1][1], out[0][1], rtol=1e-6, atol=0.0)
+
+
+@pytest.mark.cuda
+def test_permute_rows_on_card_matches_cpu(cuda_device):
+    from hashnerf_torch.kernels.gather import permute_rows
+
+    rng = np.random.default_rng(4)
+    x = rng.normal(size=(3001, 32)).astype(np.float32)
+    g = rng.normal(size=(3001, 32)).astype(np.float32)
+    perm = rng.permutation(3001)
+    inv = np.argsort(perm)
+    out = []
+    for dev in ("cpu", cuda_device):
+        xt = torch.from_numpy(x).to(dev).requires_grad_(True)
+        y = permute_rows(xt, torch.from_numpy(perm).to(dev), torch.from_numpy(inv).to(dev))
+        y.backward(torch.from_numpy(g).to(dev))
+        out.append((y.detach().cpu(), xt.grad.cpu()))
+    assert torch.equal(out[1][0], out[0][0]) and torch.equal(out[1][1], out[0][1])
+    assert torch.equal(out[0][1], torch.from_numpy(g[inv]))

@@ -197,11 +197,11 @@ def test_trainer_steps_match_jax():
     (["--preset", "tpu-fast"], "A7.3"),
     (["--dataset_type", "blender"], "A5"),
     (["--i_embed", "0"], "A1"),
-    (["--packed_layout", "--use_occupancy"], "A7.1"),
-    (["--use_occupancy"], "A7.1"),
+    (["--packed_layout", "--use_occupancy", "--steps_per_dispatch", "16"], "A4"),
+    (["--use_occupancy", "--preset", "tpu-fast"], "A7.3"),
     (["--preset", "tpu-quality"], "A7.3"),
     (["--compute_dtype", "float16"], "A7.4"),
-    (["--fast_merge"], "A7.2"),
+    (["--fast_merge", "--compute_dtype", "float16"], "A7.4"),
     (["--num_devices", "2"], "A8"),
     (["--steps_per_dispatch", "16"], "A4"),
     (["--render_only"], "A3"),
