@@ -35,11 +35,12 @@ Imports hashnerf_torch (never jax or hashnerf_tpu) and, on one CUDA card:
     - occupancy: 196,608 points along 1024 rays of 192 samples scored on a
       128^3 grid of few values; the card must give the CPU's cell indices
       and scores, (kept_idx, order, inv_perm) from the sort1, sort2 and
-      cumsum partitions at block 1 and 8, and per-ray indices for each
-      selection, with 0 differences; then the flagship's cull (block
-      scores, partition, permute_rows forward and backward) is timed at the
-      fine and coarse passes' shapes, and K5 at the shapes of the kept
-      points (24,576 a pass), beside `index_add_`;
+      cumsum partitions at block 1 and 8, and per-ray indices, with 0
+      differences; then the flagship's cull (block scores, partition,
+      permute_rows forward and backward) is timed at the fine and coarse
+      passes' shapes, with CUDA events and as device time from a profiler
+      trace, and K5 at the shapes of the kept points (24,576 a pass at
+      keep 0.125, 98,304 at the fine pass's 0.5), beside `index_add_`;
  3. main paths, each at the width of configs/chair.txt on the procedural
     scene (128 x 128, 8 train views) through
     hashnerf_torch.train.driver.train_loop (40 steps with TV, a checkpoint,
@@ -54,13 +55,14 @@ Imports hashnerf_torch (never jax or hashnerf_tpu) and, on one CUDA card:
       tpu-fast preset (global block-8 culling, coarse keep 0.375, fine keep
       annealed 0.5 / 0.25 / 0.125 from steps 0 / 512 / 1024, adaptive grid
       updates every 16 steps, warmup 256), all but --steps_per_dispatch.
-      Its 20 steps without TV start at global_step 1024, so each must run
-      culled at keep 0.125 (fine) and 0.375 (coarse), and K5 must launch in
-      them; the test view is rendered exact and culled (--occ_keep_eval
-      0.75 --occ_eval_transmittance);
-    the launch counts are set to 0 before each path and read after it; each
-    kernel of a path must have been launched there, and K1, K3 and K4 on
-    no path;
+      Its 10 steps with TV start at global_step 256, where the warmup
+      ends, so each must run culled at keep 0.5 (fine) and 0.375 (coarse);
+      its 20 without TV start at 1024, each culled at 0.125 and 0.375, and
+      K5 must launch in them; the test view is rendered exact and culled
+      (--occ_keep_eval 0.75 --occ_eval_transmittance);
+    PATHS holds what each path runs and must show. The launch counts are
+    set to 0 before each path and read after it; each kernel of a path
+    must have been launched there, and K1, K3 and K4 on no path;
  4. prints one line {"kernels": [...]} with each kernel's launches on the
     main paths, error, times and bound, and as the last line
     {"ok": true, "device": {...}}.
@@ -149,13 +151,33 @@ KERNEL_INFO = {
         "replaces": "hashnerf_tpu/kernels/hash_encode_vjp.py:82",
     },
 }
-# kernels each main path must launch (K1 and K4 keep the sorted contract,
-# which no path calls since K5; K3 is on no path since K6: OFF_PATH must
-# show 0 launches on every path)
-PATH_KERNELS = {
-    "chair": ("hash_encode_fwd", "hash_encode_bwd", "segment_accumulate_k5"),
-    "packed": ("segment_accumulate_k5",),
-    "flagship": ("segment_accumulate_k5",),
+# What phase_main_path runs and requires of each main path:
+# - flags: added to configs/chair.txt;
+# - kernels: each must launch on the path (K1 and K4 keep the sorted
+#   contract, which no path calls since K5; K3 is on no path since K6:
+#   OFF_PATH must show 0 launches on every path);
+# - tv_start, no_tv_start: the global_step its 10 steps with TV and its 20
+#   without start at (tv_start None: right after train_loop's 40 steps);
+#   the flagship's TV steps start where the occupancy warmup ends, its
+#   steps without TV at the last keep-schedule step;
+# - keeps_tv, keeps_no_tv: the (fine, coarse) keep fractions every step of
+#   that window must cull at (None: no step culls);
+# - k5_no_tv: whether K5 must launch (True) or must not (False) in the
+#   steps without TV (the chair path's K5 comes from the TV loss only:
+#   K6 reduces the encode's gradient);
+# - eval_cull: the flags of a second test-view render, culled on the
+#   trained grid (None: none).
+PATHS = {
+    "chair": {"flags": [], "kernels": ("hash_encode_fwd", "hash_encode_bwd",
+                                       "segment_accumulate_k5"),
+              "tv_start": None, "no_tv_start": 1001, "keeps_tv": None, "keeps_no_tv": None,
+              "k5_no_tv": False, "eval_cull": None},
+    "packed": {"flags": PACKED_FLAGS, "kernels": ("segment_accumulate_k5",),
+               "tv_start": None, "no_tv_start": 1001, "keeps_tv": None, "keeps_no_tv": None,
+               "k5_no_tv": True, "eval_cull": None},
+    "flagship": {"flags": FLAGSHIP_FLAGS, "kernels": ("segment_accumulate_k5",),
+                 "tv_start": 256, "no_tv_start": 1024, "keeps_tv": (0.5, 0.375),
+                 "keeps_no_tv": FLAGSHIP_KEEP, "k5_no_tv": True, "eval_cull": EVAL_CULL_FLAGS},
 }
 OFF_PATH = ("segment_accumulate_k1", "segment_accumulate_k4", "hash_encode_bwd_expand")
 
@@ -278,6 +300,47 @@ def cuda_ms(torch, fn, reps: int = 10, warmup: int = 2) -> float:
         e.synchronize()
         ts.append(s.elapsed_time(e))
     return statistics.median(ts)
+
+
+def kernel_times(prof):
+    """[(device us, name, calls)] of each kernel in a finished profiler run,
+    largest first: device-side events only, so the operator and
+    record_function ranges mirrored onto the device timeline, which span
+    the kernels they launch, are not counted twice."""
+    from torch.autograd import DeviceType
+
+    rows = []
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA or getattr(ev, "is_user_annotation", False):
+            continue
+        dt = getattr(ev, "self_device_time_total", None)
+        if dt is None:
+            dt = getattr(ev, "self_cuda_time_total", 0.0)
+        if dt > 0:
+            rows.append((dt, ev.key, ev.count))
+    rows.sort(reverse=True)
+    return rows
+
+
+def device_ms(torch, fn, reps: int = 10) -> float:
+    """Device milliseconds of one fn(): the summed time of its kernels in a
+    profiler trace, each call after cuda_ms' L2 flush, less a trace of the
+    flushes alone. CUDA events around a chain of small launches also time
+    the host between them; this does not."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cuda_ms(torch, fn, reps=1)  # warm up, and allocate the flush buffer
+
+    def traced(call: bool) -> float:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
+            for _ in range(reps):
+                _L2_FLUSH[0].zero_()
+                if call:
+                    fn()
+            torch.cuda.synchronize()
+        return sum(r[0] for r in kernel_times(p)) / 1e3
+
+    return (traced(True) - traced(False)) / reps
 
 
 def phase_k1_cases(torch, np):
@@ -918,7 +981,7 @@ def phase_occupancy(torch, np):
     records and the fine pass's kept points for the K5 shapes."""
     from hashnerf_torch.kernels.gather import permute_rows
     from hashnerf_torch.render import occupancy as occ
-    from hashnerf_torch.render.renderer import _keep_k, _keep_per_ray
+    from hashnerf_torch.render.renderer import keep_k, keep_per_ray
 
     bbox_np = np.array([[-1.6] * 3, [1.6] * 3], np.float32)
     grid_np = occupancy_grid(np)
@@ -933,15 +996,14 @@ def phase_occupancy(torch, np):
         out = {}
         for where, t in (("card", on), ("cpu", off)):
             r = out[where] = {}
-            r["cells"] = occ._cell_index(t["pts"], t["bbox"], OCC_R)
+            r["cells"] = occ.cell_index(t["pts"], t["bbox"], OCC_R)
             r["scores"] = occ.occupancy_scores(t["grid"], t["pts"], t["bbox"], cfg)
             n = r["scores"].numel()
             for block in (1, OCC_BLOCK):
                 s = r["scores"] if block == 1 else r["scores"].reshape(-1, block).amax(-1)
                 for mode in ("sort1", "sort2", "cumsum"):
-                    r[(block, mode)] = occ.cull_points(s, _keep_k(n, kf) // block, mode=mode)
-            for select in ("sort", "topk", "approx"):
-                r[select] = occ.cull_per_ray(r["scores"].reshape(1024, S), _keep_per_ray(S, kf), select)
+                    r[(block, mode)] = occ.cull_points(s, keep_k(n, kf) // block, mode=mode)
+            r["per_ray"] = occ.cull_per_ray(r["scores"].reshape(1024, S), keep_per_ray(S, kf))
         card, cpu = out["card"], out["cpu"]
         d = {}
         for key in card:
@@ -953,15 +1015,23 @@ def phase_occupancy(torch, np):
         scores = cpu["scores"]
         recs[name] = {"points": int(scores.numel()), "outside_bbox": int((scores == -1).sum()),
                       "distinct_scores": int(torch.unique(scores).numel()),
-                      "keep_k": _keep_k(scores.numel(), kf)}
+                      "keep_k": keep_k(scores.numel(), kf)}
         if name == "fine":
-            kept_blocks = card[(OCC_BLOCK, "sort1")][0]
-            kept_pts = on["pts"].reshape(-1, OCC_BLOCK, 3)[kept_blocks].reshape(-1, 3)
+            # the fine pass's kept points at the flagship's fine keep in its
+            # steps with TV (0.5) and without (0.125)
+            blocks = on["pts"].reshape(-1, OCC_BLOCK, 3)
+            bs = card["scores"].reshape(-1, OCC_BLOCK).amax(-1)
+            kept_pts = {}
+            for k in (PATHS["flagship"]["keeps_tv"][0], PATHS["flagship"]["keeps_no_tv"][0]):
+                kept = occ.cull_points(bs, keep_k(bs.numel() * OCC_BLOCK, k) // OCC_BLOCK)[0]
+                kept_pts[k] = blocks[kept].reshape(-1, 3)
 
         # the flagship's cull, timed: block scores, the partition, and the
-        # un-permute of (blocks, 8 x 4 floats) rows forward and backward
+        # un-permute of (blocks, 8 x 4 floats) rows forward and backward.
+        # *_ms are CUDA events (host gaps between launches included),
+        # *_device_ms the kernels' own time from a profiler trace.
         n = on["pts"].numel() // 3
-        nb, kb = n // OCC_BLOCK, _keep_k(n, kf) // OCC_BLOCK
+        nb, kb = n // OCC_BLOCK, keep_k(n, kf) // OCC_BLOCK
         C = 4 * OCC_BLOCK
         gen = torch.Generator(device=DEV)
         gen.manual_seed(7)
@@ -974,23 +1044,24 @@ def phase_occupancy(torch, np):
         require(bool(torch.equal(y, x.detach()[inv])) and bool(torch.equal(dx, g[order])),
                 f"permute_rows on the card ({name})")
 
-        def fwd_bwd():
-            torch.autograd.grad(permute_rows(x, inv, order), x, g)
-
         row_bytes = nb * C * 4 * 2 + nb * 8  # rows read and written, ids read
-        recs[name].update({
-            "blocks": nb, "kept_blocks": kb, "row_floats": C,
-            "block_scores_ms": cuda_ms(torch, lambda: occ.occupancy_scores(
-                on["grid"], on["pts"], on["bbox"], cfg).reshape(nb, OCC_BLOCK).amax(-1)),
-            "partition_sort1_ms": cuda_ms(torch, lambda: occ.cull_points(bscores, kb, "sort1")),
-            "partition_sort2_ms": cuda_ms(torch, lambda: occ.cull_points(bscores, kb, "sort2")),
-            "partition_cumsum_ms": cuda_ms(torch, lambda: occ.cull_points(bscores, kb, "cumsum")),
-            "permute_rows_fwd_ms": cuda_ms(torch, lambda: permute_rows(x.detach(), inv, order)),
-            "permute_rows_fwd_bwd_ms": cuda_ms(torch, fwd_bwd),
-            "permute_rows_bound_ms_each_way": bound(row_bytes, 0)[0],
-            "per_ray_sort_ms": cuda_ms(torch, lambda: occ.cull_per_ray(
-                card["scores"].reshape(1024, -1), _keep_per_ray(n // 1024, kf))),
-        })
+        timed = {
+            "block_scores": lambda: occ.occupancy_scores(
+                on["grid"], on["pts"], on["bbox"], cfg).reshape(nb, OCC_BLOCK).amax(-1),
+            "partition_sort1": lambda: occ.cull_points(bscores, kb, "sort1"),
+            "partition_sort2": lambda: occ.cull_points(bscores, kb, "sort2"),
+            "partition_cumsum": lambda: occ.cull_points(bscores, kb, "cumsum"),
+            "permute_rows_fwd": lambda: permute_rows(x.detach(), inv, order),
+            # PermuteRows.backward: the gather by the inverse permutation
+            "permute_rows_bwd": lambda: g.index_select(0, order),
+            "per_ray_sort": lambda: occ.cull_per_ray(
+                card["scores"].reshape(1024, -1), keep_per_ray(n // 1024, kf)),
+        }
+        recs[name].update({"blocks": nb, "kept_blocks": kb, "row_floats": C,
+                           "permute_rows_bound_ms_each_way": bound(row_bytes, 0)[0]})
+        for what, fn in timed.items():
+            recs[name][f"{what}_ms"] = cuda_ms(torch, fn)
+            recs[name][f"{what}_device_ms"] = device_ms(torch, fn)
         del x, g, y, dx
     bad = {p: {k: v for k, v in d.items() if v} for p, d in diffs.items()}
     rec = {"phase": "occupancy", "grid": f"{OCC_R}^3", "differences": diffs, "passes": recs}
@@ -1000,23 +1071,26 @@ def phase_occupancy(torch, np):
 
 
 def phase_culled_k5(torch, np, kept_pts):
-    """K5 at the flagship's culled shapes: the packed rows of the 24,576
-    points the fine cull kept (the coarse pass keeps as many), beside its
-    plain version and index_add_."""
+    """K5 at the flagship's culled shapes: the packed rows of the points the
+    fine cull kept, {keep fraction: points}: 24,576 at 0.125 (the coarse
+    pass keeps as many at 0.375), 98,304 at 0.5; beside its plain version
+    and index_add_."""
     from hashnerf_torch.kernels import segment_accum as sa
     from hashnerf_torch.ops.packed_grid import packed_geometry
 
     pcfg = packed_config()
     bmin = torch.full((3,), -1.6, device=DEV)
     bmax = torch.full((3,), 1.6, device=DEV)
-    geo = packed_geometry(kept_pts.contiguous(), bmin, bmax, pcfg)
     gen = torch.Generator(device=DEV)
     gen.manual_seed(8)
-    shapes = {
-        "culled_slabs": (geo.fine_rows.reshape(-1), 27 * PACKED_F,
-                         len(pcfg.fine_resolutions) * pcfg.n_block_rows),
-        "culled_dense_voxels": (geo.dense_rows.reshape(-1), 8 * PACKED_F, pcfg.packed_offsets[-1]),
-    }
+    shapes = {}
+    for keep, pts in kept_pts.items():
+        geo = packed_geometry(pts.contiguous(), bmin, bmax, pcfg)
+        tag = "" if keep == FLAGSHIP_KEEP[0] else f"_keep_{keep}"
+        shapes["culled_slabs" + tag] = (geo.fine_rows.reshape(-1), 27 * PACKED_F,
+                                        len(pcfg.fine_resolutions) * pcfg.n_block_rows)
+        shapes["culled_dense_voxels" + tag] = (geo.dense_rows.reshape(-1), 8 * PACKED_F,
+                                               pcfg.packed_offsets[-1])
     out = {}
     for name, (idx, F, T) in shapes.items():
         M = idx.numel()
@@ -1068,13 +1142,15 @@ def timed_steps(torch, trainer, n: int, keeps=None):
     return ts, losses
 
 
-def phase_main_path(torch, np, path: str, flags, profile: bool):
-    """One main path: the chair widths plus `flags`; `path` names it."""
+def phase_main_path(torch, np, path: str, profile: bool):
+    """One main path of PATHS: the chair widths plus its flags."""
     from hashnerf_torch import kernels
     from hashnerf_torch.data.synthetic import make_synthetic_scene
     from hashnerf_torch.train.config import parse_args
     from hashnerf_torch.train.driver import Trainer, train_loop
 
+    spec = PATHS[path]
+    flags = spec["flags"]
     workdir = tempfile.mkdtemp(prefix="hashnerf_torch_smoke_")
     try:
         args = parse_args([
@@ -1098,19 +1174,26 @@ def phase_main_path(torch, np, path: str, flags, profile: bool):
         c0 = kernels.launch_counts()
         loop_peak = torch.cuda.max_memory_allocated() / 2**30  # its test-set render included
         torch.cuda.reset_peak_memory_stats()
-        tv_s, tv_losses = timed_steps(torch, trainer, 10)  # global_step 41-50: TV on
+        if spec["tv_start"] is not None:
+            trainer.global_step = spec["tv_start"]
+        keeps_tv = []
+        tv_s, tv_losses = timed_steps(torch, trainer, 10, keeps_tv)  # TV on
         c1 = kernels.launch_counts()
         tv_peak = torch.cuda.max_memory_allocated() / 2**30
         torch.cuda.reset_peak_memory_stats()
-        # past the TV warmup, as bench.py does; the flagship at its last
-        # keep-schedule step
-        trainer.global_step = 1024 if path == "flagship" else 1001
+        trainer.global_step = spec["no_tv_start"]  # past the TV steps, as bench.py does
         keeps = []
         notv_s, notv_losses = timed_steps(torch, trainer, 20, keeps)
         c2 = kernels.launch_counts()
-        # the flagship's steps with TV run in the occupancy warmup, unculled
         notv_peak = torch.cuda.max_memory_allocated() / 2**30
         train_peak = max(tv_peak, notv_peak)  # training steps only
+        for window, got, want in (("with", keeps_tv, spec["keeps_tv"]),
+                                  ("without", keeps, spec["keeps_no_tv"])):
+            require(all(k == want for k in got),
+                    f"{path}: steps {window} TV not all at keeps {want}: {got}")
+        k5_no_tv = c2["segment_accumulate_k5"] - c1["segment_accumulate_k5"]
+        require((k5_no_tv > 0) == spec["k5_no_tv"],
+                f"{path}: K5 launched {k5_no_tv} times in the steps without TV")
 
         prof = None
         if profile:
@@ -1132,19 +1215,19 @@ def phase_main_path(torch, np, path: str, flags, profile: bool):
         gt = torch.as_tensor(scene.images[scene.i_test[0]], device=DEV)
         psnr = lambda img: float(-10.0 * torch.log10(torch.mean((img - gt) ** 2)))
         test_psnr = psnr(rgb)
+        # without --occ_keep_eval the test view renders exact
+        require(restored.eval_occ_grid is None, f"{path}: the restored trainer's render culls")
         culled = None
-        if path == "flagship":
+        if spec["eval_cull"] is not None:
             # the test view once more, culled with the eval budgets on the
-            # trained grid (the restored trainer's grid is empty: exact)
+            # trained grid (ready: its steps culled above)
             from hashnerf_torch.models.factory import query_fn
             from hashnerf_torch.render.renderer import render
             from hashnerf_torch.train.driver import render_config_from_args
 
             eval_cfg = render_config_from_args(parse_args([
-                "--config", os.path.join(ROOT, "configs", "chair.txt"), *flags, *EVAL_CULL_FLAGS,
+                "--config", os.path.join(ROOT, "configs", "chair.txt"), *flags, *spec["eval_cull"],
             ])).eval_mode()
-            require(trainer._occ_ready and restored._eval_occ_grid is None,
-                    "flagship: the trained grid is not ready, or the restored one culls")
             t0 = time.perf_counter()
             rgb_c, _, _, _ = render(trainer.state, query_fn, scene.H, scene.W, scene.K, trainer.bbox,
                                     eval_cfg, c2w=torch.as_tensor(scene.poses[scene.i_test[0]],
@@ -1153,13 +1236,10 @@ def phase_main_path(torch, np, path: str, flags, profile: bool):
                                     occ_grid=trainer.occ_grid)
             torch.cuda.synchronize()
             culled = {"render_s": time.perf_counter() - t0, "test_psnr": psnr(rgb_c),
-                      "flags": EVAL_CULL_FLAGS, "occupied_cells": int((trainer.occ_grid > 0).sum())}
+                      "flags": spec["eval_cull"],
+                      "occupied_cells": int((trainer.occ_grid > 0).sum())}
             require(rgb_c.shape == (scene.H, scene.W, 3), f"culled render shape {tuple(rgb_c.shape)}")
             require(bool(torch.isfinite(rgb_c).all()), "non-finite culled render")
-            require(all(k == FLAGSHIP_KEEP for k in keeps),
-                    f"flagship: steps without TV not all culled at {FLAGSHIP_KEEP}: {keeps}")
-            require(c2["segment_accumulate_k5"] - c1["segment_accumulate_k5"] > 0,
-                    "flagship: K5 was not launched in the culled steps")
         counts = kernels.launch_counts()
 
         losses = [h[1] for h in trainer.history] + tv_losses + notv_losses
@@ -1167,13 +1247,10 @@ def phase_main_path(torch, np, path: str, flags, profile: bool):
         require(bool(torch.isfinite(rgb).all()), "non-finite render")
         require(all(np.isfinite(losses)), "non-finite loss")
         require(np.mean(losses[-5:]) < np.mean(losses[:5]), "loss did not fall")
-        for name in PATH_KERNELS[path]:
+        for name in spec["kernels"]:
             require(counts[name] > 0, f"kernel {name} was not launched on the {path} path")
         for name in OFF_PATH:
             require(counts[name] == 0, f"kernel {name} was launched on the {path} path")
-        if path == "chair":  # K5 only from the TV loss: K6 reduces the encode's gradient
-            require((c2["segment_accumulate_k5"] - c1["segment_accumulate_k5"]) == 0,
-                    "K5 was launched on the chair path without TV")
 
         per_step = lambda a, b, n: {k: (b[k] - a[k]) / n for k in a}
         rec = {
@@ -1189,8 +1266,10 @@ def phase_main_path(torch, np, path: str, flags, profile: bool):
             "launches_per_step_tv": per_step(c0, c1, len(tv_s)),
             "launches_per_step_no_tv": per_step(c1, c2, len(notv_s)),
             "render_s": render_s, "test_psnr": test_psnr, "culled_eval_render": culled,
-            "keeps_no_tv": keeps,
-            "peak_mem_gib_training": train_peak, "peak_mem_gib_no_tv": notv_peak,
+            "tv_start": spec["tv_start"], "no_tv_start": spec["no_tv_start"],
+            "keeps_tv": keeps_tv, "keeps_no_tv": keeps,
+            "peak_mem_gib_training": train_peak, "peak_mem_gib_tv": tv_peak,
+            "peak_mem_gib_no_tv": notv_peak,
             "peak_mem_gib": max(loop_peak, torch.cuda.max_memory_allocated() / 2**30),
             "launches": counts,
         }
@@ -1210,7 +1289,6 @@ def profile_steps(torch, trainer, n: int, step_s: float):
     step divides the device time per step by `step_s`, the median
     unprofiled step of the same run; the share of the profiled wall is
     printed beside it."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     timed_steps(torch, trainer, 1)
@@ -1218,18 +1296,7 @@ def profile_steps(torch, trainer, n: int, step_s: float):
         t0 = time.perf_counter()
         timed_steps(torch, trainer, n)
         wall = time.perf_counter() - t0
-    rows = []
-    for ev in p.key_averages():
-        # operator and record_function ranges mirrored onto the device
-        # timeline span the kernels they launch: count the kernels only
-        if ev.device_type != DeviceType.CUDA or getattr(ev, "is_user_annotation", False):
-            continue
-        dt = getattr(ev, "self_device_time_total", None)
-        if dt is None:
-            dt = getattr(ev, "self_cuda_time_total", 0.0)
-        if dt > 0:
-            rows.append((dt, ev.key, ev.count))
-    rows.sort(reverse=True)
+    rows = kernel_times(p)
     busy_s = sum(r[0] for r in rows) / 1e6 / n
     return {
         "phase": "profile", "steps": n,
@@ -1278,11 +1345,7 @@ def main(argv=None) -> int:
     culled_k5 = phase_culled_k5(torch, np, kept_pts)
     del kept_pts
     torch.cuda.empty_cache()
-    paths = {
-        "chair": phase_main_path(torch, np, "chair", [], opts.profile),
-        "packed": phase_main_path(torch, np, "packed", PACKED_FLAGS, opts.profile),
-        "flagship": phase_main_path(torch, np, "flagship", FLAGSHIP_FLAGS, opts.profile),
-    }
+    paths = {path: phase_main_path(torch, np, path, opts.profile) for path in PATHS}
 
     fine = packed["shapes"]["fine_slabs"]
     kern["segment_accumulate_k4"] = {

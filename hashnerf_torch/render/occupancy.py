@@ -15,7 +15,8 @@ score, so the kept set is decided inside runs of equal scores.
 - The per-ray "topk" and "approx" selections take the same stable argsort.
   `lax.top_k` breaks ties toward the lower index, which is that order, and
   `torch.topk` promises no order among ties. `lax.approx_max_k` is exact
-  top_k off the TPU, so on the card it selects the same set.
+  top_k off the TPU, so on the card it selects the same set. So
+  `per_ray_select` is only validated (OccupancyConfig).
 - The top macro-blocks of the adaptive grid update are a stable argsort of
   the block maxima for the same reason.
 
@@ -70,6 +71,9 @@ class OccupancyConfig:
                 "scores cover the samples between two probes with the grid's "
                 "3^3 dilation, which needs the probes at most two cells apart"
             )
+        # kept for the JAX flags; all three take the same stable argsort here
+        if self.per_ray_select not in ("sort", "topk", "approx"):
+            raise ValueError(f"per_ray_select {self.per_ray_select!r}")
 
     @property
     def n_cells(self) -> int:
@@ -97,7 +101,7 @@ def init_occupancy_grid(cfg: OccupancyConfig, device=None) -> torch.Tensor:
     return torch.zeros((cfg.n_cells,), dtype=torch.float32, device=device)
 
 
-def _cell_index(pts: torch.Tensor, bbox: torch.Tensor, R: int) -> torch.Tensor:
+def cell_index(pts: torch.Tensor, bbox: torch.Tensor, R: int) -> torch.Tensor:
     rel = (pts - bbox[0]) / (bbox[1] - bbox[0])
     ijk = torch.clamp((rel * R).to(torch.int32), 0, R - 1).to(torch.int64)
     return (ijk[..., 0] * R + ijk[..., 1]) * R + ijk[..., 2]
@@ -110,7 +114,7 @@ def _in_bbox(pts: torch.Tensor, bbox: torch.Tensor) -> torch.Tensor:
 def occupancy_lookup(grid: torch.Tensor, pts: torch.Tensor, bbox: torch.Tensor,
                      cfg: OccupancyConfig) -> torch.Tensor:
     """bool (N,): the point's cell is above min(cfg.threshold, mean(grid))."""
-    idx = _cell_index(pts, bbox, cfg.resolution)
+    idx = cell_index(pts, bbox, cfg.resolution)
     thr = torch.clamp(torch.mean(grid), max=cfg.threshold)
     return grid[idx] > thr
 
@@ -128,7 +132,7 @@ def occupancy_scores_strided(grid_dilated: torch.Tensor, pts: torch.Tensor,
     Rr, S = pts.shape[0], pts.shape[1]
     st = cfg.score_stride
     probes = torch.clamp(pts[:, ::st], bbox[0], bbox[1])  # (Rr, P, 3)
-    cell = _cell_index(probes.reshape(-1, 3), bbox, cfg.resolution)
+    cell = cell_index(probes.reshape(-1, 3), bbox, cfg.resolution)
     s_p = grid_dilated[cell].reshape(Rr, probes.shape[1])
     s_full = torch.repeat_interleave(s_p, st, dim=1)[:, :S]
     return torch.where(_in_bbox(pts, bbox), s_full, torch.full_like(s_full, -1.0))
@@ -137,7 +141,7 @@ def occupancy_scores_strided(grid_dilated: torch.Tensor, pts: torch.Tensor,
 def occupancy_scores(grid: torch.Tensor, pts: torch.Tensor, bbox: torch.Tensor,
                      cfg: OccupancyConfig) -> torch.Tensor:
     """float (N,): each point's cell EMA; points outside the bbox -1."""
-    s = grid[_cell_index(pts, bbox, cfg.resolution)]
+    s = grid[cell_index(pts, bbox, cfg.resolution)]
     return torch.where(_in_bbox(pts, bbox), s, torch.full_like(s, -1.0))
 
 
@@ -205,12 +209,10 @@ def update_occupancy_grid(grid: torch.Tensor, bbox: torch.Tensor, cfg: Occupancy
     return (grid * cfg.ema_decay).scatter_reduce_(0, cells, sigma, "amax", include_self=True)
 
 
-def cull_per_ray(scores: torch.Tensor, K: int, select: str = "sort") -> torch.Tensor:
+def cull_per_ray(scores: torch.Tensor, K: int) -> torch.Tensor:
     """(R, K) int64: each ray's K best-scoring samples, ties toward the
-    lower index, in ascending sample order. Every `select` takes the same
-    stable argsort here (see the module docstring)."""
-    if select not in ("sort", "topk", "approx"):
-        raise ValueError(f"per_ray_select {select!r}")
+    lower index, in ascending sample order: JAX's cull_per_ray under every
+    per_ray_select (see the module docstring)."""
     kept = torch.argsort(-scores, dim=-1, stable=True)[..., :K]
     return torch.sort(kept, dim=-1).values
 

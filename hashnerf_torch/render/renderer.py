@@ -4,9 +4,10 @@ Counterpart of hashnerf_tpu/render/renderer.py without NDC (ROADMAP A3):
 `aabb_clip` tightens each ray's [near, far] to the bbox; with an occupancy
 config and a grid, each pass queries only its budget of best-scoring
 samples (render/occupancy.py), globally (in blocks) or per ray;
-`fast_merge` draws the importance samples sorted and merges them with the
-stratified ones by rank. The JAX renderer splits one key into k_strat,
-k_noise0, k_pdf and k_noise1; here each of those draws is a tensor in
+`fast_merge` draws the importance samples sorted (JAX then merges them with
+the stratified ones by rank; the port sorts either way). The JAX renderer
+splits one key into k_strat, k_noise0, k_pdf and k_noise1; here each of
+those draws is a tensor in
 `RenderDraws` that the caller may hand in, and any draw left out is taken
 from the torch.Generator.
 """
@@ -41,9 +42,8 @@ class RenderConfig:
     aabb_clip: bool = False  # off = reference-exact z ranges
     # occupancy culling; None = exact evaluation of every sample
     occupancy: Optional[OccupancyConfig] = None
-    # sorted importance draws merged by rank instead of a sort of the
-    # concatenation. Passes culled by an occupancy grid take the
-    # score-carrying z sort instead.
+    # importance draws from sorted uniforms (another RNG stream, the same
+    # law). Passes culled by an occupancy grid draw as without it.
     fast_merge: bool = False
 
     def eval_mode(self) -> "RenderConfig":
@@ -80,12 +80,12 @@ class RenderDraws(NamedTuple):
     noise1: Optional[torch.Tensor] = None
 
 
-def _keep_k(n: int, kf: float) -> int:
+def keep_k(n: int, kf: float) -> int:
     """Global budget: int(n * kf) rounded up to a multiple of 128, at most n."""
     return min(n, -(-int(n * kf) // 128) * 128)
 
 
-def _keep_per_ray(S: int, kf: float) -> int:
+def keep_per_ray(S: int, kf: float) -> int:
     """Per-ray budget: int(S * kf) rounded up to a multiple of 8, in [1, S]."""
     return min(S, max(1, -(-int(S * kf) // 8) * 8))
 
@@ -146,17 +146,17 @@ def render_rays(
             else:
                 n = pts.shape[0] * pts.shape[1]
                 raw = query_with_culling(query_fn, state, pts, viewdirs, bbox, occ_grid, occ,
-                                         _keep_k(n, keep_fraction(fine)), fine=fine,
+                                         keep_k(n, keep_fraction(fine)), fine=fine,
                                          scores=scores)
             out = raw2outputs(raw, z_vals, rays_d, cfg.raw_noise_std, cfg.white_bkgd,
                               noise=noise, generator=generator)
             return out, out.weights
 
         S = z_vals.shape[-1]
-        K = _keep_per_ray(S, keep_fraction(fine))
+        K = keep_per_ray(S, keep_fraction(fine))
         if scores is None:
             scores = score_z(z_vals)
-        idx = cull_per_ray(scores, K, select=occ.per_ray_select)  # (R, K), z order
+        idx = cull_per_ray(scores, K)  # (R, K), z order
         z_k = torch.gather(z_vals, -1, idx)
         dists_full = torch.cat([z_vals[..., 1:] - z_vals[..., :-1],
                                 torch.full_like(z_vals[..., :1], 1e10)], -1)
@@ -211,18 +211,15 @@ def render_rays(
         else:
             u = u_pdf
             if cfg.fast_merge and not det:
-                # sorted uniforms through the monotone inverse CDF give
-                # sorted z_samples; z_vals is sorted by construction
+                # JAX's sorted draws (k_pdf), for its rank merge; the
+                # merge below is a sort either way
                 u = draws.u_sorted
                 if u is None:
                     u = sorted_uniform((R, cfg.N_importance), generator, device=z_vals.device,
                                        dtype=z_vals.dtype)
             z_samples = sample_pdf(z_vals_mid, w_full[..., 1:-1], cfg.N_importance, det=det,
                                    u=u, generator=generator).detach()
-            if cfg.fast_merge:
-                z_vals = merge_sorted(z_vals, z_samples)
-            else:
-                z_vals = torch.sort(torch.cat([z_vals, z_samples], -1), dim=-1).values
+            z_vals = merge_sorted(z_vals, z_samples)
             out, _ = march(z_vals, draws.noise1, fine=True)
         ret["z_std"] = torch.std(z_samples, dim=-1, correction=0)
 

@@ -345,7 +345,7 @@ class Trainer:
     eval_cull: bool = False
 
     @property
-    def _eval_occ_grid(self) -> Optional[torch.Tensor]:
+    def eval_occ_grid(self) -> Optional[torch.Tensor]:
         occ = self.render_cfg.occupancy
         if occ is None or not self._occ_ready:
             return None
@@ -359,7 +359,7 @@ class Trainer:
             self.state, query_fn, sc.H, sc.W, sc.K, self.bbox,
             self.render_cfg.eval_mode(), chunk=chunk or self.args.chunk,
             c2w=torch.as_tensor(np.asarray(c2w)[:3, :4], dtype=torch.float32, device=self.device),
-            near=self.near, far=self.far, occ_grid=self._eval_occ_grid,
+            near=self.near, far=self.far, occ_grid=self.eval_occ_grid,
         )
 
     def render_test_path(self, poses, gt_imgs=None, savedir: Optional[str] = None):
@@ -367,7 +367,7 @@ class Trainer:
         rgbs, depths, psnrs = render_path(
             self.state, query_fn, poses, sc.hwf, sc.K, self.bbox, self.render_cfg,
             chunk=self.args.chunk, near=self.near, far=self.far, gt_imgs=gt_imgs,
-            occ_grid=self._eval_occ_grid,
+            occ_grid=self.eval_occ_grid,
         )
         if savedir is not None:
             os.makedirs(savedir, exist_ok=True)

@@ -108,7 +108,7 @@ def test_cell_index_scores_and_lookup_match_jax():
     jargs = (jnp.asarray(grid), jnp.asarray(pts), jnp.asarray(BBOX), jc)
     targs = (_t(grid), _t(pts), _t(BBOX), tc)
     idx_j = np.asarray(jocc._cell_index(jnp.asarray(pts), jnp.asarray(BBOX), 32))
-    np.testing.assert_array_equal(tocc._cell_index(_t(pts), _t(BBOX), 32).numpy(), idx_j)
+    np.testing.assert_array_equal(tocc.cell_index(_t(pts), _t(BBOX), 32).numpy(), idx_j)
     s_j = np.asarray(jocc.occupancy_scores(*jargs))
     s_t = tocc.occupancy_scores(*targs).numpy()
     np.testing.assert_array_equal(s_t, s_j)
@@ -143,6 +143,13 @@ def test_score_stride_above_two_is_refused():
     tocc.OccupancyConfig(score_stride=2)
     with pytest.raises(ValueError, match="two cells apart"):
         tocc.OccupancyConfig(score_stride=3)
+
+
+def test_per_ray_select_is_validated():
+    for select in ("sort", "topk", "approx"):
+        tocc.OccupancyConfig(per_ray_select=select)
+    with pytest.raises(ValueError, match="per_ray_select"):
+        tocc.OccupancyConfig(per_ray_select="heap")
 
 
 # --------------------------------------------------------------------------- #
@@ -224,8 +231,9 @@ def tie_scores(shape, seed):
 @pytest.mark.parametrize("K", [8, 24])
 def test_cull_per_ray_matches_jax(select, K):
     s = tie_scores((40, 48), 11)
+    """JAX under each selection gives the port's one stable selection."""
     want = np.asarray(jocc.cull_per_ray(jnp.asarray(s), K, select=select))
-    got = tocc.cull_per_ray(_t(s), K, select=select)
+    got = tocc.cull_per_ray(_t(s), K)
     assert got.dtype == torch.int64
     np.testing.assert_array_equal(got.numpy(), want)
 
@@ -299,7 +307,7 @@ def test_merge_sorted_matches_jnp_sort():
     got = merge_sorted(_t(a), _t(b)).numpy()
     np.testing.assert_array_equal(got, want)
     np.testing.assert_array_equal(got, np.asarray(jmerge(jnp.asarray(a), jnp.asarray(b))))
-    # equal values: a's first, which the values cannot show; the places can
+    # equal values across the rows: JAX puts a's first, which values cannot show
     a2, b2 = np.float32([[1, 2, 3]]), np.float32([[2, 3, 4]])
     np.testing.assert_array_equal(merge_sorted(_t(a2), _t(b2)).numpy(), [[1, 2, 2, 3, 3, 4]])
 

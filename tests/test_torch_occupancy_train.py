@@ -189,14 +189,14 @@ def test_eval_is_exact_unless_asked():
     --occ_keep_eval or eval_cull; the eval budgets replace the training
     ones and turn the transmittance cull on."""
     t = _trainer("--use_occupancy")
-    assert t._eval_occ_grid is None
+    assert t.eval_occ_grid is None
     t._occ_ready = True
-    assert t._eval_occ_grid is None
+    assert t.eval_occ_grid is None
     t.eval_cull = True
-    assert t._eval_occ_grid is t.occ_grid
+    assert t.eval_occ_grid is t.occ_grid
     t = _trainer("--use_occupancy", "--occ_keep_eval", "0.75", "--occ_eval_transmittance")
     t._occ_ready = True
-    assert t._eval_occ_grid is t.occ_grid
+    assert t.eval_occ_grid is t.occ_grid
     occ = t.render_cfg.eval_mode().occupancy
     assert (occ.keep_fraction, occ.keep_fraction_coarse, occ.transmittance_cull) == (0.75, None, True)
     assert not t.render_cfg.eval_mode().perturb
