@@ -60,23 +60,33 @@ Imports hashnerf_torch (never jax or hashnerf_tpu) and, on one CUDA card:
       its 20 without TV start at 1024, each culled at 0.125 and 0.375, and
       K5 must launch in them; the test view is rendered exact and culled
       (--occ_keep_eval 0.75 --occ_eval_transmittance);
+    then each path's two windows again as Trainer.run_steps blocks of 16
+    steps, replayed from CUDA graphs (--steps_per_dispatch): with TV (from
+    step 48, the flagship from 256) and without (from 1024). The first
+    block of each must equal 16 eager steps from the same state and
+    generator state within the atomics' row gate, then 3-4 blocks are
+    timed; the flagship's graphed steps must cull at their budgets, and
+    the kernels must launch in the replays (counted per replay).
     PATHS holds what each path runs and must show. The launch counts are
     set to 0 before each path and read after it; each kernel of a path
     must have been launched there, and K1, K3 and K4 on no path;
- 4. prints one line {"kernels": [...]} with each kernel's launches on the
-    main paths, error, times and bound, and as the last line
-    {"ok": true, "device": {...}}.
+ 4. bench: the line of `python -m hashnerf_torch.bench` for the flagship
+    and for BENCH_PARITY=1;
+ 5. prints one line {"kernels": [...]} with each kernel's launches on the
+    main paths (graph replays included), error, times and bound, and as the
+    last line {"ok": true, "device": {...}}.
 
 Any failed check raises, and the script exits non-zero without the last
 line. It exits non-zero at once when no CUDA device is present or when
 hashnerf_torch cannot be imported (a directory holding only this script).
-`--profile` adds a torch.profiler breakdown of three steps without TV of
-each path.
+`--profile` adds a torch.profiler breakdown of three eager steps without TV
+of each path, and of one graphed block of each window.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import shutil
 import statistics
@@ -166,19 +176,29 @@ KERNEL_INFO = {
 #   steps without TV (the chair path's K5 comes from the TV loss only:
 #   K6 reduces the encode's gradient);
 # - eval_cull: the flags of a second test-view render, culled on the
-#   trained grid (None: none).
+#   trained grid (None: none);
+# - graph_tv_start: the global_step of the graphed window with TV; the one
+#   without TV starts at GRAPH_NO_TV_START. Each graphed window runs
+#   Trainer.run_steps blocks of GRAPH_BLOCK steps (CUDA graph replays), must
+#   keep the eager window's keeps and K5 rule and launch the path's kernels,
+#   and its first block must equal GRAPH_BLOCK eager steps from the same
+#   state and draws within the row gate.
 PATHS = {
     "chair": {"flags": [], "kernels": ("hash_encode_fwd", "hash_encode_bwd",
                                        "segment_accumulate_k5"),
               "tv_start": None, "no_tv_start": 1001, "keeps_tv": None, "keeps_no_tv": None,
-              "k5_no_tv": False, "eval_cull": None},
+              "k5_no_tv": False, "eval_cull": None, "graph_tv_start": 48},
     "packed": {"flags": PACKED_FLAGS, "kernels": ("segment_accumulate_k5",),
                "tv_start": None, "no_tv_start": 1001, "keeps_tv": None, "keeps_no_tv": None,
-               "k5_no_tv": True, "eval_cull": None},
+               "k5_no_tv": True, "eval_cull": None, "graph_tv_start": 48},
     "flagship": {"flags": FLAGSHIP_FLAGS, "kernels": ("segment_accumulate_k5",),
                  "tv_start": 256, "no_tv_start": 1024, "keeps_tv": (0.5, 0.375),
-                 "keeps_no_tv": FLAGSHIP_KEEP, "k5_no_tv": True, "eval_cull": EVAL_CULL_FLAGS},
+                 "keeps_no_tv": FLAGSHIP_KEEP, "k5_no_tv": True, "eval_cull": EVAL_CULL_FLAGS,
+                 "graph_tv_start": 256},
 }
+GRAPH_BLOCK = 16  # the flagship preset's --steps_per_dispatch
+GRAPH_NO_TV_START = 1024  # the last keep-schedule step; on the update grid
+GRAPH_TIMED_BLOCKS = {"tv": 3, "no_tv": 4}
 OFF_PATH = ("segment_accumulate_k1", "segment_accumulate_k4", "hash_encode_bwd_expand")
 
 
@@ -1116,6 +1136,50 @@ def phase_culled_k5(torch, np, kept_pts):
     return out
 
 
+def phase_packed_encode(torch, np, kept_pts):
+    """packed_encode (torch ops: geometry, take_rows, the einsum blends;
+    backward K5), forward and backward, at the packed path's pass shapes and
+    at the flagship's culled ones: device ms from a profiler trace beside
+    the byte bound of the function (x, the dense vertex table and the fine
+    slabs the points touch read, the cotangent read, the features and both
+    tables' gradients written)."""
+    from hashnerf_torch.ops.packed_grid import init_packed_tables, packed_encode, packed_geometry
+
+    pcfg = packed_config()
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(9)
+    tables = {k: (v * 1e4).requires_grad_(True)
+              for k, v in init_packed_tables(pcfg, gen, DEV).items()}
+    bmin = torch.full((3,), -1.6, device=DEV)
+    bmax = torch.full((3,), 1.6, device=DEV)
+    x_all = torch.as_tensor(chair_points(np, N_POINTS, -1.6, 1.6, pcfg.resolutions, seed=1), device=DEV)
+    point_sets = {"fine": x_all, "coarse": x_all[:N_COARSE].contiguous(),
+                  "culled": kept_pts[FLAGSHIP_KEEP[0]].contiguous()}
+    out = {}
+    for name, x in point_sets.items():
+        N = x.shape[0]
+        g = torch.randn((N, pcfg.out_dim), generator=gen, device=DEV)
+        fwd = lambda: packed_encode(tables, x, bmin, bmax, pcfg)
+        both = lambda: torch.autograd.grad(fwd()[0], list(tables.values()), g)
+        feats, keep = fwd()
+        require(bool(torch.isfinite(feats).all()), f"packed_encode ({name}): non-finite features")
+        fine_rows = torch.unique(packed_geometry(x, bmin, bmax, pcfg).fine_rows).numel()
+        dense_b = tables["dense"].numel() * 4
+        fine_b = tables["fine"].numel() * 4
+        read = N * 12 + dense_b + fine_rows * tables["fine"].shape[1] * 4 + N * pcfg.out_dim * 4
+        written = N * pcfg.out_dim * 4 + N + dense_b + fine_b
+        b = bound(read + written, 0)
+        out[name] = {"N": N, "touched_fine_slabs": fine_rows,
+                     "fwd_device_ms": device_ms(torch, fwd, reps=5),
+                     "fwd_bwd_device_ms": device_ms(torch, both, reps=5),
+                     "fwd_bwd_ms": cuda_ms(torch, both, reps=5),
+                     "bound_ms": b[0], "bound_by": b[1]}
+        emit({"phase": "packed_encode", "points": name, **out[name]})
+    del tables
+    torch.cuda.empty_cache()
+    return out
+
+
 # --------------------------------------------------------------------------- #
 # Phase 3
 # --------------------------------------------------------------------------- #
@@ -1199,6 +1263,17 @@ def phase_main_path(torch, np, path: str, profile: bool):
         if profile:
             prof = {"path": path, **profile_steps(torch, trainer, 3, statistics.median(notv_s))}
 
+        # the same windows as CUDA graph replays (run_steps blocks)
+        c_g0 = kernels.launch_counts()
+        graphed = {"tv": graphed_window(torch, trainer, spec["graph_tv_start"], "tv", spec, profile),
+                   "no_tv": graphed_window(torch, trainer, GRAPH_NO_TV_START, "no_tv", spec, profile)}
+        c_g1 = kernels.launch_counts()
+        k5_graphed_no_tv = graphed["no_tv"]["launches_per_step"]["segment_accumulate_k5"]
+        require((k5_graphed_no_tv > 0) == spec["k5_no_tv"],
+                f"{path}: K5 launched {k5_graphed_no_tv} times a graphed step without TV")
+        for name in spec["kernels"]:
+            require(c_g1[name] > c_g0[name], f"kernel {name} was not launched in {path}'s graphed windows")
+
         ckpt = os.path.join(workdir, "restore", "{:06d}.ckpt".format(trainer.global_step))
         trainer.save(ckpt)
         restored = Trainer(args, scene, device=DEV, seed=1)
@@ -1271,6 +1346,9 @@ def phase_main_path(torch, np, path: str, profile: bool):
             "peak_mem_gib_training": train_peak, "peak_mem_gib_tv": tv_peak,
             "peak_mem_gib_no_tv": notv_peak,
             "peak_mem_gib": max(loop_peak, torch.cuda.max_memory_allocated() / 2**30),
+            "graphed": graphed,
+            "train_rays_per_s_graphed_tv": graphed["tv"]["train_rays_per_s_graphed"],
+            "train_rays_per_s_graphed_no_tv": graphed["no_tv"]["train_rays_per_s_graphed"],
             "launches": counts,
         }
         emit(rec)
@@ -1279,6 +1357,134 @@ def phase_main_path(torch, np, path: str, profile: bool):
         return rec
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+
+
+def row_gate(got, want):
+    """(entries outside, max |got - want|) under the atomics' gate of K5 and
+    K6, row by row: |got - want| <= 2e-5 * sum(|want row|) + 1e-6, a row
+    the last axis of a table or weight (each entry of a 1-d tensor)."""
+    bad, worst = 0, 0.0
+    for g, w in zip(got, want):
+        w2 = w.reshape(-1, w.shape[-1]) if w.dim() > 1 else w.reshape(-1, 1)
+        d = (g.detach().reshape(w2.shape) - w2).abs()
+        bad += int((d > 2e-5 * w2.abs().sum(-1, keepdim=True) + 1e-6).sum())
+        worst = max(worst, float(d.max()))
+    return bad, worst
+
+
+# The graph-against-eager gate. Two eager runs of 16 steps from one state
+# and one generator state already leave entries outside the atomics' row
+# gate (row_gate) once RAdam has normalised 16 steps of near-cancelling
+# table gradients: on an H100, 0.004-0.011% of the chair's entries and
+# 0.02-3.9% of the packed path's, whose bf16 MLP operands turn roundoff in
+# a weight into a rounding flip (PERF.md, PR 6). So the graphed block is
+# held to the spread of the runs themselves: its share of entries outside
+# the gate at most GATE_MAX_SHARE_OUTSIDE or 3x the larger share of an
+# eager pair and a graphed pair, and its last loss within GATE_LOSS_RTOL or
+# 10x their loss differences. A wrong learning rate, draw, keep budget or
+# grid moves most updated entries, and a wrong draw the loss by percents.
+GATE_MAX_SHARE_OUTSIDE = 0.10
+GATE_LOSS_RTOL = 1e-4
+
+
+def graphed_window(torch, trainer, start: int, window: str, spec, profile: bool):
+    """From global_step `start`: GRAPH_BLOCK eager steps twice, and the same
+    steps twice as a run_steps block (CUDA graphs: the capture, then
+    replays), each from the same state and generator state. The first
+    graphed block is held against the first eager run by the gate above
+    (on the parameters and the grid), the second run of each kind giving
+    the spread. Then GRAPH_TIMED_BLOCKS[window] timed blocks, each closed
+    by a host read. Every graphed step must cull at the window's keeps."""
+    from hashnerf_torch import kernels
+
+    args, n = trainer.args, GRAPH_BLOCK
+    want_keep = spec["keeps_tv" if window == "tv" else "keeps_no_tv"]
+    precrop = start + 1 < args.precrop_iters
+    params = lambda: list(trainer.state.parameters()) + (
+        [trainer.occ_grid] if trainer.occ_grid is not None else [])
+    snap = [t.detach().clone() for t in trainer.training_state()]
+    rng, ready = trainer.generator.get_state(), trainer._occ_ready
+
+    def from_snapshot():
+        with torch.no_grad():
+            for t, s in zip(trainer.training_state(), snap):
+                t.copy_(s)
+        trainer.generator.set_state(rng)
+        trainer.global_step, trainer._occ_ready = start, ready
+
+    def run(graphed: bool):
+        from_snapshot()
+        if graphed:
+            m = trainer.run_steps(n, block_size=n, precrop=precrop)
+        else:
+            for _ in range(n):
+                m = trainer.step(trainer.sample_batch(precrop))
+        return [t.detach().clone() for t in params()], float(m["loss"])
+
+    eager, eager_loss = run(False)
+    eager2, eager2_loss = run(False)
+    t0 = time.perf_counter()
+    graph, graph_loss = run(True)  # the capture, then the replays
+    first_block_s = time.perf_counter() - t0
+    graph2, graph2_loss = run(True)
+    del snap
+    pairs = {"graph_vs_eager": (graph, eager), "eager_vs_eager": (eager2, eager),
+             "graph_vs_graph": (graph2, graph)}
+    entries = sum(t.numel() for t in eager)
+    gate = {"entries": entries,
+            "last_loss": {"graph": graph_loss, "eager": eager_loss, "eager_again": eager2_loss,
+                          "graph_again": graph2_loss}}
+    for name, (a, b) in pairs.items():
+        bad, worst = row_gate(a, b)
+        gate[name] = {"outside_row_gate": bad, "share_outside": bad / entries, "max_abs_diff": worst}
+    del pairs, eager, eager2, graph, graph2
+    spread = max(gate["eager_vs_eager"]["share_outside"], gate["graph_vs_graph"]["share_outside"])
+    loss_tol = max(GATE_LOSS_RTOL * abs(eager_loss),
+                   10 * max(abs(eager2_loss - eager_loss), abs(graph2_loss - graph_loss)))
+    require(gate["graph_vs_eager"]["share_outside"] <= max(GATE_MAX_SHARE_OUTSIDE, 3 * spread)
+            and abs(graph_loss - eager_loss) <= loss_tol,
+            f"graphed block from step {start} is not the {n} eager steps: {gate}")
+    keeps = [trainer.last_occ_keep]
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    c0 = kernels.launch_counts()
+    ts, losses = [], [graph2_loss]
+    for _ in range(GRAPH_TIMED_BLOCKS[window]):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = trainer.run_steps(n, block_size=n, precrop=precrop)
+        losses.append(float(m["loss"]))
+        ts.append(time.perf_counter() - t0)
+        keeps.append(trainer.last_occ_keep)
+    c1 = kernels.launch_counts()
+    require(all(k == want_keep for k in keeps),
+            f"graphed blocks from step {start}: not all at keeps {want_keep}: {keeps}")
+    require(all(math.isfinite(x) for x in losses), f"graphed blocks from step {start}: non-finite loss")
+    step_s = statistics.median(ts) / n
+    rec = {
+        "start": start, "block": n, "precrop": precrop, "gate": gate,
+        "first_block_s_with_capture": first_block_s,
+        "block_ms": [t * 1e3 for t in ts], "step_ms_graphed": step_s * 1e3,
+        "train_rays_per_s_graphed": args.N_rand / step_s, "keeps": keeps, "losses": losses,
+        "launches_per_step": {k: (c1[k] - c0[k]) / (n * len(ts)) for k in c0},
+        "peak_mem_gib_graphed": torch.cuda.max_memory_allocated() / 2**30,
+        "reserved_gib_graphed": torch.cuda.memory_reserved() / 2**30,
+    }
+    if profile:
+        from torch.profiler import ProfilerActivity, profile as trace
+
+        with trace(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
+            float(trainer.run_steps(n, block_size=n, precrop=precrop)["loss"])
+        rows = kernel_times(p)
+        busy_s = sum(r[0] for r in rows) / 1e6 / n
+        rec.update({
+            "device_busy_ms_per_step": busy_s * 1e3, "device_busy_share": busy_s / step_s,
+            "device_ops_per_step": sum(r[2] for r in rows) / n,
+            "top": [{"name": k[:90], "ms_per_step": dt / 1e3 / n, "calls_per_step": c / n}
+                    for dt, k, c in rows[:12]],
+        })
+    return rec
 
 
 def profile_steps(torch, trainer, n: int, step_s: float):
@@ -1309,6 +1515,22 @@ def profile_steps(torch, trainer, n: int, step_s: float):
         "top": [{"name": k[:90], "ms_per_step": dt / 1e3 / n, "calls_per_step": c / n}
                 for dt, k, c in rows[:25]],
     }
+
+
+def phase_bench(torch):
+    """The line of `python -m hashnerf_torch.bench`, for the flagship and
+    for BENCH_PARITY=1 (the chair step), run in this process."""
+    from hashnerf_torch import bench
+
+    out = {}
+    for name, env in (("flagship", {}), ("parity", {"BENCH_PARITY": "1"})):
+        t0 = time.perf_counter()
+        line = bench.run(env)
+        print(json.dumps(line), flush=True)
+        out[name] = {**line, "env": env, "seconds": time.perf_counter() - t0}
+        emit({"phase": "bench", "config": name, **out[name]})
+        torch.cuda.empty_cache()
+    return out
 
 
 # --------------------------------------------------------------------------- #
@@ -1343,9 +1565,11 @@ def main(argv=None) -> int:
     del geo
     occupancy, kept_pts = phase_occupancy(torch, np)
     culled_k5 = phase_culled_k5(torch, np, kept_pts)
+    packed_enc = phase_packed_encode(torch, np, kept_pts)
     del kept_pts
     torch.cuda.empty_cache()
     paths = {path: phase_main_path(torch, np, path, opts.profile) for path in PATHS}
+    benches = phase_bench(torch)
 
     fine = packed["shapes"]["fine_slabs"]
     kern["segment_accumulate_k4"] = {
@@ -1370,7 +1594,8 @@ def main(argv=None) -> int:
         with open(opts.out, "w") as f:
             json.dump({"device": dev, "kernels": kern, "k4_hot_row": k4_hot, "k5_hot_rows": k5_hot,
                        "packed_kernels": packed, "occupancy": occupancy, "culled_k5": culled_k5,
-                       "main_paths": paths, "seconds": time.perf_counter() - t_start}, f, indent=1)
+                       "packed_encode": packed_enc, "main_paths": paths, "bench": benches,
+                       "seconds": time.perf_counter() - t_start}, f, indent=1)
     print(f"card: {dev['smi']}", flush=True)
     emit(summary)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,7 +2,8 @@
 
 Each wrapper keeps a plain integer count of its launches (`fn.launches`),
 raised only where it launches its kernel; `launch_counts` reads them and
-`reset_launch_counts` sets them to 0.
+`reset_launch_counts` sets them to 0. A CUDA graph's replay runs no Python:
+train/graphs.py adds the launches a graph holds with `add_launches`.
 """
 from __future__ import annotations
 
@@ -32,3 +33,10 @@ def launch_counts() -> Dict[str, int]:
 def reset_launch_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
+
+
+def add_launches(counts: Dict[str, int], times: int = 1) -> None:
+    """Add `times` x counts to the wrappers' counts: the launches of a CUDA
+    graph's replays (train/graphs.py), which run no Python."""
+    for name, n in counts.items():
+        KERNELS[name].launches += n * times

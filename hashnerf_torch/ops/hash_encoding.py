@@ -18,7 +18,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from hashnerf_torch.ops.hashing import BOX_OFFSETS, spatial_hash
+from hashnerf_torch.ops.hashing import box_offsets, spatial_hash
 
 
 @dataclasses.dataclass(frozen=True)
@@ -79,7 +79,7 @@ def init_hash_table(
 def corner_weights(w: torch.Tensor) -> torch.Tensor:
     """Trilinear corner weights. w: (..., 3) in [0, 1] -> (..., 8), corner n
     using bits (n>>2, (n>>1)&1, n&1) as BOX_OFFSETS does."""
-    offs = torch.as_tensor(BOX_OFFSETS, device=w.device) > 0  # (8, 3)
+    offs = box_offsets(w.device) > 0  # (8, 3)
     wx, wy, wz = w[..., 0:1], w[..., 1:2], w[..., 2:3]
     cx = torch.where(offs[:, 0], wx, 1.0 - wx)
     cy = torch.where(offs[:, 1], wy, 1.0 - wy)
@@ -107,7 +107,7 @@ def corner_geometry(
     minv = bl.to(xc.dtype) * grid + bbox_min
     w = (xc[None, :, :] - minv) / grid
 
-    offs = torch.as_tensor(BOX_OFFSETS, device=x.device)
+    offs = box_offsets(x.device)
     corners = bl[:, :, None, :] + offs[None, None, :, :]  # (L, N, 8, 3)
     idx = spatial_hash(corners, log2_hashmap_size)
     return idx, corner_weights(w), keep

@@ -8,6 +8,8 @@ whose two's-complement low bits are what a uint32 cast keeps).
 """
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -20,6 +22,14 @@ BOX_OFFSETS = np.array(
 )
 
 _LOW32 = 0xFFFFFFFF
+
+
+@functools.lru_cache(maxsize=None)
+def box_offsets(device: torch.device) -> torch.Tensor:
+    """BOX_OFFSETS as an (8, 3) int32 tensor on `device`, copied there once:
+    a CUDA graph cannot hold the host-to-device copy that converting the
+    numpy array at every call would make."""
+    return torch.as_tensor(BOX_OFFSETS, device=device)
 
 
 def spatial_hash(coords: torch.Tensor, log2_hashmap_size: int) -> torch.Tensor:

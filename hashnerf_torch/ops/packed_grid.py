@@ -36,6 +36,12 @@ from hashnerf_torch.ops.hashing import BOX_OFFSETS, spatial_hash
 _SLOT_OFFSETS = BOX_OFFSETS[:, 0] * 9 + BOX_OFFSETS[:, 1] * 3 + BOX_OFFSETS[:, 2]
 
 
+@functools.lru_cache(maxsize=None)
+def _slot_offsets(device: torch.device) -> torch.Tensor:
+    """_SLOT_OFFSETS on `device`, copied once (see ops/hashing.box_offsets)."""
+    return torch.as_tensor(_SLOT_OFFSETS, dtype=torch.int64, device=device)
+
+
 @dataclasses.dataclass(frozen=True)
 class PackedGridConfig:
     n_levels: int = 16
@@ -165,7 +171,7 @@ def packed_geometry(x: torch.Tensor, bbox_min: torch.Tensor, bbox_max: torch.Ten
         dense_rows.append((b[:, 0] * res + b[:, 1]) * res + b[:, 2] + cfg.packed_offsets[li])
         dense_w.append(cw)
 
-    slot_offs = torch.as_tensor(_SLOT_OFFSETS, dtype=torch.int64, device=dev)
+    slot_offs = _slot_offsets(dev)
     fine_rows, fine_w = [], []
     for li, res in enumerate(cfg.fine_resolutions):
         b, cw = voxel_and_weights(res)

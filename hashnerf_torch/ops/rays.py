@@ -1,6 +1,6 @@
 """Pinhole ray generation and the ray-bbox clip.
 
-Counterpart of get_rays / get_rays_np / ray_aabb_near_far in
+Counterpart of get_rays / get_rays_at / get_rays_np / ray_aabb_near_far in
 hashnerf_tpu/ops/rays.py. The NDC
 warp, camera-frame direction fields and equirect directions come with the
 loaders that use them (ROADMAP A1/A6).
@@ -32,6 +32,22 @@ def get_rays(H: int, W: int, K, c2w) -> Tuple[torch.Tensor, torch.Tensor]:
         [(i - K[0, 2]) / K[0, 0], -(j - K[1, 2]) / K[1, 1], -torch.ones_like(i)], -1
     )
     rays_d = torch.sum(dirs[..., None, :] * c2w[:3, :3], -1)
+    rays_o = c2w[:3, -1].expand(rays_d.shape)
+    return rays_o, rays_d
+
+
+def get_rays_at(K: torch.Tensor, c2w: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Pinhole rays at the pixels (ys, xs) only, as get_rays computes them
+    for the whole image: K (3, 3) and c2w (3, 4) tensors on the pixels'
+    device, ys and xs (N,) integer tensors -> rays_o, rays_d, each (N, 3).
+    The training step draws its pixels first, so it never builds H x W rays."""
+    i = xs.to(torch.float32)
+    j = ys.to(torch.float32)
+    dirs = torch.stack(
+        [(i - K[0, 2]) / K[0, 0], -(j - K[1, 2]) / K[1, 1], -torch.ones_like(i)], -1
+    )
+    rays_d = torch.sum(dirs[:, None, :] * c2w[:3, :3], -1)
     rays_o = c2w[:3, -1].expand(rays_d.shape)
     return rays_o, rays_d
 

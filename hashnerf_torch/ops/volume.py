@@ -12,6 +12,26 @@ from typing import NamedTuple, Optional
 import torch
 
 
+class _CumprodNonzero(torch.autograd.Function):
+    """torch.cumprod along the last axis of an input with no zero entry.
+
+    The backward is PyTorch's own formula for that case, the reversed
+    cumsum of output * grad over the input, without the host read of
+    `(input == 0).any()` by which PyTorch picks it: a CUDA graph can capture
+    it. The transmittance's factors are at least 1e-10."""
+
+    @staticmethod
+    def forward(ctx, x):
+        out = torch.cumprod(x, dim=-1)
+        ctx.save_for_backward(x, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, out = ctx.saved_tensors
+        return (out * g).flip(-1).cumsum(-1).flip(-1) / x
+
+
 class VolumeOutputs(NamedTuple):
     rgb_map: torch.Tensor  # (N_rays, 3)
     disp_map: torch.Tensor  # (N_rays,)
@@ -54,8 +74,8 @@ def raw2outputs(
         sigma = sigma + noise * raw_noise_std
 
     alpha = 1.0 - torch.exp(-torch.relu(sigma) * dists)
-    trans = torch.cumprod(
-        torch.cat([torch.ones_like(alpha[..., :1]), 1.0 - alpha + 1e-10], -1), dim=-1
+    trans = _CumprodNonzero.apply(
+        torch.cat([torch.ones_like(alpha[..., :1]), 1.0 - alpha + 1e-10], -1)
     )[..., :-1]
     weights = alpha * trans
 

@@ -203,8 +203,10 @@ def config_parser() -> argparse.ArgumentParser:
                         "(Instant-NGP style; halves params, both passes "
                         "train the same field)")
     parser.add_argument("--steps_per_dispatch", type=int, default=1,
-                        help="optimizer steps fused into one XLA dispatch "
-                        "(lax.scan block); >1 amortizes host dispatch latency")
+                        help="optimizer steps a launch: >1 runs blocks of "
+                        "this many steps, replayed from CUDA graphs on a GPU "
+                        "with no host sync inside a block (eagerly on the "
+                        "CPU); amortizes the host's launch time")
     parser.add_argument("--packed_layout", action="store_true",
                         help="corner-packed table layout (ops/packed_grid.py):"
                         " dense direct-indexed coarse levels + block-hashed "
@@ -217,7 +219,8 @@ def config_parser() -> argparse.ArgumentParser:
     parser.add_argument("--preset", type=str, default=None,
                         choices=("tpu-fast", "tpu-quality"),
                         help="named flag bundle of the opt-in execution set "
-                        "(not ported yet: raises, ROADMAP A7.3)")
+                        "(PRESETS); a config file and the command line "
+                        "override it")
     parser.add_argument("--device", type=str, default=None,
                         help="torch device to run on (default: cuda; the "
                         "entry point raises when no GPU is present)")
@@ -232,8 +235,6 @@ def check_supported(args) -> None:
             f"hashnerf_torch: {what} is not ported yet (ROADMAP {row})"
         )
 
-    if args.preset:
-        no(f"--preset {args.preset}", "A7.3")
     if args.dataset_type != "synthetic":
         no(f"dataset_type {args.dataset_type!r}", "A5/A6")
     if args.i_embed != 1:
@@ -246,8 +247,6 @@ def check_supported(args) -> None:
         no(f"--compute_dtype {args.compute_dtype} (only bfloat16)", "A7.4")
     if (args.num_devices or 0) > 1:
         no(f"--num_devices {args.num_devices}", "A8")
-    if args.steps_per_dispatch > 1:
-        no(f"--steps_per_dispatch {args.steps_per_dispatch}", "A4")
     if args.use_depth or args.use_gradient:
         no("st3d depth/gradient supervision", "A6")
     if args.render_only:
@@ -256,17 +255,60 @@ def check_supported(args) -> None:
         no(f"render_path video at --i_video {args.i_video} (pass --i_video 0)", "A3")
 
 
+# The JAX package's named bundles of the opt-in execution set, copied from
+# hashnerf_tpu/train/config.py:235-269 (the measurements behind each are
+# the JAX package's, on a TPU).
+# tpu-fast, the flagship: L4/F8 packed tables, one shared net, bf16 MLPs,
+# bbox clip, block-8 global occupancy culling with a coarse budget of 0.375
+# and a fine one annealed 0.5 -> 0.25 at step 512 -> 0.125 at 1024,
+# adaptive grid updates, 16 steps a launch.
+# tpu-quality: L8/F4 packed, occupancy culling at keep 0.5 (per point).
+PRESETS = {
+    "tpu-fast": [
+        "--n_levels", "4",
+        "--n_features_per_level", "8",
+        "--compute_dtype", "bfloat16",
+        "--use_occupancy",
+        "--occ_keep_fraction", "0.125",
+        "--occ_keep_coarse", "0.375",
+        "--occ_keep_schedule", "0:0.5,512:0.25,1024:0.125",
+        "--occ_block", "8",
+        "--occ_adaptive_update",
+        "--share_fine",
+        "--aabb_clip",
+        "--packed_layout",
+        "--steps_per_dispatch", "16",
+    ],
+    "tpu-quality": [
+        "--n_levels", "8",
+        "--n_features_per_level", "4",
+        "--compute_dtype", "bfloat16",
+        "--use_occupancy",
+        "--occ_keep_fraction", "0.5",
+        "--share_fine",
+        "--packed_layout",
+        "--steps_per_dispatch", "16",
+    ],
+}
+
+
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
-    """Two-phase parse: pull --config, splice its tokens before CLI args
-    (CLI overrides config, matching configargparse precedence)."""
+    """Two-phase parse: pull --preset and --config, splice the preset's
+    tokens, then the config file's, before the CLI args (the CLI overrides
+    the config, which overrides the preset: configargparse precedence)."""
     parser = config_parser()
     pre, _ = parser.parse_known_args(argv)
-    if not pre.config:
+    tokens: List[str] = []
+    if pre.preset:
+        tokens += PRESETS[pre.preset]
+    if pre.config:
+        tokens += _parse_config_file(pre.config)
+    if not tokens:
         return parser.parse_args(argv)
     import sys
 
     base = list(argv) if argv is not None else sys.argv[1:]
-    return parser.parse_args(_parse_config_file(pre.config) + base)
+    return parser.parse_args(tokens + base)
 
 
 def create_expname(args) -> str:

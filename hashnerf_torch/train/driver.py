@@ -10,18 +10,22 @@ with its grid's lifecycle: updates every `update_every` steps, culling from
 `warmup_steps` on once the grid holds density, the keep schedule, and the
 eval budgets.
 
-PyTorch runs the step eagerly; the JAX package compiles it into one XLA
-program. Every random draw of a step (stratified jitter, sigma noise,
-importance samples, TV cuboids and rows, and those of a grid update) can be
-handed in through `TrainDraws` and `OccUpdateDraws`, which is how the tests
-give the port the draws JAX took from its keys.
+`Trainer.step` runs one step eagerly. `Trainer.run_steps` runs many, in the
+blocks of the JAX package's scanned `run_steps` (`--steps_per_dispatch`):
+each block samples its rays on the device and, on a GPU, replays CUDA
+graphs of the step and of the grid update (train/graphs.py) with no host
+sync inside the block; on the CPU the same block body runs eagerly. Every
+random draw of an eager step (stratified jitter, sigma noise, importance
+samples, TV cuboids and rows, and those of a grid update) can be handed in
+through `TrainDraws` and `OccUpdateDraws`, which is how the tests give the
+port the draws JAX took from its keys.
 """
 from __future__ import annotations
 
 import dataclasses
 import os
 import time
-from typing import Dict, NamedTuple, Optional
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -30,7 +34,7 @@ from hashnerf_torch import resolve_device
 from hashnerf_torch.data.scene import Scene
 from hashnerf_torch.models.factory import ModelConfig, NGPState, query_fn
 from hashnerf_torch.ops.hash_encoding import HashGridConfig
-from hashnerf_torch.ops.rays import get_rays
+from hashnerf_torch.ops.rays import get_rays_at
 from hashnerf_torch.render.occupancy import (
     OccupancyConfig, OccUpdateDraws, init_occupancy_grid, update_occupancy_grid,
 )
@@ -39,6 +43,7 @@ from hashnerf_torch.render.renderer import (
 )
 from hashnerf_torch.train.checkpoint import latest_checkpoint, load_checkpoint, save_checkpoint
 from hashnerf_torch.train.config import check_supported
+from hashnerf_torch.train.graphs import GraphCache
 from hashnerf_torch.train.losses import total_variation_loss_all_levels, total_variation_loss_packed
 from hashnerf_torch.train.radam import RAdam
 from hashnerf_torch.utils.io import save_loss_history, save_psnr_pickle
@@ -134,11 +139,14 @@ def render_config_from_args(args, lindisp: bool = False) -> RenderConfig:
 
 
 def make_lr_schedule(lrate: float, lrate_decay: int):
-    """lr(t) = lrate * 0.1^(t / (decay*1000))."""
+    """lr(t) = lrate * 0.1^(t / (decay*1000)), a float32 tensor computed as
+    the JAX schedule computes it (a float32 power); t a tensor (RAdam's step
+    count, on the device) or a number."""
     decay_steps = lrate_decay * 1000
 
-    def sched(step: int) -> float:
-        return lrate * 0.1 ** (step / decay_steps)
+    def sched(step) -> torch.Tensor:
+        step = torch.as_tensor(step, dtype=torch.float32)
+        return lrate * torch.pow(0.1, step / torch.full_like(step, float(decay_steps)))
 
     return sched
 
@@ -220,8 +228,11 @@ class Trainer:
 
         self.bbox = torch.as_tensor(scene.bbox_array(), device=self.device)
         self.near, self.far = scene.near, scene.far
+        # the scene on the device, for ray sampling there
         self._images = torch.as_tensor(scene.images, dtype=torch.float32, device=self.device)
         self._poses = torch.as_tensor(scene.poses[:, :3, :4], dtype=torch.float32, device=self.device)
+        self._K = torch.as_tensor(scene.K, dtype=torch.float32, device=self.device)
+        self._i_train = torch.as_tensor(np.asarray(scene.i_train), dtype=torch.int64, device=self.device)
         # annealed keep budget "STEP:FRAC,...": from each STEP on, FRAC
         self.keep_schedule = None
         if args.occ_keep_schedule and self.render_cfg.occupancy is not None:
@@ -229,19 +240,28 @@ class Trainer:
             self.keep_schedule = sorted((int(a), float(b)) for a, b in pairs)
         self._loss_fns = {}
         # the grid starts empty; culling waits until an update found density
-        # somewhere, or it would cull everything
+        # somewhere, or it would cull everything. Updates write it in place:
+        # captured graphs read it at its one address.
         occ = self.render_cfg.occupancy
         self.occ_grid = init_occupancy_grid(occ, self.device) if occ is not None else None
         self._occ_ready = False
         self.last_occ_keep = None
+        # run_steps' blocks by (b, use_tv, occ_mode, precrop, keep), and on a
+        # GPU the CUDA graphs they replay
+        self._blocks = {}
+        self._graphs: Optional[GraphCache] = None
 
-    def _keep_at(self, step: int) -> float:
-        """The fine keep fraction at `step` (the last schedule entry <= step)."""
-        keep = self.render_cfg.occupancy.keep_fraction
+    def _keep_at(self, step: int) -> Tuple[float, Optional[int]]:
+        """(the fine keep fraction at `step`, the next schedule step after
+        it or None)."""
+        occ = self.render_cfg.occupancy
+        keep, nxt = (occ.keep_fraction if occ is not None else 0.0), None
         for b, f in self.keep_schedule or ():
             if step >= b:
                 keep = f
-        return keep
+            elif nxt is None:
+                nxt = b
+        return keep, nxt
 
     def _render_cfg_for(self, keep: Optional[float]) -> RenderConfig:
         """render_cfg with the fine keep budget overridden (the schedule)."""
@@ -258,9 +278,10 @@ class Trainer:
                 self.args, self._render_cfg_for(keep), self.bbox, self.model_cfg, with_tv=with_tv)
         return fn
 
-    def occ_update(self, grid: torch.Tensor, draws: Optional[OccUpdateDraws] = None) -> torch.Tensor:
-        """One grid update: density-only queries of the live model at the
-        sampled cells (fine net, view direction +z), without autograd."""
+    def _update_grid(self, draws: Optional[OccUpdateDraws] = None) -> None:
+        """One grid update, written into the grid in place: density-only
+        queries of the live model at the sampled cells (fine net, view
+        direction +z), without autograd."""
         occ = self.render_cfg.occupancy
         fine = self.render_cfg.N_importance > 0
         use_dirs = self.render_cfg.use_viewdirs
@@ -272,7 +293,29 @@ class Trainer:
                 dirs[:, 2] = 1.0
             return query_fn(self.state, pts[:, None, :], dirs, self.bbox, fine=fine)[:, 0, 3]
 
-        return update_occupancy_grid(grid, self.bbox, occ, sigma_fn, draws, self.generator)
+        self.occ_grid.copy_(update_occupancy_grid(self.occ_grid, self.bbox, occ, sigma_fn, draws,
+                                                  self.generator))
+
+    def _keep_fractions(self, keep: Optional[float]) -> Tuple[float, float]:
+        """(fine, coarse) keep fractions of a culled step at fine budget keep."""
+        occ = self._render_cfg_for(keep).occupancy
+        coarse = occ.keep_fraction_coarse
+        return occ.keep_fraction, occ.keep_fraction if coarse is None else coarse
+
+    def _train_one(self, batch: Dict[str, torch.Tensor], tv_w: float, keep: Optional[float],
+                   occ_grid: Optional[torch.Tensor], draws: Optional[TrainDraws] = None):
+        """The step body that step() and run_steps' blocks share: forward,
+        backward and RAdam on one batch. Returns detached metrics."""
+        loss_fn = self._loss_fn(tv_w > 0, keep)
+        if "viewdirs" not in batch and self.render_cfg.use_viewdirs:
+            d = batch["rays_d"]
+            batch = dict(batch, viewdirs=d / torch.linalg.norm(d, dim=-1, keepdim=True))
+        self.optimizer.zero_grad(set_to_none=True)
+        loss, (psnr, img_loss) = loss_fn(self.state, batch, tv_w, draws, self.generator,
+                                         occ_grid=occ_grid)
+        loss.backward()
+        self.optimizer.step()
+        return {"loss": loss.detach(), "psnr": psnr.detach(), "img_loss": img_loss.detach()}
 
     def step(self, batch: Dict[str, torch.Tensor], draws: Optional[TrainDraws] = None,
              occ_draws: Optional[OccUpdateDraws] = None):
@@ -284,60 +327,189 @@ class Trainer:
         # TV only during warmup (the reference zeroes it after iter 1000)
         tv_w = self.args.tv_loss_weight if self.global_step <= 1000 else 0.0
         occ = self.render_cfg.occupancy
-        keep = self._keep_at(self.global_step) if self.keep_schedule else None
-        loss_fn = self._loss_fn(tv_w > 0, keep)
-        if "viewdirs" not in batch and self.render_cfg.use_viewdirs:
-            d = batch["rays_d"]
-            batch = dict(batch, viewdirs=d / torch.linalg.norm(d, dim=-1, keepdim=True))
+        keep = self._keep_at(self.global_step)[0] if self.keep_schedule else None
         active = occ is not None and self.global_step >= occ.warmup_steps and self._occ_ready
-        self.optimizer.zero_grad(set_to_none=True)
-        loss, (psnr, img_loss) = loss_fn(self.state, batch, tv_w, draws, self.generator,
-                                         occ_grid=self.occ_grid if active else None)
-        loss.backward()
-        self.optimizer.step()
+        metrics = self._train_one(batch, tv_w, keep, self.occ_grid if active else None, draws)
         self.global_step += 1
-        self.last_occ_keep = None
-        if active:
-            fine_kf = self._render_cfg_for(keep).occupancy.keep_fraction
-            coarse_kf = occ.keep_fraction_coarse
-            self.last_occ_keep = (fine_kf, fine_kf if coarse_kf is None else coarse_kf)
+        self.last_occ_keep = self._keep_fractions(keep) if active else None
 
         if occ is not None and self.global_step % occ.update_every == 0:
-            self.occ_grid = self.occ_update(self.occ_grid, occ_draws)
+            self._update_grid(occ_draws)
             if not self._occ_ready:
                 # one host read an update, until the field shows density
                 self._occ_ready = float(self.occ_grid.max()) > 0.0
-        return {"loss": loss.detach(), "psnr": psnr.detach(), "img_loss": img_loss.detach()}
+        return metrics
 
-    def sample_image(self, img_i: int, n_rand: int, precrop: bool,
-                     sel: Optional[torch.Tensor] = None):
-        """n_rand random pixels of one image, without replacement. `sel`
-        (n_rand,) picks the pixels (flat indices into the, possibly
-        cropped, grid) instead of the draw from the Trainer's generator."""
-        sc = self.scene
-        H, W = sc.H, sc.W
-        rays_o, rays_d = get_rays(H, W, sc.K, self._poses[img_i])
-        if precrop:
-            dH = int(H // 2 * self.args.precrop_frac)
-            dW = int(W // 2 * self.args.precrop_frac)
-            ys = torch.arange(H // 2 - dH, H // 2 + dH, device=self.device)
-            xs = torch.arange(W // 2 - dW, W // 2 + dW, device=self.device)
-        else:
-            ys = torch.arange(H, device=self.device)
-            xs = torch.arange(W, device=self.device)
-        yy, xx = torch.meshgrid(ys, xs, indexing="ij")
-        yy, xx = yy.reshape(-1), xx.reshape(-1)
+    def _precrop_window(self, precrop: bool) -> Tuple[int, int, int, int]:
+        """(y0, x0, rows, cols) of the pixels a step draws from."""
+        H, W = self.scene.H, self.scene.W
+        if not precrop:
+            return 0, 0, H, W
+        dH = int(H // 2 * self.args.precrop_frac)
+        dW = int(W // 2 * self.args.precrop_frac)
+        return H // 2 - dH, W // 2 - dW, 2 * dH, 2 * dW
+
+    def _sample(self, img: torch.Tensor, n_rand: int, precrop: bool,
+                sel: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+        """n_rand pixels of image img ((1,) int64 on the device) without
+        replacement: sel (flat indices into the, possibly cropped, window),
+        else the first n_rand of a stable argsort of uniform keys drawn
+        from the Trainer's generator. Rays at those pixels only."""
+        y0, x0, nH, nW = self._precrop_window(precrop)
         if sel is None:
-            sel = torch.randperm(yy.shape[0], generator=self.generator, device=self.device)[:n_rand]
-        sel = torch.as_tensor(sel, device=self.device)
-        y, x = yy[sel], xx[sel]
-        return {
-            "rays_o": rays_o[y, x],
-            "rays_d": rays_d[y, x],
-            "target": self._images[img_i][y, x],
+            keys = torch.rand(nH * nW, generator=self.generator, device=self.device)
+            sel = torch.argsort(keys, stable=True)[:n_rand]
+        sel = torch.as_tensor(sel, device=self.device).to(torch.int64)
+        ys, xs = y0 + sel // nW, x0 + sel % nW
+        rays_o, rays_d = get_rays_at(self._K, self._poses.index_select(0, img)[0], ys, xs)
+        H, W = self.scene.H, self.scene.W
+        pix = (img * H + ys) * W + xs
+        batch = {
+            "rays_o": rays_o,
+            "rays_d": rays_d,
+            "target": self._images.reshape(-1, 3).index_select(0, pix),
             "near": torch.full((n_rand,), self.near, dtype=torch.float32, device=self.device),
             "far": torch.full((n_rand,), self.far, dtype=torch.float32, device=self.device),
         }
+        if self.render_cfg.use_viewdirs:
+            batch["viewdirs"] = rays_d / torch.linalg.norm(rays_d, dim=-1, keepdim=True)
+        return batch
+
+    def sample_image(self, img_i: int, n_rand: int, precrop: bool,
+                     sel: Optional[torch.Tensor] = None):
+        """n_rand random pixels of image img_i, without replacement. `sel`
+        (n_rand,) picks the pixels (flat indices into the, possibly
+        cropped, grid) instead of the draw from the Trainer's generator."""
+        img = torch.full((1,), int(img_i), dtype=torch.int64, device=self.device)
+        return self._sample(img, n_rand, precrop, sel)
+
+    def sample_batch(self, precrop: bool) -> Dict[str, torch.Tensor]:
+        """One step's batch, drawn on the device as the JAX package's scanned
+        step draws it (`sample_batch` of _build_block): a training image
+        uniform over i_train, then N_rand of its pixels, no host read."""
+        pick = torch.randint(0, self._i_train.numel(), (1,), generator=self.generator,
+                             device=self.device)
+        return self._sample(self._i_train.index_select(0, pick), self.args.N_rand, precrop)
+
+    # ------------------------------------------------------------------ #
+    # Many steps a launch (--steps_per_dispatch)
+    # ------------------------------------------------------------------ #
+    def training_state(self) -> List[torch.Tensor]:
+        """Every tensor a step or a grid update changes in place: the
+        parameters, RAdam's state (created here if no step made it yet) and
+        the occupancy grid."""
+        self.optimizer.init_state()
+        out = list(self.state.parameters())
+        out += [t for st in self.optimizer.state.values() for t in st.values() if torch.is_tensor(t)]
+        if self.occ_grid is not None:
+            out.append(self.occ_grid)
+        return out
+
+    def _build_block(self, b: int, use_tv: bool, occ_mode: Optional[str], precrop: bool,
+                     keep: Optional[float]):
+        """A function that runs b steps (and, with occ_mode, a grid update
+        after every update_every of them) and returns the last step's
+        metrics: the counterpart of JAX's scanned block. On a GPU it
+        replays the captured step and update graphs (a capture or replay
+        that fails raises); on the CPU it runs the same bodies eagerly."""
+        tv_w = self.args.tv_loss_weight if use_tv else 0.0
+        grid = self.occ_grid if occ_mode == "cull" else None
+        upd = self.render_cfg.occupancy.update_every if occ_mode is not None else 0
+
+        def one():
+            return self._train_one(self.sample_batch(precrop), tv_w, keep, grid)
+
+        if self.device.type != "cuda":
+            def block():
+                for j in range(b):
+                    m = one()
+                    if upd and (j + 1) % upd == 0:
+                        self._update_grid()
+                return m
+
+            return block
+
+        if self._graphs is None:
+            self._graphs = GraphCache(self.generator, self.training_state())
+        step_graph = self._graphs.get(("step", use_tv, grid is not None, precrop, keep), one)
+        update_graph = self._graphs.get(("update",), self._update_grid) if upd else None
+
+        def block():
+            for j in range(b):
+                step_graph.replay()
+                if j == b - 1:
+                    # before any other replay: graphs share one memory pool
+                    m = {k: v.clone() for k, v in step_graph.outputs.items()}
+                if upd and (j + 1) % upd == 0:
+                    update_graph.replay()
+            return m
+
+        return block
+
+    def _run_block(self, b: int, use_tv: bool, occ_mode: Optional[str], precrop: bool,
+                   keep: Optional[float]):
+        key = (b, use_tv, occ_mode, precrop, keep)
+        block = self._blocks.get(key)
+        if block is None:
+            block = self._blocks[key] = self._build_block(*key)
+        metrics = block()
+        self.last_occ_keep = self._keep_fractions(keep) if occ_mode == "cull" else None
+        return metrics
+
+    def run_steps(self, n_steps: int, block_size: int = 0, precrop: bool = False):
+        """Run n_steps optimization steps in blocks of block_size (default
+        args.steps_per_dispatch, at least 1), split where the JAX package's
+        run_steps splits them so that each block is static: at the TV
+        cutoff (rounded up to the update grid under occupancy), at the
+        occupancy warmup's end (readiness read once a block, on the host),
+        at the next keep-schedule step, with a block of grid updates capped
+        at update_every and a remainder under update_every run as single
+        steps. Returns the last step's metrics."""
+        args = self.args
+        block_size = block_size or max(1, args.steps_per_dispatch)
+        occ = self.render_cfg.occupancy
+        metrics = None
+        remaining = n_steps
+        while remaining > 0:
+            use_tv = self.global_step <= 1000 and args.tv_loss_weight > 0
+            k = remaining
+            if use_tv:
+                tv_left = 1001 - self.global_step
+                if occ is not None:
+                    # the TV window ends on the update grid (JAX's choice)
+                    tv_left = -(-tv_left // occ.update_every) * occ.update_every
+                k = min(k, tv_left)
+
+            occ_mode = None
+            if occ is not None:
+                if not self._occ_ready:
+                    self._occ_ready = float(self.occ_grid.max()) > 0.0
+                active = self.global_step >= occ.warmup_steps and self._occ_ready
+                occ_mode = "cull" if active else "update"
+                if not active and self.global_step < occ.warmup_steps:
+                    k = min(k, occ.warmup_steps - self.global_step)
+
+            keep = None
+            if occ_mode == "cull" and self.keep_schedule:
+                keep, nxt = self._keep_at(self.global_step)
+                if nxt is not None:
+                    k = min(k, nxt - self.global_step)
+
+            b = min(k, block_size)
+            if occ_mode is not None:
+                if occ_mode == "update":
+                    b = min(b, occ.update_every)
+                b = (b // occ.update_every) * occ.update_every
+            if b == 0:
+                # under update_every steps to a boundary: single steps
+                for _ in range(min(k, occ.update_every if occ is not None else 1)):
+                    metrics = self.step(self.sample_batch(precrop))
+                    remaining -= 1
+                continue
+            metrics = self._run_block(b, use_tv, occ_mode, precrop, keep)
+            self.global_step += b
+            remaining -= b
+        return metrics
 
     # Eval renders are exact by default: the training budget clips geometry
     # on full-image ray grids. Culled eval is opt-in, by this switch (the
@@ -385,13 +557,18 @@ class Trainer:
             return False
         print(f"Reloading from {path}")
         self.global_step = load_checkpoint(path, self.state, self.optimizer)
+        # RAdam's state tensors were replaced: the graphs hold the old ones
+        self._blocks, self._graphs = {}, None
         return True
 
 
 def train_loop(args, scene: Scene, n_iters: Optional[int] = None, log_fn=print,
                device=None) -> Trainer:
     """The per-image training loop with periodic print, checkpoint and
-    test-set render; returns the Trainer."""
+    test-set render; returns the Trainer. With --steps_per_dispatch K > 1
+    the steps between two events (print, checkpoint, test set, the precrop
+    boundary) run as run_steps blocks of K, as the JAX loop's scanned span
+    runs them; else one step at a time, its image picked on the host."""
     check_supported(args)
     trainer = Trainer(args, scene, device=device)
     savepath = os.path.join(args.basedir, args.expname)
@@ -400,13 +577,26 @@ def train_loop(args, scene: Scene, n_iters: Optional[int] = None, log_fn=print,
         trainer.try_restore(savepath, args.ft_path)
 
     n_iters = n_iters or args.N_iters
+    spd = max(1, args.steps_per_dispatch)
     loss_list, psnr_list, time_list = [], [], []
     time0 = time.time()
     np_rng = np.random.default_rng(0)
-    for i in range(trainer.global_step + 1, n_iters + 1):
-        img_i = int(np_rng.choice(scene.i_train))
-        batch = trainer.sample_image(img_i, args.N_rand, precrop=i < args.precrop_iters)
-        metrics = trainer.step(batch)
+    i = trainer.global_step + 1
+    while i <= n_iters:
+        if spd > 1:
+            end = n_iters
+            for e in (args.i_print, args.i_weights, args.i_video, args.i_testset):
+                if e and e > 0:
+                    end = min(end, ((i - 1) // e + 1) * e)
+            precrop = i < args.precrop_iters
+            if precrop:
+                end = min(end, args.precrop_iters - 1)
+            metrics = trainer.run_steps(end - i + 1, block_size=spd, precrop=precrop)
+            i = end
+        else:
+            img_i = int(np_rng.choice(scene.i_train))
+            batch = trainer.sample_image(img_i, args.N_rand, precrop=i < args.precrop_iters)
+            metrics = trainer.step(batch)
 
         if i % args.i_weights == 0:
             trainer.save(os.path.join(savepath, "{:06d}.ckpt".format(i)))
@@ -428,4 +618,5 @@ def train_loop(args, scene: Scene, n_iters: Optional[int] = None, log_fn=print,
             psnr_list.append(psnr_v)
             time_list.append(time.time() - time0)
             save_loss_history(savepath, loss_list, psnr_list, time_list)
+        i += 1
     return trainer

@@ -10,6 +10,7 @@ layout (ops/packed_grid.py).
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional, Tuple
 
@@ -95,6 +96,13 @@ def fine_tv_rows_per_level(n_fine: int) -> int:
     return max(4096 // n_fine, 512)
 
 
+@functools.lru_cache(maxsize=None)
+def _level_weights(weights: Tuple[float, ...], device: torch.device) -> torch.Tensor:
+    """The fine levels' TV weights on `device`, copied there once: a CUDA
+    graph cannot hold the host-to-device copy of a tensor made at every call."""
+    return torch.tensor(weights, dtype=torch.float32, device=device)
+
+
 def draw_packed_tv(pcfg, generator: Optional[torch.Generator] = None, device=None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The packed TV's draws: dense cuboid corners (Ld, 3), dense level l
@@ -171,6 +179,6 @@ def total_variation_loss_packed(
             + torch.sum((slabs[:, :, :, 1:] - slabs[:, :, :, :-1]) ** 2, dim=(1, 2, 3, 4, 5))
             + torch.sum((slabs[..., 1:, :] - slabs[..., :-1, :]) ** 2, dim=(1, 2, 3, 4, 5))
         )
-        w = torch.tensor(weights, dtype=torch.float32, device=dev)
+        w = _level_weights(tuple(weights), dev)
         total = total + torch.dot(per_level, w)
     return total

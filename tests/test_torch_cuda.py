@@ -396,3 +396,123 @@ def test_permute_rows_on_card_matches_cpu(cuda_device):
         out.append((y.detach().cpu(), xt.grad.cpu()))
     assert torch.equal(out[1][0], out[0][0]) and torch.equal(out[1][1], out[0][1])
     assert torch.equal(out[0][1], torch.from_numpy(g[inv]))
+
+
+# --------------------------------------------------------------------------- #
+# Many steps a launch: run_steps' CUDA graphs
+# --------------------------------------------------------------------------- #
+
+GRAPH_SMALL = dict(N_rand=64, N_samples=16, N_importance=16, lrate=0.01, lrate_decay=10,
+                   use_viewdirs=True, finest_res=64, log2_hashmap_size=12, white_bkgd=True,
+                   no_batching=True, perturb=1.0, device="cuda")
+GRAPH_FLAGSHIP = dict(GRAPH_SMALL, n_levels=4, n_features_per_level=8, log2_hashmap_size=13,
+                      packed_layout=True, share_fine=True, aabb_clip=True, compute_dtype="bfloat16",
+                      use_occupancy=True, occ_resolution=32, occ_warmup=4, occ_update_every=4,
+                      occ_keep_fraction=0.125, occ_keep_coarse=0.375,
+                      occ_keep_schedule="0:0.5,8:0.125", occ_block=8, occ_adaptive_update=True)
+
+
+def graph_trainer(settings):
+    """A small Trainer on the card, its tables scaled to U(-1, 1) (at the
+    1e-4 init, sigma ~ 1e-5 makes alpha = 1 - exp(-sigma dt) cancel)."""
+    from hashnerf_torch.data.synthetic import make_synthetic_scene
+    from hashnerf_torch.train.config import config_parser
+    from hashnerf_torch.train.driver import Trainer
+
+    args = config_parser().parse_args([])
+    for k, v in settings.items():
+        setattr(args, k, v)
+    t = Trainer(args, make_synthetic_scene(H=32, W=32, n_train=3, n_test=1), device="cuda")
+    with torch.no_grad():
+        for p in t.state.table_parameters():
+            p.mul_(1e4)
+    return t
+
+
+def row_gate_ok(got, want):
+    """|got - want| <= 2e-5 * sum(|want row|) + 1e-6: K5's and K6's atomics
+    add in no fixed order."""
+    for g, w in zip(got, want):
+        w2 = w.reshape(-1, w.shape[-1]) if w.dim() > 1 else w.reshape(-1, 1)
+        if not bool(((g.reshape(w2.shape) - w2).abs() <= 2e-5 * w2.abs().sum(-1, keepdim=True) + 1e-6).all()):
+            return False
+    return True
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["chair", "flagship"])
+def test_graphed_blocks_equal_eager_steps(cuda_device, which):
+    """From one state and one generator state: 16 steps as run_steps(16)
+    (captured, then 16 replays) and as 16 eager steps (after 8 eager steps
+    that open RAdam's gate and, for the flagship, ready the grid)."""
+    t = graph_trainer(GRAPH_SMALL if which == "chair" else GRAPH_FLAGSHIP)
+    for _ in range(8):
+        t.step(t.sample_batch(False))
+    snap = [x.detach().clone() for x in t.training_state()]
+    rng = t.generator.get_state()
+    ready = t._occ_ready
+    for _ in range(16):
+        t.step(t.sample_batch(False))
+    eager = [x.detach().clone() for x in t.training_state()]
+    keep = t.last_occ_keep
+    with torch.no_grad():
+        for x, s in zip(t.training_state(), snap):
+            x.copy_(s)
+    t.generator.set_state(rng)
+    t.global_step, t._occ_ready = 8, ready
+    m = t.run_steps(16, block_size=16)
+    assert t.global_step == 24 and t.last_occ_keep == keep
+    assert ("step", True, which == "flagship", False, 0.125 if which == "flagship" else None) in t._graphs.graphs
+    assert torch.isfinite(m["loss"]) and row_gate_ok(t.training_state(), eager)
+
+
+@pytest.mark.cuda
+def test_launch_counts_count_graph_replays(cuda_device):
+    from hashnerf_torch.kernels import reset_launch_counts
+
+    t = graph_trainer(GRAPH_SMALL)
+    t.run_steps(16, block_size=16)  # the capture and 16 replays
+    graph = t._graphs.graphs[("step", True, False, False, None)]
+    # a TV step: K2 and K6 in each pass, K5 for the TV loss
+    assert graph.launches == {"hash_encode_fwd": 2, "hash_encode_bwd": 2, "segment_accumulate_k5": 1}
+    reset_launch_counts()
+    t.run_steps(16, block_size=16)  # replays only
+    counts = launch_counts()
+    assert {k: v for k, v in counts.items() if v} == {k: 16 * v for k, v in graph.launches.items()}
+
+
+@pytest.mark.cuda
+def test_try_restore_drops_the_graphs(cuda_device, tmp_path):
+    t = graph_trainer(GRAPH_SMALL)
+    t.run_steps(16, block_size=16)
+    t.save(str(tmp_path / "000016.ckpt"))
+    assert t._graphs is not None and t._blocks
+    m0 = t.run_steps(16, block_size=16)
+    assert t.try_restore(str(tmp_path)) and t.global_step == 16
+    assert t._graphs is None and not t._blocks
+    m1 = t.run_steps(16, block_size=16)  # captured anew, on the restored optimizer state
+    assert t._graphs is not None and torch.isfinite(m1["loss"]) and torch.isfinite(m0["loss"])
+
+
+@pytest.mark.cuda
+def test_failed_capture_raises_without_eager_fallback(cuda_device, monkeypatch):
+    """A host read inside the step cannot be captured: run_steps raises,
+    runs no step, and leaves the state as it was. (Last in the file: the
+    failed capture is the process's last.)"""
+    t = graph_trainer(GRAPH_SMALL)
+    t.step(t.sample_batch(False))
+    train_one = t._train_one
+
+    def with_host_read(*a, **k):
+        m = train_one(*a, **k)
+        float(m["loss"])
+        return m
+
+    monkeypatch.setattr(t, "_train_one", with_host_read)
+    before = [x.detach().clone() for x in t.training_state()]
+    rng = t.generator.get_state()
+    with pytest.raises(RuntimeError):
+        t.run_steps(16, block_size=16)
+    assert t.global_step == 1
+    assert all(torch.equal(x, y) for x, y in zip(t.training_state(), before))
+    assert torch.equal(t.generator.get_state(), rng)

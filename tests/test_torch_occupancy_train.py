@@ -71,7 +71,7 @@ def test_culled_trainer_steps_match_jax():
     load_jax_state(tt.state, to_np(jt.state.hash_table), to_np(jt.state.coarse), None)
     assert tt.keep_schedule == jt.keep_schedule
     for s in (0, 3, 4, 5, 6, 100):
-        assert tt._keep_at(s) == jt._keep_at(s)[0]
+        assert tt._keep_at(s) == jt._keep_at(s)
 
     occ = jt.render_cfg.occupancy
     R, S, Si = SETTINGS["N_rand"], SETTINGS["N_samples"], SETTINGS["N_importance"]
@@ -145,15 +145,19 @@ def test_flagship_flags_are_accepted():
         0.125, 0.375, 8, True)
 
 
-@pytest.mark.parametrize("flags,row", [
-    (["--preset", "tpu-fast"], "A7.3"),
-    (["--steps_per_dispatch", "16"], "A4"),
-])
-def test_flagship_with_unported_flags_raises(flags, row):
+@pytest.mark.parametrize("flags", [["--preset", "tpu-fast"], ["--steps_per_dispatch", "16"]])
+def test_flagship_with_preset_or_blocks_is_accepted(flags):
+    """The preset and --steps_per_dispatch (ROADMAP A7.3, A4) on top of the
+    flagship flags: accepted, the same culling, 16 steps a launch."""
     from hashnerf_torch.train.config import check_supported
+    from hashnerf_torch.train.driver import render_config_from_args
 
-    with pytest.raises(NotImplementedError, match=row):
-        check_supported(_parse(*FLAGSHIP, *flags))
+    args = _parse(*FLAGSHIP, *flags)
+    check_supported(args)
+    assert args.steps_per_dispatch == 16
+    occ = render_config_from_args(args).occupancy
+    assert (occ.keep_fraction, occ.keep_fraction_coarse, occ.block, occ.adaptive_update) == (
+        0.125, 0.375, 8, True)
 
 
 @pytest.mark.parametrize("flags,match", [

@@ -194,16 +194,11 @@ def test_trainer_steps_match_jax():
 # --------------------------------------------------------------------------- #
 
 @pytest.mark.parametrize("flags,row", [
-    (["--preset", "tpu-fast"], "A7.3"),
     (["--dataset_type", "blender"], "A5"),
     (["--i_embed", "0"], "A1"),
-    (["--packed_layout", "--use_occupancy", "--steps_per_dispatch", "16"], "A4"),
-    (["--use_occupancy", "--preset", "tpu-fast"], "A7.3"),
-    (["--preset", "tpu-quality"], "A7.3"),
     (["--compute_dtype", "float16"], "A7.4"),
     (["--fast_merge", "--compute_dtype", "float16"], "A7.4"),
     (["--num_devices", "2"], "A8"),
-    (["--steps_per_dispatch", "16"], "A4"),
     (["--render_only"], "A3"),
     (["--i_video", "20"], "A3"),
 ])
@@ -217,6 +212,29 @@ def test_unported_flags_raise_naming_their_row(flags, row):
         args.no_batching = True
     with pytest.raises(NotImplementedError, match=row):
         check_supported(args)
+
+
+@pytest.mark.parametrize("flags", [
+    ["--preset", "tpu-fast"],
+    ["--packed_layout", "--use_occupancy", "--steps_per_dispatch", "16"],
+    ["--use_occupancy", "--preset", "tpu-fast"],
+    ["--preset", "tpu-quality"],
+    ["--steps_per_dispatch", "16"],
+])
+def test_steps_per_dispatch_and_presets_are_accepted(flags):
+    """Flags the port refused before many steps a launch (ROADMAP A4) and
+    the presets (A7.3) were ported: check_supported takes them, and
+    parse_args splices a preset's flags before the config file's."""
+    from hashnerf_torch.train.config import PRESETS, check_supported, parse_args
+
+    args = parse_args(["--config", os.path.join(ROOT, "configs", "synthetic_smoke.txt")] + flags)
+    check_supported(args)
+    assert args.steps_per_dispatch == 16
+    if "--preset" in flags:
+        preset = PRESETS[flags[flags.index("--preset") + 1]]
+        assert args.n_levels == int(preset[preset.index("--n_levels") + 1])
+        assert args.packed_layout and args.use_occupancy and args.compute_dtype == "bfloat16"
+        assert args.N_rand == 256  # the config file's, over the parser default
 
 
 def test_ray_batching_raises():
