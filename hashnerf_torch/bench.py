@@ -1,6 +1,6 @@
 """Benchmark of the port: training rays/s on the chair-like configuration.
 
-    python -m hashnerf_torch.bench [--device DEVICE]
+    python -m hashnerf_torch.bench
 
 Counterpart of the repo's bench.py (the JAX package's bench line). Prints
 ONE JSON line, {"metric": "train_rays_per_s", "value", "unit",
@@ -28,13 +28,12 @@ raises, and the process exits non-zero.
 """
 from __future__ import annotations
 
-import argparse
 import json
 import os
 import statistics
 import sys
 import time
-from typing import Mapping, Optional, Sequence
+from typing import Mapping
 
 BASELINE_RAYS_PER_S = 5000 * 1024 / 600.0  # the 1050Ti reference, about 8533 rays/s
 
@@ -89,14 +88,14 @@ def measure(trainer, block: int, reps: int) -> float:
     return block * trainer.args.N_rand / statistics.median(ts)
 
 
-def run(env: Mapping[str, str], device: Optional[str] = None) -> dict:
+def run(env: Mapping[str, str]) -> dict:
     """Build the trainer, populate the grid, time the blocks; returns the
     JSON line's dict."""
     from hashnerf_torch.data.synthetic import make_synthetic_scene
     from hashnerf_torch.train.driver import Trainer
 
     args = bench_args(env)
-    trainer = Trainer(args, make_synthetic_scene(H=128, W=128, n_train=8, n_test=2), device=device)
+    trainer = Trainer(args, make_synthetic_scene(H=128, W=128, n_train=8, n_test=2))
     trainer.global_step = 1001
     if trainer.render_cfg.occupancy is not None:
         float(trainer.run_steps(32, block_size=32)["loss"])
@@ -111,11 +110,8 @@ def run(env: Mapping[str, str], device: Optional[str] = None) -> dict:
     }
 
 
-def main(argv: Optional[Sequence[str]] = None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--device", default=None, help="torch device (default: cuda; raises without a GPU)")
-    opts = ap.parse_args(argv)
-    print(json.dumps(run(os.environ, opts.device)), flush=True)
+def main() -> int:
+    print(json.dumps(run(os.environ)), flush=True)
     return 0
 
 

@@ -246,9 +246,7 @@ class Trainer:
         self.occ_grid = init_occupancy_grid(occ, self.device) if occ is not None else None
         self._occ_ready = False
         self.last_occ_keep = None
-        # run_steps' blocks by (b, use_tv, occ_mode, precrop, keep), and on a
-        # GPU the CUDA graphs they replay
-        self._blocks = {}
+        # on a GPU, the CUDA graphs that run_steps' blocks replay
         self._graphs: Optional[GraphCache] = None
 
     def _keep_at(self, step: int) -> Tuple[float, Optional[int]]:
@@ -448,11 +446,7 @@ class Trainer:
 
     def _run_block(self, b: int, use_tv: bool, occ_mode: Optional[str], precrop: bool,
                    keep: Optional[float]):
-        key = (b, use_tv, occ_mode, precrop, keep)
-        block = self._blocks.get(key)
-        if block is None:
-            block = self._blocks[key] = self._build_block(*key)
-        metrics = block()
+        metrics = self._build_block(b, use_tv, occ_mode, precrop, keep)()
         self.last_occ_keep = self._keep_fractions(keep) if occ_mode == "cull" else None
         return metrics
 
@@ -558,7 +552,7 @@ class Trainer:
         print(f"Reloading from {path}")
         self.global_step = load_checkpoint(path, self.state, self.optimizer)
         # RAdam's state tensors were replaced: the graphs hold the old ones
-        self._blocks, self._graphs = {}, None
+        self._graphs = None
         return True
 
 

@@ -410,6 +410,12 @@ GRAPH_FLAGSHIP = dict(GRAPH_SMALL, n_levels=4, n_features_per_level=8, log2_hash
                       use_occupancy=True, occ_resolution=32, occ_warmup=4, occ_update_every=4,
                       occ_keep_fraction=0.125, occ_keep_coarse=0.375,
                       occ_keep_schedule="0:0.5,8:0.125", occ_block=8, occ_adaptive_update=True)
+GRAPH_SETTINGS = {
+    "chair": GRAPH_SMALL,
+    "packed": dict(GRAPH_SMALL, n_levels=4, n_features_per_level=8, log2_hashmap_size=13,
+                   packed_layout=True, share_fine=True, aabb_clip=True, compute_dtype="bfloat16"),
+    "flagship": GRAPH_FLAGSHIP,
+}
 
 
 def graph_trainer(settings):
@@ -440,12 +446,12 @@ def row_gate_ok(got, want):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("which", ["chair", "flagship"])
+@pytest.mark.parametrize("which", ["chair", "packed", "flagship"])
 def test_graphed_blocks_equal_eager_steps(cuda_device, which):
     """From one state and one generator state: 16 steps as run_steps(16)
     (captured, then 16 replays) and as 16 eager steps (after 8 eager steps
     that open RAdam's gate and, for the flagship, ready the grid)."""
-    t = graph_trainer(GRAPH_SMALL if which == "chair" else GRAPH_FLAGSHIP)
+    t = graph_trainer(GRAPH_SETTINGS[which])
     for _ in range(8):
         t.step(t.sample_batch(False))
     snap = [x.detach().clone() for x in t.training_state()]
@@ -486,10 +492,10 @@ def test_try_restore_drops_the_graphs(cuda_device, tmp_path):
     t = graph_trainer(GRAPH_SMALL)
     t.run_steps(16, block_size=16)
     t.save(str(tmp_path / "000016.ckpt"))
-    assert t._graphs is not None and t._blocks
+    assert t._graphs is not None and t._graphs.graphs
     m0 = t.run_steps(16, block_size=16)
     assert t.try_restore(str(tmp_path)) and t.global_step == 16
-    assert t._graphs is None and not t._blocks
+    assert t._graphs is None
     m1 = t.run_steps(16, block_size=16)  # captured anew, on the restored optimizer state
     assert t._graphs is not None and torch.isfinite(m1["loss"]) and torch.isfinite(m0["loss"])
 

@@ -329,19 +329,28 @@ def test_packed_encode_at_tpu_quality_widths_matches_jax():
 
 
 @pytest.mark.parametrize("preset", ["tpu-fast", "tpu-quality"])
-def test_preset_cli_trains_in_blocks_on_the_cpu(tmp_path, capsys, preset):
+def test_preset_cli_trains_in_blocks_on_the_cpu(tmp_path, capsys, monkeypatch, preset):
     """python -m hashnerf_torch.run_nerf --preset ... --device cpu at smoke
     sizes: 16 update steps, then 16 culled, in blocks of 16."""
     from hashnerf_torch.run_nerf import main
+    from hashnerf_torch.train.driver import Trainer
 
+    blocks = set()
+    build = Trainer._build_block
+
+    def recorded(self, *key):
+        blocks.add(key)
+        return build(self, *key)
+
+    monkeypatch.setattr(Trainer, "_build_block", recorded)
     trainer = main(["--config", SMOKE, "--preset", preset, "--N_rand", "64", "--occ_warmup", "16",
                     "--device", "cpu", "--no_reload", "--N_iters", "32", "--i_weights", "32",
                     "--i_print", "16", "--basedir", str(tmp_path)])
     out = capsys.readouterr().out
     assert "[TRAIN] Iter: 16 " in out and "[TRAIN] Iter: 32 " in out
     assert trainer.global_step == 32 and trainer._occ_ready
-    assert set(trainer._blocks) == {(16, True, "update", False, None),
-                                    (16, True, "cull", False, 0.5 if preset == "tpu-fast" else None)}
+    assert blocks == {(16, True, "update", False, None),
+                      (16, True, "cull", False, 0.5 if preset == "tpu-fast" else None)}
     assert trainer.last_occ_keep == ((0.5, 0.375) if preset == "tpu-fast" else (0.5, 0.5))
     (expdir,) = [p for p in tmp_path.iterdir() if p.is_dir()]
     assert (expdir / "000032.ckpt").exists()
