@@ -71,17 +71,34 @@ Imports hashnerf_torch (never jax or hashnerf_tpu) and, on one CUDA card:
     PATHS holds what each path runs and must show. The launch counts are
     set to 0 before each path and read after it; each kernel of a path
     must have been launched there, and K1, K3 and K4 on no path;
- 4. bench: the line of `python -m hashnerf_torch.bench` for the flagship
+ 4. blender: the blender path end to end through hashnerf_torch.run_nerf.main
+    (phase_blender): an 800 x 800 RGBA set of 16 / 2 / 4 frames written by
+    hashnerf_torch.tools.make_blender_dataset, loaded back with 0
+    differences from the frames written; configs/chair.txt trained on it
+    (half_res: 400 x 400) for 600 steps with a checkpoint, the test set's
+    figures and PSNR pickle and the 40-frame spiral video at the last step,
+    then 10 steps timed as the main paths time theirs; --render_only
+    --render_test, whose PSNRs must equal the training run's, and
+    --render_only --render_factor 4; --preset tpu-fast for 320 steps, every
+    step from the warmup (256) on culled at its budgets, with the same
+    outputs; and the JAX package's checkpoint fixture
+    (tests/golden/jax_smoke_ckpt) restored by load_jax_checkpoint and
+    rendered within JAX_VIEW_*_TOL of the view the JAX package rendered.
+    The launch counts are set to 0 before it and read after: K2, K6 and K5
+    must launch, K1, K3 and K4 not;
+ 5. bench: the line of `python -m hashnerf_torch.bench` for the flagship
     and for BENCH_PARITY=1;
- 5. prints one line {"kernels": [...]} with each kernel's launches on the
-    main paths (graph replays included), error, times and bound, and as the
-    last line {"ok": true, "device": {...}}.
+ 6. prints one line {"kernels": [...]} with each kernel's launches on the
+    main paths and the blender path (graph replays included), error, times
+    and bound, the total seconds and the card, and as the last line
+    {"ok": true, "device": {...}}.
 
 Any failed check raises, and the script exits non-zero without the last
 line. It exits non-zero at once when no CUDA device is present or when
 hashnerf_torch cannot be imported (a directory holding only this script).
 `--profile` adds a torch.profiler breakdown of three eager steps without TV
-of each path, and of one graphed block of each window.
+of each path, of one graphed block of each window, and of three chair
+steps with TV on the blender set.
 """
 from __future__ import annotations
 
@@ -201,6 +218,30 @@ GRAPH_BLOCK = 16  # the flagship preset's --steps_per_dispatch
 GRAPH_NO_TV_START = 1024  # the last keep-schedule step; on the update grid
 GRAPH_TIMED_BLOCKS = {"tv": 3, "no_tv": 4}
 OFF_PATH = ("segment_accumulate_k1", "segment_accumulate_k4", "hash_encode_bwd_expand")
+
+
+# The JAX package's checkpoint fixture (tests/golden/jax_smoke_ckpt, written
+# by tests/golden/make_jax_ckpt_fixture.py) and the tolerance its view is
+# rendered to. A render moves when the weights move in their last bits: the
+# inverse CDF places the fine samples, and weights changed by 3e-7 of
+# themselves moved single pixels by up to 4e-4 while the mean moved 7e-7
+# (CPU trial). So the view is held by its mean and its largest absolute
+# difference, each well above that and below what a fresh, untrained state
+# gives.
+JAX_FIXTURE = os.path.join("tests", "golden", "jax_smoke_ckpt")
+JAX_VIEW_MEAN_TOL = 1e-5
+JAX_VIEW_MAX_TOL = 2e-3
+
+
+def jax_view_close(got, want):
+    """(within tolerance, {mean_abs_err, max_abs_err}) of a render of the
+    JAX fixture's view against the one the JAX package rendered."""
+    import numpy as np
+
+    err = np.abs(np.asarray(got, np.float64) - np.asarray(want, np.float64))
+    stats = {"mean_abs_err": float(err.mean()), "max_abs_err": float(err.max()),
+             "mean_tol": JAX_VIEW_MEAN_TOL, "max_tol": JAX_VIEW_MAX_TOL}
+    return stats["mean_abs_err"] <= JAX_VIEW_MEAN_TOL and stats["max_abs_err"] <= JAX_VIEW_MAX_TOL, stats
 
 
 def emit(obj) -> None:
@@ -1526,6 +1567,303 @@ def profile_steps(torch, trainer, n: int, step_s: float):
     }
 
 
+# The blender phase: a blender-format set written by the port's tool at the
+# nerf-synthetic resolution (800 x 800 RGBA), cut to 16 / 2 / 4 frames and
+# traced without supersampling; the chair trained on it for BLENDER_ITERS
+# steps (precrop_iters 500 ends), render-only after it, then the flagship
+# preset for BLENDER_FLAGSHIP_ITERS steps (past its warmup of 256).
+BLENDER_SET = ["--hw", "800", "--n_train", "16", "--n_val", "2", "--n_test", "4", "--ss", "1"]
+BLENDER_ITERS = 600
+BLENDER_FLAGSHIP_ITERS = 320
+BLENDER_RATE_WINDOW = (400, 500)  # the eager steps timed, by the i_print (20) times
+BLENDER_VIDEO_FRAMES = 40  # the spherical demo path
+PSNR_MATCH_DB = 1e-4
+
+
+class _StampedLines:
+    """stdout that also keeps each line with the host clock's time, so that
+    train_loop's own messages time its checkpoint, video and test set."""
+
+    def __init__(self, out):
+        self.out, self.lines = out, []
+
+    def write(self, text):
+        self.out.write(text)
+        if text.strip():
+            self.lines.append((time.perf_counter(), text.strip()))
+        return len(text)
+
+    def flush(self):
+        self.out.flush()
+
+    def at(self, prefix: str) -> float:
+        t = next((t for t, ln in self.lines if ln.startswith(prefix)), None)
+        require(t is not None, f"no line starting {prefix!r} was printed")
+        return t
+
+
+def gif_frames(path: str):
+    """(frames, (H, W)) of a GIF, walking its blocks."""
+    import struct
+
+    with open(path, "rb") as f:
+        data = f.read()
+    require(data[:6] in (b"GIF87a", b"GIF89a"), f"{path}: not a GIF")
+    W, H, flags = struct.unpack("<HHB", data[6:11])
+    pos = 13 + (3 * 2 ** ((flags & 7) + 1) if flags & 0x80 else 0)
+    n = 0
+
+    def skip_blocks(p):
+        while data[p]:
+            p += data[p] + 1
+        return p + 1
+
+    while data[pos] != 0x3B:
+        if data[pos] == 0x21:
+            pos = skip_blocks(pos + 2)
+        elif data[pos] == 0x2C:
+            n += 1
+            lflags = data[pos + 9]
+            pos += 10 + (3 * 2 ** ((lflags & 7) + 1) if lflags & 0x80 else 0)
+            pos = skip_blocks(pos + 1)
+        else:
+            raise CheckFailed(f"{path}: bad GIF block 0x{data[pos]:02x}")
+    return n, (H, W)
+
+
+def video_frames(path_base: str):
+    """(path, frames, (H, W)) of the video save_video wrote for `path_base`
+    + .mp4: the mp4 (counted by ffprobe) or the GIF beside it."""
+    if os.path.exists(path_base + ".gif"):
+        return (path_base + ".gif",) + gif_frames(path_base + ".gif")
+    mp4 = path_base + ".mp4"
+    require(os.path.exists(mp4), f"no video at {path_base}.mp4 or .gif")
+    out = subprocess.run(["ffprobe", "-v", "error", "-count_frames", "-select_streams", "v:0",
+                          "-show_entries", "stream=nb_read_frames,height,width", "-of", "csv=p=0",
+                          mp4], capture_output=True, text=True, timeout=300, check=True).stdout
+    w, h, n = (int(v) for v in out.strip().split(","))
+    return mp4, n, (h, w)
+
+
+def _psnr_pickle(d: str):
+    import glob
+    import pickle
+
+    pkls = glob.glob(os.path.join(d, "test_psnrs_avg*.pkl"))
+    require(len(pkls) == 1, f"{d}: {len(pkls)} PSNR pickles")
+    with open(pkls[0], "rb") as f:
+        return pickle.load(f)
+
+
+def _check_run(np, trainer, expdir: str, n: int, n_test: int, hw, stamps, what: str):
+    """The gates of a training run on the blender set: finite losses that
+    fall, a checkpoint, the test set's figures and PSNR pickle, and the
+    spiral video of the demo path (rgb and disparity)."""
+    from hashnerf_torch.utils.png import read_png
+
+    losses = [h[1] for h in trainer.history]
+    require(len(losses) >= 10 and all(np.isfinite(losses)), f"{what}: losses {losses}")
+    require(np.mean(losses[-5:]) < np.mean(losses[:5]), f"{what}: the loss did not fall: {losses}")
+    require(os.path.exists(os.path.join(expdir, "{:06d}.ckpt".format(n))), f"{what}: no checkpoint")
+    testdir = os.path.join(expdir, "testset_{:06d}".format(n))
+    H, W = hw
+    for i in range(n_test):
+        fig = read_png(os.path.join(testdir, "{:03d}.png".format(i)))
+        require(fig.shape == (H, 2 * W, 3), f"{what}: figure {i} is {fig.shape}")
+    psnrs = _psnr_pickle(testdir)
+    require(len(psnrs) == n_test and all(np.isfinite(psnrs)), f"{what}: PSNRs {psnrs}")
+    videos = {}
+    for kind in ("rgb", "disp"):
+        base = os.path.join(expdir, "{}_spiral_{:06d}_{}".format(trainer.args.expname, n, kind))
+        path, frames, shape = video_frames(base)
+        require(frames == BLENDER_VIDEO_FRAMES and shape == (H, W),
+                f"{what}: {path} has {frames} frames of {shape}")
+        videos[kind] = os.path.basename(path)
+    t_ckpt = stamps.at("Saved checkpoints")
+    t_video = stamps.at("Saved video")
+    return {"losses": losses, "test_psnrs": psnrs, "videos": videos,
+            "video_s": t_video - t_ckpt, "testset_s": stamps.at("Saved test set") - t_video,
+            "testset_s_per_view": (stamps.at("Saved test set") - t_video) / n_test}
+
+
+def _run(run_nerf, argv):
+    """run_nerf.main(argv) with its stdout stamped line by line."""
+    import contextlib
+
+    stamps = _StampedLines(sys.stdout)
+    with contextlib.redirect_stdout(stamps):
+        trainer = run_nerf(argv)
+    return trainer, stamps
+
+
+def phase_blender(torch, np, smi: str, profile: bool):
+    """The blender path end to end: write the set, check the loader against
+    the frames written, train the chair, render only, train the flagship,
+    render the JAX package's checkpoint; K2, K6 and K5 must launch on it and
+    K1, K3 and K4 must not. `profile` adds a profiler breakdown of three
+    chair steps on the blender set."""
+    import pickle
+
+    from hashnerf_torch import kernels
+    from hashnerf_torch.data.blender import load_blender_scene
+    from hashnerf_torch.data.synthetic import make_synthetic_scene
+    from hashnerf_torch.run_nerf import main as run_nerf
+    from hashnerf_torch.tools.make_blender_dataset import main as make_set
+    from hashnerf_torch.train.checkpoint import load_jax_checkpoint
+    from hashnerf_torch.train.config import parse_args
+    from hashnerf_torch.train.driver import Trainer
+    from hashnerf_torch.utils.png import read_png
+
+    t_phase = time.perf_counter()
+    workdir = tempfile.mkdtemp(prefix="hashnerf_torch_blender_")
+    try:
+        data, logs = os.path.join(workdir, "data"), os.path.join(workdir, "logs")
+        t0 = time.perf_counter()
+        frames = make_set([data, *BLENDER_SET])
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        sc = load_blender_scene(data, half_res=False, testskip=1, white_bkgd=False)
+        load_s = time.perf_counter() - t0
+        want = np.concatenate([frames[s][..., :3] for s in ("train", "val", "test")])
+        png_diffs = int((sc.images != (want / 255.0).astype(np.float32)).sum())
+        require(png_diffs == 0, f"blender: {png_diffs} loaded values differ from the frames written")
+        n_test = len(frames["test"])
+        del sc, want, frames
+
+        base = ["--config", os.path.join(ROOT, "configs", "chair.txt"), "--datadir", data,
+                "--basedir", logs, "--device", DEV, "--testskip", "1"]
+        n = BLENDER_ITERS
+        every = [str(n)] * 3
+        kernels.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        trainer, stamps = _run(run_nerf, base + ["--N_iters", str(n), "--i_print", "20", "--no_reload",
+                                                 "--i_weights", every[0], "--i_testset", every[1],
+                                                 "--i_video", every[2]])
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        sc, args = trainer.scene, trainer.args
+        hw = (sc.H, sc.W)
+        require(hw == (400, 400), f"blender: half_res gave {hw}")
+        expdir = os.path.join(logs, args.expname)
+        chair = _check_run(np, trainer, expdir, n, n_test, hw, stamps, "chair")
+        with open(os.path.join(expdir, "loss_vs_time.pkl"), "rb") as f:
+            hist = pickle.load(f)
+        iters = [h[0] for h in trainer.history]
+        a, b = (iters.index(i) for i in BLENDER_RATE_WINDOW)
+        rate = (BLENDER_RATE_WINDOW[1] - BLENDER_RATE_WINDOW[0]) * args.N_rand / (hist["time"][b] - hist["time"][a])
+        train_peak = torch.cuda.max_memory_allocated() / 2**30
+        # 10 more steps with TV timed as the main paths time theirs
+        # (timed_steps: a synchronise a step), beside the procedural scene's
+        tv_s, _ = timed_steps(torch, trainer, 10)
+        prof = None
+        if profile:
+            prof = {"path": "blender chair", **profile_steps(torch, trainer, 3, statistics.median(tv_s))}
+        del trainer
+
+        # render only: the checkpoint of step n through the same forward pass
+        t0 = time.perf_counter()
+        r, _ = _run(run_nerf, base + ["--N_iters", str(n), "--render_only", "--render_test"])
+        torch.cuda.synchronize()
+        render_only_s = time.perf_counter() - t0
+        require(r.global_step == n, f"render only restored step {r.global_step}")
+        onlydir = os.path.join(expdir, "renderonly_test_{:06d}".format(n))
+        only_psnrs = _psnr_pickle(onlydir)
+        psnr_diff = max(abs(x - y) for x, y in zip(only_psnrs, chair["test_psnrs"]))
+        require(len(only_psnrs) == n_test and psnr_diff <= PSNR_MATCH_DB,
+                f"render-only PSNRs {only_psnrs} vs training's {chair['test_psnrs']}")
+        del r
+        r, _ = _run(run_nerf, base + ["--N_iters", str(n), "--render_only", "--render_factor", "4"])
+        pathdir = os.path.join(expdir, "renderonly_path_{:06d}".format(n))
+        small = [read_png(os.path.join(pathdir, "{:03d}.png".format(i))).shape
+                 for i in range(BLENDER_VIDEO_FRAMES)]
+        require(set(small) == {(100, 200, 3)}, f"render_factor 4 figures {set(small)}")
+        del r
+        c_chair = kernels.launch_counts()
+
+        # the flagship preset on the same set; every step from the warmup on
+        # must cull at its budgets (blocks of graph replays and single steps)
+        nf = BLENDER_FLAGSHIP_ITERS
+        culls = []
+        run_block, step = Trainer._run_block, Trainer.step
+
+        def rec_block(self, b, *a, **kw):
+            g = self.global_step
+            m = run_block(self, b, *a, **kw)
+            culls.append((g, b, self.last_occ_keep))
+            return m
+
+        def rec_step(self, *a, **kw):
+            g = self.global_step
+            m = step(self, *a, **kw)
+            culls.append((g, 1, self.last_occ_keep))
+            return m
+
+        Trainer._run_block, Trainer.step = rec_block, rec_step
+        try:
+            t0 = time.perf_counter()
+            ft, fstamps = _run(run_nerf, base + [
+                "--preset", "tpu-fast", "--expname", "blender_flagship", "--N_iters", str(nf),
+                "--i_print", "16", "--no_reload", "--i_weights", str(nf), "--i_testset", str(nf),
+                "--i_video", str(nf)])
+            torch.cuda.synchronize()
+            flagship_s = time.perf_counter() - t0
+        finally:
+            Trainer._run_block, Trainer.step = run_block, step
+        warmup = ft.render_cfg.occupancy.warmup_steps
+        require(sum(b for _, b, _ in culls) == nf, f"flagship: steps recorded {culls}")
+        bad = [c for c in culls if (c[2] == PATHS["flagship"]["keeps_tv"]) != (c[0] >= warmup)]
+        require(not bad, f"flagship: steps not culled at {PATHS['flagship']['keeps_tv']} from "
+                f"{warmup} on (or culled before): {bad}")
+        flagship = _check_run(np, ft, os.path.join(logs, ft.args.expname), nf, n_test, hw, fstamps,
+                              "flagship")
+        del ft
+
+        # the JAX package's checkpoint, rendered on the card
+        view = np.load(os.path.join(ROOT, JAX_FIXTURE, "view.npz"))
+        flags = [os.path.join(ROOT, f) if f.endswith(".txt") else f for f in view["flags"]]
+        jt = Trainer(parse_args(flags + ["--device", DEV]), make_synthetic_scene(), device=DEV)
+        step_j = load_jax_checkpoint(os.path.join(ROOT, JAX_FIXTURE, "000008.ckpt"), jt.state,
+                                     jt.optimizer)
+        rgb_j = jt.render_image(view["c2w"])[0].cpu().numpy()
+        ok, jax_err = jax_view_close(rgb_j, view["rgb"])
+        require(step_j == 8 and ok, f"JAX checkpoint (step {step_j}) view: {jax_err}")
+        del jt
+
+        counts = kernels.launch_counts()
+        for name in ("hash_encode_fwd", "hash_encode_bwd", "segment_accumulate_k5"):
+            require(counts[name] > 0, f"kernel {name} was not launched on the blender path")
+        for name in OFF_PATH:
+            require(counts[name] == 0, f"kernel {name} was launched on the blender path")
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        phase_s = time.perf_counter() - t_phase
+        rec = {
+            "phase": "blender", "card": smi, "set": BLENDER_SET, "iters": n, "flagship_iters": nf,
+            "write_s": write_s, "load_s": load_s, "png_diffs": png_diffs, "train_s": train_s,
+            "train_rays_per_s_eager_400_500": rate, "print_times_s": hist["time"],
+            "print_iters": iters, "step_ms_tv_timed": [t * 1e3 for t in tv_s],
+            "train_rays_per_s_tv_timed": args.N_rand / statistics.median(tv_s),
+            "test_psnr_mean": float(np.mean(chair["test_psnrs"])),
+            "render_s_per_view": chair["testset_s_per_view"], "video_s": chair["video_s"],
+            "render_only_s": render_only_s, "render_only_psnr_max_diff_db": psnr_diff,
+            "chair": chair, "flagship": {**flagship, "train_s": flagship_s, "culls": len(culls)},
+            "flagship_test_psnr_mean": float(np.mean(flagship["test_psnrs"])),
+            "jax_checkpoint_view": jax_err, "peak_mem_gib_train": train_peak, "peak_mem_gib": peak,
+            "launches_after_chair": c_chair, "launches": counts, "phase_s": phase_s,
+        }
+        emit(rec)
+        if prof is not None:
+            emit(prof)
+        shown = [("load_s", load_s), ("train_s", train_s), ("eager rays/s 400-500", rate),
+                 ("test PSNR dB (sign of life)", rec["test_psnr_mean"]),
+                 ("render s per 400x400 view", rec["render_s_per_view"]), ("video_s", rec["video_s"]),
+                 ("peak GiB", peak), ("phase_s", phase_s)]
+        print("blender: " + "; ".join(f"{k} {v:.6g} [{smi}]" for k, v in shown), flush=True)
+        return rec
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+
+
 def phase_bench(torch):
     """The line of `python -m hashnerf_torch.bench`, for the flagship and
     for BENCH_PARITY=1 (the chair step), run in this process."""
@@ -1578,6 +1916,9 @@ def main(argv=None) -> int:
     del kept_pts
     torch.cuda.empty_cache()
     paths = {path: phase_main_path(torch, np, path, opts.profile) for path in PATHS}
+    torch.cuda.empty_cache()
+    blender = phase_blender(torch, np, dev["smi"], opts.profile)
+    torch.cuda.empty_cache()
     benches = phase_bench(torch)
 
     fine = packed["shapes"]["fine_slabs"]
@@ -1590,6 +1931,7 @@ def main(argv=None) -> int:
     for name, info in KERNEL_INFO.items():
         k = kern[name]
         by_path = {p: rec["launches"][name] for p, rec in paths.items()}
+        by_path["blender"] = blender["launches"][name]
         lines.append({
             "name": name, "route": "cuda", **info,
             "launches": sum(by_path.values()), "launches_by_path": by_path,
@@ -1603,8 +1945,10 @@ def main(argv=None) -> int:
         with open(opts.out, "w") as f:
             json.dump({"device": dev, "kernels": kern, "k4_hot_row": k4_hot, "k5_hot_rows": k5_hot,
                        "packed_kernels": packed, "occupancy": occupancy, "culled_k5": culled_k5,
-                       "packed_encode": packed_enc, "main_paths": paths, "bench": benches,
+                       "packed_encode": packed_enc, "main_paths": paths, "blender": blender,
+                       "bench": benches,
                        "seconds": time.perf_counter() - t_start}, f, indent=1)
+    print(f"chip_smoke seconds: {time.perf_counter() - t_start:.1f} [{dev['smi']}]", flush=True)
     print(f"card: {dev['smi']}", flush=True)
     emit(summary)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,12 +7,13 @@ nn.Linear's (out, in); the JAX package stores (in, out) (see convert.py).
 Init is U(-1/sqrt(fan_in), 1/sqrt(fan_in)), nn.Linear's default bound,
 drawn from an explicit torch.Generator.
 
-compute_dtype "bfloat16" follows the JAX package's bf16 compute mode: the
-input and the weight of each layer are rounded to bf16 and multiplied with
-a float32 product, whose output is not rounded. The port writes that as a
-float32 `linear` of the rounded values (products of bf16 values are exact in
-float32); autograd's casts then round the gradients of x and w to bf16 as
-JAX's transpose of the bf16 dot does. A bf16 matmul would round its output.
+compute_dtype "bfloat16" or "float16" follows the JAX package's compute
+mode: the input and the weight of each layer are rounded to that type and
+multiplied with a float32 product, whose output is not rounded. The port
+writes that as a float32 `linear` of the rounded values (a product of two
+bf16 or two f16 values is exact in float32); autograd's casts then round
+the gradients of x and w to the compute type as JAX's transpose of the dot
+does. A bf16 or f16 matmul would round its output.
 """
 from __future__ import annotations
 
@@ -34,7 +35,7 @@ class NeRFSmallConfig:
     hidden_dim_color: int = 64
     input_ch: int = 32
     input_ch_views: int = 16
-    compute_dtype: Optional[str] = None  # None (float32) or "bfloat16"
+    compute_dtype: Optional[str] = None  # None (float32), "bfloat16" or "float16"
 
 
 def _linear(fan_in: int, fan_out: int, generator, device) -> nn.Linear:
@@ -66,16 +67,16 @@ class NeRFSmall(nn.Module):
             color.append(_linear(in_dim, out_dim, generator, device))
         self.sigma_net = nn.ModuleList(sigma)
         self.color_net = nn.ModuleList(color)
-        if cfg.compute_dtype not in (None, "bfloat16"):
+        if cfg.compute_dtype not in (None, "bfloat16", "float16"):
             raise NotImplementedError(
                 f"NeRFSmall: compute_dtype {cfg.compute_dtype!r} is not ported (ROADMAP A7.4)"
             )
+        self._dtype = None if cfg.compute_dtype is None else getattr(torch, cfg.compute_dtype)
 
     def _layer(self, layer: nn.Linear, h: torch.Tensor) -> torch.Tensor:
-        if self.cfg.compute_dtype is None:
+        if self._dtype is None:
             return layer(h)
-        bf16 = torch.bfloat16
-        return F.linear(h.to(bf16).float(), layer.weight.to(bf16).float())
+        return F.linear(h.to(self._dtype).float(), layer.weight.to(self._dtype).float())
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x: (N, input_ch + input_ch_views) -> (N, 4) = [rgb logits, sigma]."""

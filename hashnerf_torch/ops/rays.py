@@ -1,9 +1,9 @@
 """Pinhole ray generation and the ray-bbox clip.
 
-Counterpart of get_rays / get_rays_at / get_rays_np / ray_aabb_near_far in
-hashnerf_tpu/ops/rays.py. The NDC
-warp, camera-frame direction fields and equirect directions come with the
-loaders that use them (ROADMAP A1/A6).
+Counterpart of get_rays / get_rays_at / get_rays_np / get_directions /
+ray_from_directions / ray_aabb_near_far in hashnerf_tpu/ops/rays.py. The
+NDC warp and equirect directions come with the loaders that use them
+(ROADMAP A6).
 """
 from __future__ import annotations
 
@@ -59,6 +59,27 @@ def get_rays_np(H: int, W: int, K, c2w) -> Tuple[np.ndarray, np.ndarray]:
     rays_d = np.sum(dirs[..., np.newaxis, :] * c2w[:3, :3], -1)
     rays_o = np.broadcast_to(c2w[:3, -1], np.shape(rays_d))
     return rays_o, rays_d
+
+
+def get_directions(H: int, W: int, focal: float) -> np.ndarray:
+    """Camera-frame direction field (H, W, 3) for the bbox of the camera
+    frusta: float64 pixel grids (no +0.5 centering), then float32."""
+    xs = np.linspace(0, W - 1, W, dtype=np.float64)
+    ys = np.linspace(0, H - 1, H, dtype=np.float64)
+    i, j = np.meshgrid(xs, ys)
+    return np.stack(
+        [(i - W / 2) / focal, -(j - H / 2) / focal, -np.ones_like(i)], -1
+    ).astype(np.float32)
+
+
+def ray_from_directions(directions: np.ndarray, c2w: np.ndarray):
+    """World-space origins and normalized directions of one camera, each
+    (H * W, 3)."""
+    c2w = np.asarray(c2w, dtype=np.float32)
+    rays_d = directions @ c2w[:3, :3].T
+    rays_d = rays_d / np.linalg.norm(rays_d, axis=-1, keepdims=True)
+    rays_o = np.broadcast_to(c2w[:3, -1], rays_d.shape)
+    return rays_o.reshape(-1, 3), rays_d.reshape(-1, 3)
 
 
 def ray_aabb_near_far(rays_o, rays_d, bbox, near, far):

@@ -28,6 +28,7 @@ from hashnerf_torch.render.occupancy import (
     OccupancyConfig, cull_per_ray, dilate_grid, occupancy_scores, occupancy_scores_strided,
     query_with_culling,
 )
+from hashnerf_torch.utils.io import save_psnr_pickle, save_render_figures
 
 
 @dataclasses.dataclass(frozen=True)
@@ -303,22 +304,38 @@ def render_path(
     near: float = 0.0,
     far: float = 1.0,
     gt_imgs=None,
+    savedir: Optional[str] = None,
+    render_factor: int = 0,
     occ_grid: Optional[torch.Tensor] = None,
 ):
     """Render poses in eval mode (culled by occ_grid when given); returns
-    (rgbs, depths, psnrs) as numpy, depth normalized by (near, far). Saving
-    figures and videos is ROADMAP A3."""
-    H, W, _ = hwf
+    (rgbs, depths, psnrs) as numpy, depth normalized by (near, far).
+
+    render_factor k > 0 renders at H // k x W // k with focal / k (and
+    then computes no PSNR). savedir receives the figures and, with PSNRs,
+    their pickle (utils/io.py)."""
+    H, W, focal = hwf
+    H, W = int(H), int(W)
+    if render_factor != 0:
+        H = H // render_factor
+        W = W // render_factor
+        focal = focal / render_factor
+        K = np.array([[focal, 0, 0.5 * W], [0, focal, 0.5 * H], [0, 0, 1]])
     rgbs, depths, psnrs = [], [], []
     for i, c2w in enumerate(poses):
         c2w = torch.as_tensor(np.asarray(c2w)[:3, :4], dtype=torch.float32, device=bbox.device)
         rgb, depth, _, _ = render(
-            state, query_fn, int(H), int(W), K, bbox, cfg.eval_mode(),
+            state, query_fn, H, W, K, bbox, cfg.eval_mode(),
             chunk=chunk, c2w=c2w, near=near, far=far, occ_grid=occ_grid,
         )
         rgb = rgb.cpu().numpy()
         rgbs.append(rgb)
         depths.append((depth.cpu().numpy() - near) / (far - near))
-        if gt_imgs is not None:
+        if gt_imgs is not None and render_factor == 0:
             psnrs.append(float(-10.0 * np.log10(np.mean(np.square(rgb - np.asarray(gt_imgs[i]))))))
-    return np.stack(rgbs, 0), np.stack(depths, 0), psnrs
+    rgbs, depths = np.stack(rgbs, 0), np.stack(depths, 0)
+    if savedir is not None:
+        save_render_figures(savedir, rgbs, depths)
+        if psnrs:
+            save_psnr_pickle(savedir, psnrs)
+    return rgbs, depths, psnrs

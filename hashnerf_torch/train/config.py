@@ -235,24 +235,20 @@ def check_supported(args) -> None:
             f"hashnerf_torch: {what} is not ported yet (ROADMAP {row})"
         )
 
-    if args.dataset_type != "synthetic":
-        no(f"dataset_type {args.dataset_type!r}", "A5/A6")
+    if args.dataset_type not in ("synthetic", "blender"):
+        no(f"dataset_type {args.dataset_type!r}", "A6")
     if args.i_embed != 1:
         no(f"--i_embed {args.i_embed} (only the hash grid, 1)", "A1/A2")
     if args.use_viewdirs and args.i_embed_views != 2:
         no(f"--i_embed_views {args.i_embed_views} (only SH, 2)", "A1")
     if not args.no_batching:
         no("ray batching across images (set no_batching)", "A6")
-    if args.compute_dtype not in (None, "bfloat16"):
-        no(f"--compute_dtype {args.compute_dtype} (only bfloat16)", "A7.4")
+    if args.compute_dtype not in (None, "bfloat16", "float16"):
+        no(f"--compute_dtype {args.compute_dtype} (only bfloat16 and float16)", "A7.4")
     if (args.num_devices or 0) > 1:
         no(f"--num_devices {args.num_devices}", "A8")
     if args.use_depth or args.use_gradient:
         no("st3d depth/gradient supervision", "A6")
-    if args.render_only:
-        no("--render_only", "A3")
-    if args.i_video > 0 and args.i_video <= args.N_iters:
-        no(f"render_path video at --i_video {args.i_video} (pass --i_video 0)", "A3")
 
 
 # The JAX package's named bundles of the opt-in execution set, copied from

@@ -3,8 +3,8 @@
 Counterpart of hashnerf_tpu/train/driver.py for the per-image
 (`no_batching`) path: losses = fine MSE + coarse MSE + entropy sparsity + TV
 while global_step <= 1000, RAdam with two parameter groups and exponential
-LR decay, periodic print / checkpoint / test-set render. Besides the
-reference-exact step it takes the packed layout (with its own TV),
+LR decay, periodic print / checkpoint / spiral video / test-set figures.
+Besides the reference-exact step it takes the packed layout (with its own TV),
 `share_fine`, bf16 MLPs, `aabb_clip`, `fast_merge` and occupancy culling
 with its grid's lifecycle: updates every `update_every` steps, culling from
 `warmup_steps` on once the grid holds density, the keep schedule, and the
@@ -46,7 +46,7 @@ from hashnerf_torch.train.config import check_supported
 from hashnerf_torch.train.graphs import GraphCache
 from hashnerf_torch.train.losses import total_variation_loss_all_levels, total_variation_loss_packed
 from hashnerf_torch.train.radam import RAdam
-from hashnerf_torch.utils.io import save_loss_history, save_psnr_pickle
+from hashnerf_torch.utils.io import save_loss_history, save_video
 from hashnerf_torch.utils.metrics import img2mse, mse2psnr
 
 
@@ -528,19 +528,16 @@ class Trainer:
             near=self.near, far=self.far, occ_grid=self.eval_occ_grid,
         )
 
-    def render_test_path(self, poses, gt_imgs=None, savedir: Optional[str] = None):
+    def render_test_path(self, poses, gt_imgs=None, savedir: Optional[str] = None,
+                         render_factor: int = 0):
+        """render_path over poses; savedir receives the figures and the
+        PSNR pickle."""
         sc = self.scene
-        rgbs, depths, psnrs = render_path(
+        return render_path(
             self.state, query_fn, poses, sc.hwf, sc.K, self.bbox, self.render_cfg,
             chunk=self.args.chunk, near=self.near, far=self.far, gt_imgs=gt_imgs,
-            occ_grid=self.eval_occ_grid,
+            savedir=savedir, render_factor=render_factor, occ_grid=self.eval_occ_grid,
         )
-        if savedir is not None:
-            os.makedirs(savedir, exist_ok=True)
-            np.save(os.path.join(savedir, "rgbs.npy"), rgbs)
-            if psnrs:
-                save_psnr_pickle(savedir, psnrs)
-        return rgbs, depths, psnrs
 
     def save(self, path: str) -> None:
         save_checkpoint(path, self.global_step, self.state, self.optimizer)
@@ -558,8 +555,8 @@ class Trainer:
 
 def train_loop(args, scene: Scene, n_iters: Optional[int] = None, log_fn=print,
                device=None) -> Trainer:
-    """The per-image training loop with periodic print, checkpoint and
-    test-set render; returns the Trainer. With --steps_per_dispatch K > 1
+    """The per-image training loop with periodic print, checkpoint, spiral
+    video and test-set figures; returns the Trainer. With --steps_per_dispatch K > 1
     the steps between two events (print, checkpoint, test set, the precrop
     boundary) run as run_steps blocks of K, as the JAX loop's scanned span
     runs them; else one step at a time, its image picked on the host."""
@@ -595,6 +592,13 @@ def train_loop(args, scene: Scene, n_iters: Optional[int] = None, log_fn=print,
         if i % args.i_weights == 0:
             trainer.save(os.path.join(savepath, "{:06d}.ckpt".format(i)))
             log_fn(f"Saved checkpoints at {savepath}")
+
+        if args.i_video > 0 and i % args.i_video == 0 and len(scene.render_poses) > 0:
+            rgbs, depths, _ = trainer.render_test_path(scene.render_poses)
+            moviebase = os.path.join(savepath, "{}_spiral_{:06d}_".format(args.expname, i))
+            save_video(moviebase + "rgb.mp4", rgbs)
+            save_video(moviebase + "disp.mp4", depths / max(np.max(depths), 1e-8))
+            log_fn(f"Saved video {moviebase}")
 
         if args.i_testset > 0 and i % args.i_testset == 0 and len(scene.i_test) > 0:
             testsavedir = os.path.join(savepath, "testset_{:06d}".format(i))

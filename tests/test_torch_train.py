@@ -194,13 +194,13 @@ def test_trainer_steps_match_jax():
 # --------------------------------------------------------------------------- #
 
 @pytest.mark.parametrize("flags,row", [
-    (["--dataset_type", "blender"], "A5"),
+    (["--dataset_type", "llff"], "A6"),
     (["--i_embed", "0"], "A1"),
-    (["--compute_dtype", "float16"], "A7.4"),
-    (["--fast_merge", "--compute_dtype", "float16"], "A7.4"),
+    (["--dataset_type", "st3d"], "A6"),
+    (["--use_depth"], "A6"),
     (["--num_devices", "2"], "A8"),
-    (["--render_only"], "A3"),
-    (["--i_video", "20"], "A3"),
+    (["--i_embed_views", "0"], "A1"),
+    (["--dataset_type", "scannet"], "A6"),
 ])
 def test_unported_flags_raise_naming_their_row(flags, row):
     from hashnerf_torch.train.config import check_supported, parse_args
@@ -212,6 +212,22 @@ def test_unported_flags_raise_naming_their_row(flags, row):
         args.no_batching = True
     with pytest.raises(NotImplementedError, match=row):
         check_supported(args)
+
+
+@pytest.mark.parametrize("flags", [
+    ["--dataset_type", "blender"],
+    ["--compute_dtype", "float16"],
+    ["--fast_merge", "--compute_dtype", "float16"],
+    ["--render_only"],
+    ["--i_video", "20"],
+])
+def test_lifted_flags_are_accepted(flags):
+    """The blender loader (A5), float16 MLPs (A7.4), --render_only and the
+    i_video video (A3) are ported: check_supported takes them."""
+    from hashnerf_torch.train.config import check_supported, parse_args
+
+    check_supported(parse_args(["--config", os.path.join(ROOT, "configs", "synthetic_smoke.txt")]
+                               + flags))
 
 
 @pytest.mark.parametrize("flags", [
