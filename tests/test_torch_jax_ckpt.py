@@ -67,6 +67,28 @@ def test_fixture_renders_as_jax():
     assert float(np.std(view["rgb"])) > 0.05  # the view has structure
 
 
+def test_view_tolerance_admits_last_bits_and_refuses_a_fresh_state():
+    """jax_view_close's calibration: weights moved by 3e-7 of themselves
+    move single pixels of the fixture's view past the fine pass's
+    element-wise tolerance (the inverse CDF places the fine samples) while
+    the mean barely moves, and stay within the tolerance; an untrained
+    state does not."""
+    tt, view = _fixture_trainer()
+    assert tt.try_restore(FIXTURE)
+    base = tt.render_image(view["c2w"])[0].numpy()
+    g = torch.Generator().manual_seed(0)
+    with torch.no_grad():
+        for p in tt.state.parameters():
+            p.mul_(1 + 3e-7 * torch.randn(p.shape, generator=g))
+    moved = tt.render_image(view["c2w"])[0].numpy()
+    d = np.abs(moved - base)
+    assert d.max() > 1e-4 and d.mean() < 1e-6, (d.max(), d.mean())
+    assert chip_smoke.jax_view_close(moved, view["rgb"])[0]
+    fresh, _ = _fixture_trainer()
+    ok, err = chip_smoke.jax_view_close(fresh.render_image(view["c2w"])[0].numpy(), view["rgb"])
+    assert not ok and err["mean_abs_err"] > 100 * chip_smoke.JAX_VIEW_MEAN_TOL, err
+
+
 def _jax_draws(jt, R):
     """The draws the next JAX step takes from its key (test_torch_train.py)."""
     from hashnerf_torch.render.renderer import RenderDraws
