@@ -3,9 +3,13 @@
 gates. Each prints JSON lines; none is a gate.
 
     python3 chip_diag.py gate-spread [--path flagship] [--reps 2]
-        chip_smoke.py's main path `path`, `reps` times in one process, with
-        every gate printed instead of raised: how far the graph-against-
-        eager counts of graphed_window spread from run to run.
+        chip_smoke.py's main path `path` (chair, packed or flagship), `reps`
+        times in one process, or for `--path llff` the llff phase's two
+        graphed pool windows `reps` times on one trainer (configs/fern.txt,
+        40 steps, on chip_smoke.llff_set's set), with every gate printed
+        instead of raised: how far the graph-against-eager counts of
+        graphed_window spread from run to run, and whether each window
+        passes.
     python3 chip_diag.py one-step
         One TV step of the flagship (from 256) and of the chair (from 48),
         from one state and generator state: eager three times and as a
@@ -47,6 +51,28 @@ def _chair_trainer(torch, path: str, scene, workdir: str):
     return train_loop(args, scene, log_fn=lambda *_: None)
 
 
+def _llff_windows(torch, np, reps: int):
+    """The llff phase's graphed pool windows, `reps` times on one trainer;
+    yields (rep, window, record)."""
+    import chip_smoke as cs
+    from hashnerf_torch.data.llff import load_llff_scene
+    from hashnerf_torch.train.config import parse_args
+    from hashnerf_torch.train.driver import train_loop
+
+    work = tempfile.mkdtemp()
+    data = os.path.join(work, "fern")
+    cs.llff_set(np, data)
+    args = parse_args(["--config", os.path.join(ROOT, "configs", "fern.txt"), "--datadir", data,
+                       "--basedir", work, "--no_reload", "--N_iters", "40", "--i_print", "40",
+                       "--i_weights", "40", "--i_testset", "0", "--i_video", "0", "--device", "cuda"])
+    tr = train_loop(args, load_llff_scene(data, factor=cs.LLFF_FACTOR), log_fn=lambda *_: None)
+    pool = tr.build_ray_pool()
+    for rep in range(reps):
+        for window, start in (("tv", cs.LLFF_GRAPH_TV_START), ("no_tv", cs.GRAPH_NO_TV_START)):
+            yield rep, window, cs.graphed_window(torch, tr, start, window, cs.LLFF_SPEC, False,
+                                                 pool=pool, offset=0)
+
+
 def gate_spread(torch, np, path: str, reps: int) -> None:
     import chip_smoke as cs
 
@@ -58,12 +84,23 @@ def gate_spread(torch, np, path: str, reps: int) -> None:
             print(json.dumps({"gate_failed": what[:3000]}), flush=True)
 
     cs.require = require
-    for rep in range(reps):
-        rec = cs.phase_main_path(torch, np, path, False)
-        for window in ("tv", "no_tv"):
-            print(json.dumps({"rep": rep, "path": path, "window": window,
-                              "gate": rec["graphed"][window]["gate"]}), flush=True)
-    print(json.dumps({"gates_failed": len(fails)}), flush=True)
+    if path == "llff":
+        runs = _llff_windows(torch, np, reps)
+    else:
+        runs = ((rep, window, rec["graphed"][window])
+                for rep in range(reps) for rec in [cs.phase_main_path(torch, np, path, False)]
+                for window in ("tv", "no_tv"))
+    windows, seen = 0, 0
+    for rep, window, rec in runs:
+        # a window's failures name its start step; those of its rep's run
+        # that were not yet shown
+        mine = [f for f in fails[seen:] if f"from step {rec['start']}" in f]
+        windows += 1
+        print(json.dumps({"rep": rep, "path": path, "window": window, "start": rec["start"],
+                          "gate": rec["gate"], "passed": not mine}), flush=True)
+        if window == "no_tv":
+            seen = len(fails)
+    print(json.dumps({"path": path, "windows": windows, "gates_failed": len(fails)}), flush=True)
 
 
 def one_step(torch) -> None:
@@ -143,7 +180,7 @@ def blender_step(torch) -> None:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("what", choices=("gate-spread", "one-step", "blender-step"))
-    ap.add_argument("--path", default="flagship", choices=("chair", "packed", "flagship"))
+    ap.add_argument("--path", default="flagship", choices=("chair", "packed", "flagship", "llff"))
     ap.add_argument("--reps", type=int, default=2)
     opts = ap.parse_args(argv)
 

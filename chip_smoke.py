@@ -62,12 +62,15 @@ Imports hashnerf_torch (never jax or hashnerf_tpu) and, on one CUDA card:
       (--occ_keep_eval 0.75 --occ_eval_transmittance);
     then each path's two windows again as Trainer.run_steps blocks of 16
     steps, replayed from CUDA graphs (--steps_per_dispatch): with TV (from
-    step 48, the flagship from 256) and without (from 1024). The first
-    block of each must equal 16 eager steps from the same state and
-    generator state, its tables, MLP weights and grid each within the
-    spread of two eager runs (GATE_*), then 3-4 blocks are
-    timed; the flagship's graphed steps must cull at their budgets, and
-    the kernels must launch in the replays (counted per replay).
+    step 48, the flagship from 256) and without (from 1024). Each window
+    is held to the graph gate (graphed_window, GATE_*): one step eager and
+    from a fresh capture, from the same state and generator state, with
+    bit-equal MLP gradients and table gradients inside the atomics' row
+    gate; then 16 steps, eager and as a block, their tables, MLP weights
+    and grid each within the runs' spread or the group's floor. Then 3-4
+    blocks are timed; the flagship's graphed steps must cull at their
+    budgets, and the kernels must launch in the replays (counted per
+    replay).
     PATHS holds what each path runs and must show. The launch counts are
     set to 0 before each path and read after it; each kernel of a path
     must have been launched there, and K1, K3 and K4 on no path;
@@ -86,19 +89,32 @@ Imports hashnerf_torch (never jax or hashnerf_tpu) and, on one CUDA card:
     rendered within JAX_VIEW_*_TOL of the view the JAX package rendered.
     The launch counts are set to 0 before it and read after: K2, K6 and K5
     must launch, K1, K3 and K4 not;
- 5. bench: the line of `python -m hashnerf_torch.bench` for the flagship
+ 5. llff: the LLFF forward-facing path end to end (phase_llff): a set of
+    fern's layout and size written by llff_set (20 frames, poses_bounds.npy
+    with fern's 3024 x 4032 hwf, images_8 PNGs of 378 x 504 from the
+    procedural tracer), loaded back with 0 differences; configs/fern.txt
+    trained on it through run_nerf.main with ray batching (a shuffled pool
+    of every training ray on the card) and NDC rays for 300 steps, with
+    the test set's 3 views, their PSNR pickle and the 120-frame spiral
+    video at the last step; --render_only --render_test (PSNRs equal to the
+    training run's) and --render_factor 4; then timed eager pool steps and
+    two graphed pool windows (Trainer.run_steps_pool blocks of 16, held to
+    the graph gate), and one test view rendered on the card and on the
+    CPU's plain path from the same rays, held by JAX_VIEW_*_TOL. K2, K6
+    and K5 (every TV step) must launch on it, K1, K3 and K4 not;
+ 6. bench: the line of `python -m hashnerf_torch.bench` for the flagship
     and for BENCH_PARITY=1;
- 6. prints one line {"kernels": [...]} with each kernel's launches on the
-    main paths and the blender path (graph replays included), error, times
-    and bound, the total seconds and the card, and as the last line
-    {"ok": true, "device": {...}}.
+ 7. prints one line {"kernels": [...]} with each kernel's launches on the
+    main paths, the blender path and the llff path (graph replays
+    included), error, times and bound, the total seconds and the card, and
+    as the last line {"ok": true, "device": {...}}.
 
 Any failed check raises, and the script exits non-zero without the last
 line. It exits non-zero at once when no CUDA device is present or when
 hashnerf_torch cannot be imported (a directory holding only this script).
 `--profile` adds a torch.profiler breakdown of three eager steps without TV
-of each path, of one graphed block of each window, and of three chair
-steps with TV on the blender set.
+of each path and of the llff pool steps, of one graphed block of each
+window, and of three chair steps with TV on the blender set.
 """
 from __future__ import annotations
 
@@ -180,6 +196,7 @@ KERNEL_INFO = {
     },
 }
 # What phase_main_path runs and requires of each main path:
+# - name: its key here (the graph gate's floors are per path);
 # - flags: added to configs/chair.txt;
 # - kernels: each must launch on the path (K1 and K4 keep the sorted
 #   contract, which no path calls since K5; K3 is on no path since K6:
@@ -199,17 +216,16 @@ KERNEL_INFO = {
 #   without TV starts at GRAPH_NO_TV_START. Each graphed window runs
 #   Trainer.run_steps blocks of GRAPH_BLOCK steps (CUDA graph replays), must
 #   keep the eager window's keeps and K5 rule and launch the path's kernels,
-#   and its first block must equal GRAPH_BLOCK eager steps from the same
-#   state and draws within the runs' own spread (GATE_*).
+#   and must pass the graph gate (graphed_window, GATE_*).
 PATHS = {
-    "chair": {"flags": [], "kernels": ("hash_encode_fwd", "hash_encode_bwd",
-                                       "segment_accumulate_k5"),
+    "chair": {"name": "chair", "flags": [],
+              "kernels": ("hash_encode_fwd", "hash_encode_bwd", "segment_accumulate_k5"),
               "tv_start": None, "no_tv_start": 1001, "keeps_tv": None, "keeps_no_tv": None,
               "k5_no_tv": False, "eval_cull": None, "graph_tv_start": 48},
-    "packed": {"flags": PACKED_FLAGS, "kernels": ("segment_accumulate_k5",),
+    "packed": {"name": "packed", "flags": PACKED_FLAGS, "kernels": ("segment_accumulate_k5",),
                "tv_start": None, "no_tv_start": 1001, "keeps_tv": None, "keeps_no_tv": None,
                "k5_no_tv": True, "eval_cull": None, "graph_tv_start": 48},
-    "flagship": {"flags": FLAGSHIP_FLAGS, "kernels": ("segment_accumulate_k5",),
+    "flagship": {"name": "flagship", "flags": FLAGSHIP_FLAGS, "kernels": ("segment_accumulate_k5",),
                  "tv_start": 256, "no_tv_start": 1024, "keeps_tv": (0.5, 0.375),
                  "keeps_no_tv": FLAGSHIP_KEEP, "k5_no_tv": True, "eval_cull": EVAL_CULL_FLAGS,
                  "graph_tv_start": 256},
@@ -1226,19 +1242,24 @@ def phase_packed_encode(torch, np, kept_pts):
 # Phase 3
 # --------------------------------------------------------------------------- #
 
-def timed_steps(torch, trainer, n: int, keeps=None):
+def timed_steps(torch, trainer, n: int, keeps=None, batches=None):
     """Host-clock seconds of n train steps (ray sampling included), each
     closed by a synchronize; returns (seconds, losses). Appends each step's
-    culling keep fractions (or None) to `keeps` when given."""
+    culling keep fractions (or None) to `keeps` when given. `batches()`
+    gives each step's batch (default: one training image's pixels, the
+    images in turn)."""
     args, sc = trainer.args, trainer.scene
     ts, losses = [], []
     for _ in range(n):
         img_i = int(sc.i_train[trainer.global_step % len(sc.i_train)])
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        batch = trainer.sample_image(
-            img_i, args.N_rand, precrop=trainer.global_step + 1 < args.precrop_iters
-        )
+        if batches is None:
+            batch = trainer.sample_image(
+                img_i, args.N_rand, precrop=trainer.global_step + 1 < args.precrop_iters
+            )
+        else:
+            batch = batches()
         m = trainer.step(batch)
         loss = float(m["loss"])
         ts.append(time.perf_counter() - t0)
@@ -1414,39 +1435,68 @@ def row_gate(got, want):
     return bad, worst
 
 
-# The graph-against-eager gate. Two eager runs of 16 steps from one state
-# and one generator state already leave entries outside the atomics' row
-# gate (row_gate) once RAdam has normalised 16 steps of near-cancelling
-# table gradients: on an H100, 0.004-0.022% of the chair's entries and
-# 0.0006-4.1% of the packed path's, all in the tables (PERF.md §6). The
-# flagship's runs leave 0-3 entries outside. So each group of state
-# (GATE_GROUPS: the tables, the MLP weights, the occupancy grid) is held to
-# its own spread in this run: two graphed runs, each against an eager run
-# of its own, and the fewer entries outside the row gate of the two pairs
-# at most GATE_SPREAD_FACTOR times the more of the eager pair and the
-# graphed pair (at least 1 entry). The last loss must be within
-# GATE_LOSS_RTOL or 10x the pairs' loss differences. A wrong learning rate,
-# draw, keep budget or grid update moves most entries of its group.
+# The graph-against-eager gate, in two parts.
+# 1. One step from one state and generator state, eagerly and as a 1-step
+#    block of a fresh capture: the loss within GATE_LOSS_RTOL, every MLP
+#    gradient bit-equal (their GEMMs and the encode's forward are
+#    deterministic), every table gradient inside the atomics' row gate
+#    (row_gate: K5 and K6 add in no fixed order). This holds the captured
+#    step to the eager step at its capture.
+# 2. GRAPH_BLOCK steps twice eagerly and twice as one run_steps block (the
+#    step graph replayed, and the grid-update graph under occupancy), each
+#    from that state: in each group of state (GATE_GROUPS), the fewer
+#    entries outside the row gate of the two graph-vs-eager pairs at most
+#    the group's allowance, the larger of GATE_SPREAD_FACTOR x the more of
+#    an eager pair and a graphed pair (at least 1) and the floor,
+#    GATE_FLOOR_MARGIN x GATE_CROSS_MODE's share of the group's entries
+#    (the path's own for the tables); the last loss within
+#    GATE_LOSS_FLOOR of itself or 10x the pairs' loss differences. This
+#    holds what one step cannot show: the learning rate, draws, keep
+#    budgets and grid updates of the later replays.
+# The floors: each mode repeats its own order of atomics, so two runs of
+# one mode agree better than the two modes do, and the within-mode spread
+# alone stopped correct blocks (4 entries outside against 0 and 0; 149
+# against 18). On the flagship a last-bit difference can also move a fine
+# sample into another grid cell and change a culled kept set: 2 of its 30
+# windows measured left up to 34,221 table entries, 4,085 grid entries and
+# a last loss 3.3e-4 of itself apart, the same in both pairs, with the runs
+# of each mode 0-5 entries apart. GATE_CROSS_MODE holds the largest share
+# of a group's entries that the two modes left outside (the smaller pair)
+# in 30 windows of each path, measured by chip_diag.py gate-spread on an
+# H100 80GB HBM3 at 700 W (PERF.md §6): per path for the tables, whose
+# spread differs 300-fold between paths, the largest of any path for the
+# MLPs, the grid and the last loss. Each floor is GATE_FLOOR_MARGIN x that;
+# the faults that chip_smoke_faults.py plants move far more (an lr frozen
+# at capture: 54% of the chair's table entries; a skipped grid-update
+# replay: 10% of the grid).
 GATE_GROUPS = {
     "tables": lambda tr: tr.state.table_parameters(),
     "mlp": lambda tr: tr.state.net_parameters(),
     "grid": lambda tr: [tr.occ_grid] if tr.occ_grid is not None else [],
 }
 GATE_SPREAD_FACTOR = 3
-GATE_LOSS_RTOL = 1e-4
+GATE_CROSS_MODE = {
+    "tables": {"chair": 2114 / 16777216, "packed": 1076573 / 29412064,
+               "flagship": 34221 / 29412064, "llff": 89287 / 16777216},
+    "mlp": 7 / 9344, "grid": 4085 / 2097152, "loss": 3.31e-4,
+}
+GATE_FLOOR_MARGIN = 4
+GATE_LOSS_FLOOR = GATE_FLOOR_MARGIN * GATE_CROSS_MODE["loss"]  # of the last loss
+GATE_LOSS_RTOL = 1e-4  # the one step's loss
 
 
-def graphed_window(torch, trainer, start: int, window: str, spec, profile: bool):
-    """From global_step `start`: GRAPH_BLOCK eager steps twice, and the same
-    steps twice as a run_steps block (CUDA graphs: the capture, then
-    replays), each from the same state and generator state, held to the
-    gate above. Then GRAPH_TIMED_BLOCKS[window] timed blocks, each closed
-    by a host read. Every graphed step must cull at the window's keeps."""
+def graphed_window(torch, trainer, start: int, window: str, spec, profile: bool,
+                   pool=None, offset: int = 0):
+    """From global_step `start`: the two-part gate above, then
+    GRAPH_TIMED_BLOCKS[window] timed blocks, each closed by a host read.
+    Steps take their rays from the images (run_steps, sample_batch) or,
+    given the ray pool, from its rows at `offset` on (run_steps_pool,
+    sample_pool). Every graphed step must cull at the window's keeps."""
     from hashnerf_torch import kernels
 
     args, n = trainer.args, GRAPH_BLOCK
     want_keep = spec["keeps_tv" if window == "tv" else "keeps_no_tv"]
-    precrop = start + 1 < args.precrop_iters
+    precrop = pool is None and start + 1 < args.precrop_iters
     snap = [t.detach().clone() for t in trainer.training_state()]
     rng, ready = trainer.generator.get_state(), trainer._occ_ready
 
@@ -1457,40 +1507,82 @@ def graphed_window(torch, trainer, start: int, window: str, spec, profile: bool)
         trainer.generator.set_state(rng)
         trainer.global_step, trainer._occ_ready = start, ready
 
-    def run(graphed: bool):
+    def eager(k: int):
+        for j in range(k):
+            m = trainer.step(trainer.sample_batch(precrop) if pool is None
+                             else trainer.sample_pool(pool, offset + j * args.N_rand, args.N_rand))
+        return m
+
+    def graphed(k: int, at: int = offset):
+        if pool is None:
+            return trainer.run_steps(k, block_size=k, precrop=precrop)
+        return trainer.run_steps_pool(pool, at, k, block_size=k)
+
+    # part 1: one step; the fresh capture's gradients are the tensors its
+    # replays write (a cached graph's may not be the ones p.grad holds)
+    from_snapshot()
+    b, use_tv, occ_mode, keep = next(trainer._block_plan(n, n))
+    require(b == n, f"window from step {start} does not start a block of {n}: {b}")
+
+    def one_step(graph: bool):
         from_snapshot()
-        if graphed:
-            m = trainer.run_steps(n, block_size=n, precrop=precrop)
+        if graph:
+            trainer._graphs = None
+            t0 = time.perf_counter()
+            m = trainer._run_block(1, use_tv, occ_mode, precrop, keep,
+                                   *(() if pool is None else (pool, offset)))
+            torch.cuda.synchronize()
+            capture_s[0] = time.perf_counter() - t0
         else:
-            for _ in range(n):
-                m = trainer.step(trainer.sample_batch(precrop))
+            m = eager(1)
+        return float(m["loss"]), {g: [p.grad.detach().clone() for p in GATE_GROUPS[g](trainer)]
+                                  for g in ("tables", "mlp")}
+
+    capture_s = [0.0]
+    e_loss, e_grads = one_step(False)
+    g_loss, g_grads = one_step(True)
+    mlp_diff = sum(int((a != b).sum()) for a, b in zip(g_grads["mlp"], e_grads["mlp"]))
+    table_out, table_worst = row_gate(g_grads["tables"], e_grads["tables"])
+    step1 = {"loss": [e_loss, g_loss], "mlp_grad_entries_differing": mlp_diff,
+             "table_grad_outside_row_gate": table_out, "table_grad_max_abs_diff": table_worst}
+    require(abs(g_loss - e_loss) <= GATE_LOSS_RTOL * abs(e_loss) and mlp_diff == 0 and table_out == 0,
+            f"graphed block from step {start} is not the eager step at its capture (one step): {step1}")
+    del e_grads, g_grads
+
+    # part 2: GRAPH_BLOCK steps
+    def run(graph: bool):
+        from_snapshot()
+        m = graphed(n) if graph else eager(n)
         state = {g: [t.detach().clone() for t in of(trainer)] for g, of in GATE_GROUPS.items()}
         return state, float(m["loss"])
 
-    eager, eager_loss = run(False)
+    eager1, eager_loss = run(False)
     eager2, eager2_loss = run(False)
-    t0 = time.perf_counter()
-    graph, graph_loss = run(True)  # the capture, then the replays
-    first_block_s = time.perf_counter() - t0
+    graph1, graph_loss = run(True)
     graph2, graph2_loss = run(True)
     del snap
-    pairs = {"graph_vs_eager": (graph, eager), "graph2_vs_eager2": (graph2, eager2),
-             "eager_vs_eager": (eager2, eager), "graph_vs_graph": (graph2, graph)}
-    gate = {"last_loss": {"graph": graph_loss, "eager": eager_loss, "eager_again": eager2_loss,
+    pairs = {"graph_vs_eager": (graph1, eager1), "graph2_vs_eager2": (graph2, eager2),
+             "eager_vs_eager": (eager2, eager1), "graph_vs_graph": (graph2, graph1)}
+    gate = {"one_step": step1,
+            "last_loss": {"graph": graph_loss, "eager": eager_loss, "eager_again": eager2_loss,
                           "graph_again": graph2_loss}}
     for group in GATE_GROUPS:
-        if not eager[group]:
+        if not eager1[group]:
             continue
-        g = gate[group] = {"entries": sum(t.numel() for t in eager[group])}
+        g = gate[group] = {"entries": sum(t.numel() for t in eager1[group])}
         for name, (a, b) in pairs.items():
             bad, worst = row_gate(a[group], b[group])
             g[name] = {"outside_row_gate": bad, "max_abs_diff": worst}
         out = lambda name: g[name]["outside_row_gate"]
-        g["allowed"] = GATE_SPREAD_FACTOR * max(out("eager_vs_eager"), out("graph_vs_graph"), 1)
+        share = GATE_CROSS_MODE[group]
+        share = share[spec["name"]] if isinstance(share, dict) else share
+        g["floor"] = math.ceil(GATE_FLOOR_MARGIN * share * g["entries"])
+        g["allowed"] = max(GATE_SPREAD_FACTOR * max(out("eager_vs_eager"), out("graph_vs_graph"), 1),
+                           g["floor"])
         require(min(out("graph_vs_eager"), out("graph2_vs_eager2")) <= g["allowed"],
                 f"graphed block from step {start} is not the {n} eager steps ({group}): {gate}")
-    del pairs, eager, eager2, graph, graph2
-    loss_tol = max(GATE_LOSS_RTOL * abs(eager_loss),
+    del pairs, eager1, eager2, graph1, graph2
+    loss_tol = max(GATE_LOSS_FLOOR * abs(eager_loss),
                    10 * max(abs(eager2_loss - eager_loss), abs(graph2_loss - graph_loss)))
     require(min(abs(graph_loss - eager_loss), abs(graph2_loss - eager2_loss)) <= loss_tol,
             f"graphed block from step {start}: last loss off the eager steps': {gate}")
@@ -1500,10 +1592,10 @@ def graphed_window(torch, trainer, start: int, window: str, spec, profile: bool)
     torch.cuda.reset_peak_memory_stats()
     c0 = kernels.launch_counts()
     ts, losses = [], [graph2_loss]
-    for _ in range(GRAPH_TIMED_BLOCKS[window]):
+    for i in range(GRAPH_TIMED_BLOCKS[window]):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        m = trainer.run_steps(n, block_size=n, precrop=precrop)
+        m = graphed(n, offset + (i + 1) * n * args.N_rand)
         losses.append(float(m["loss"]))
         ts.append(time.perf_counter() - t0)
         keeps.append(trainer.last_occ_keep)
@@ -1513,8 +1605,8 @@ def graphed_window(torch, trainer, start: int, window: str, spec, profile: bool)
     require(all(math.isfinite(x) for x in losses), f"graphed blocks from step {start}: non-finite loss")
     step_s = statistics.median(ts) / n
     rec = {
-        "start": start, "block": n, "precrop": precrop, "gate": gate,
-        "first_block_s_with_capture": first_block_s,
+        "start": start, "block": n, "precrop": precrop, "pool_offset": None if pool is None else offset,
+        "gate": gate, "one_step_s_with_capture": capture_s[0],
         "block_ms": [t * 1e3 for t in ts], "step_ms_graphed": step_s * 1e3,
         "train_rays_per_s_graphed": args.N_rand / step_s, "keeps": keeps, "losses": losses,
         "launches_per_step": {k: (c1[k] - c0[k]) / (n * len(ts)) for k in c0},
@@ -1524,8 +1616,9 @@ def graphed_window(torch, trainer, start: int, window: str, spec, profile: bool)
     if profile:
         from torch.profiler import ProfilerActivity, profile as trace
 
+        at = offset + (GRAPH_TIMED_BLOCKS[window] + 1) * n * args.N_rand
         with trace(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
-            float(trainer.run_steps(n, block_size=n, precrop=precrop)["loss"])
+            float(graphed(n, at)["loss"])
         rows = kernel_times(p)
         busy_s = sum(r[0] for r in rows) / 1e6 / n
         rec.update({
@@ -1537,7 +1630,7 @@ def graphed_window(torch, trainer, start: int, window: str, spec, profile: bool)
     return rec
 
 
-def profile_steps(torch, trainer, n: int, step_s: float):
+def profile_steps(torch, trainer, n: int, step_s: float, batches=None):
     """torch.profiler over n steps: device time by kernel (device-side
     events only, so operator ranges are not counted twice), and busy share.
 
@@ -1547,10 +1640,10 @@ def profile_steps(torch, trainer, n: int, step_s: float):
     printed beside it."""
     from torch.profiler import ProfilerActivity, profile
 
-    timed_steps(torch, trainer, 1)
+    timed_steps(torch, trainer, 1, batches=batches)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
         t0 = time.perf_counter()
-        timed_steps(torch, trainer, n)
+        timed_steps(torch, trainer, n, batches=batches)
         wall = time.perf_counter() - t0
     rows = kernel_times(p)
     busy_s = sum(r[0] for r in rows) / 1e6 / n
@@ -1655,8 +1748,9 @@ def _psnr_pickle(d: str):
         return pickle.load(f)
 
 
-def _check_run(np, trainer, expdir: str, n: int, n_test: int, hw, stamps, what: str):
-    """The gates of a training run on the blender set: finite losses that
+def _check_run(np, trainer, expdir: str, n: int, n_test: int, hw, stamps, what: str,
+               n_frames: int = BLENDER_VIDEO_FRAMES):
+    """The gates of a training run on a set from disk: finite losses that
     fall, a checkpoint, the test set's figures and PSNR pickle, and the
     spiral video of the demo path (rgb and disparity)."""
     from hashnerf_torch.utils.png import read_png
@@ -1676,7 +1770,7 @@ def _check_run(np, trainer, expdir: str, n: int, n_test: int, hw, stamps, what: 
     for kind in ("rgb", "disp"):
         base = os.path.join(expdir, "{}_spiral_{:06d}_{}".format(trainer.args.expname, n, kind))
         path, frames, shape = video_frames(base)
-        require(frames == BLENDER_VIDEO_FRAMES and shape == (H, W),
+        require(frames == n_frames and shape == (H, W),
                 f"{what}: {path} has {frames} frames of {shape}")
         videos[kind] = os.path.basename(path)
     t_ckpt = stamps.at("Saved checkpoints")
@@ -1864,6 +1958,266 @@ def phase_blender(torch, np, smi: str, profile: bool):
         shutil.rmtree(workdir, ignore_errors=True)
 
 
+# The llff phase: an LLFF-format set of fern's layout and size (20 frames;
+# poses_bounds.npy with fern's 3024 x 4032 hwf and a forward-facing rig;
+# images_8 PNGs of 378 x 504) written by llff_set from the procedural tracer,
+# and configs/fern.txt trained on it through run_nerf.main, with ray batching
+# and NDC, for LLFF_ITERS steps (of 50,000), outputs at the last; then
+# render-only, a graphed pool window with TV and one without, timed eager and
+# graphed steps, and one test view on the card against the CPU.
+LLFF_FRAMES = 20
+LLFF_HW_FULL = (3024, 4032)
+LLFF_FOCAL_FULL = 3260.0  # about fern's
+LLFF_FACTOR = 8
+LLFF_NEAR_DEPTH = 4.0 / 3.0  # the loader puts the nearest bound there (bd_factor 0.75)
+LLFF_SCENE_DEPTH = 3.5  # of the tracer's origin before the rig: its spheres at 2.4-4.6
+LLFF_ITERS = 300
+LLFF_VIDEO_FRAMES = 120  # the spiral path
+LLFF_SPEC = {"name": "llff", "keeps_tv": None, "keeps_no_tv": None}  # no culling
+LLFF_GRAPH_TV_START = 320
+LLFF_CPU_CHUNK = 4096  # rays a chunk of the CPU render (its memory)
+
+
+def llff_set(np, root: str, factor: int = LLFF_FACTOR):
+    """Write an LLFF set of fern's layout under root, its frames in
+    images_{factor} at fern's size / factor, and return them (uint8, image
+    order). The rig: LLFF_FRAMES cameras on a 5 x 4 grid 0.3
+    wide, each turned by up to 2 degrees, written in LLFF's [down, right,
+    back] axes, with bounds (1.33-1.47, 4.8-5.2 after the loader's scaling)
+    around the scene. The frames are the procedural tracer's "multi" scene
+    (no supersampling) seen from the poses the loader makes of the file
+    (axis fix, bd_factor scaling, recentering), its origin LLFF_SCENE_DEPTH
+    before the rig: frames of zeros are written and loaded once to get
+    those poses, then overwritten."""
+    from hashnerf_torch.data.llff import load_llff_scene
+    from hashnerf_torch.data.synthetic import _render_view
+    from hashnerf_torch.utils.png import write_png
+
+    rng = np.random.default_rng(0)
+    n, f = LLFF_FRAMES, factor
+    H, W = LLFF_HW_FULL[0] // f, LLFF_HW_FULL[1] // f
+    scale = 1.7  # the file's units: any scale loads to the same poses
+    rows = []
+    for k in range(n):
+        ax, ay = np.radians(rng.uniform(-2.0, 2.0, 2))
+        rx = np.array([[1, 0, 0], [0, np.cos(ax), -np.sin(ax)], [0, np.sin(ax), np.cos(ax)]])
+        ry = np.array([[np.cos(ay), 0, np.sin(ay)], [0, 1, 0], [-np.sin(ay), 0, np.cos(ay)]])
+        t = np.array([(k % 5 - 2) * 0.075, (k // 5 - 1.5) * 0.075, rng.uniform(-0.02, 0.02)])
+        c2w = np.concatenate([rx @ ry, t[:, None]], 1) * [1, 1, 1, scale]  # NeRF axes
+        llff = np.concatenate([-c2w[:, 1:2], c2w[:, 0:1], c2w[:, 2:3], c2w[:, 3:4]], 1)
+        hwf = np.array([[LLFF_HW_FULL[0]], [LLFF_HW_FULL[1]], [LLFF_FOCAL_FULL]])
+        bds = scale * np.array([LLFF_NEAR_DEPTH * (1.0 if k == 0 else rng.uniform(1.0, 1.1)),
+                                rng.uniform(4.8, 5.2)])
+        rows.append(np.concatenate([np.concatenate([llff, hwf], 1).ravel(), bds]))
+    os.makedirs(os.path.join(root, f"images_{f}"))
+    np.save(os.path.join(root, "poses_bounds.npy"), np.stack(rows))
+    paths = [os.path.join(root, f"images_{f}", f"IMG_{k:04d}.png") for k in range(n)]
+    for p in paths:
+        write_png(p, np.zeros((H, W, 3), np.uint8))
+    sc = load_llff_scene(root, factor=f)
+    frames = []
+    for pose, p in zip(sc.poses, paths):
+        c2w = pose.astype(np.float64)
+        c2w[2, 3] += LLFF_SCENE_DEPTH  # the camera back, so the scene in front
+        img = _render_view(H, W, sc.K, c2w, "multi", 1)
+        frames.append(np.clip(np.round(img * 255.0), 0, 255).astype(np.uint8))
+        write_png(p, frames[-1])
+    return np.stack(frames)
+
+
+def render_on_rays(torch, state, rays, bbox, cfg, near: float, far: float, chunk: int):
+    """rgb of render_rays over (rays_o, rays_d, viewdirs) in chunks, as
+    render() runs them, on the device of `state`, from rays made once."""
+    from hashnerf_torch.models.factory import query_fn
+    from hashnerf_torch.render.renderer import render_rays
+
+    dev = bbox.device
+    out = []
+    with torch.no_grad():
+        for s in range(0, rays[0].shape[0], chunk):
+            o, d, v = (r[s:s + chunk].to(dev) for r in rays)
+            out.append(render_rays(state, query_fn, o, d, v, near, far, bbox, cfg)["rgb_map"].cpu())
+    return torch.cat(out)
+
+
+def phase_llff(torch, np, smi: str, profile: bool):
+    """The LLFF path end to end (see LLFF_*): write the set, check the
+    loader against the frames written, train configs/fern.txt with ray
+    batching and NDC, render only, then the pool windows and one NDC view
+    on the card against the CPU; K2, K6 and K5 (every TV step) must launch
+    on it and K1, K3 and K4 must not."""
+    import itertools
+
+    from hashnerf_torch import kernels
+    from hashnerf_torch.data.llff import load_llff_scene
+    from hashnerf_torch.models.factory import NGPState
+    from hashnerf_torch.ops.rays import get_ndc_rays, get_rays
+    from hashnerf_torch.run_nerf import main as run_nerf
+    from hashnerf_torch.utils.png import read_png
+
+    t_phase = time.perf_counter()
+    workdir = tempfile.mkdtemp(prefix="hashnerf_torch_llff_")
+    try:
+        data, logs = os.path.join(workdir, "fern"), os.path.join(workdir, "logs")
+        t0 = time.perf_counter()
+        frames = llff_set(np, data)
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        sc = load_llff_scene(data, factor=LLFF_FACTOR)
+        load_s = time.perf_counter() - t0
+        png_diffs = int((sc.images != (frames / 255.0).astype(np.float32)).sum())
+        require(png_diffs == 0, f"llff: {png_diffs} loaded values differ from the frames written")
+        hw = (sc.H, sc.W)
+        require(hw == (378, 504) and sc.ndc and (sc.near, sc.far) == (0.0, 1.0),
+                f"llff: the loader gave {hw}, ndc {sc.ndc}, bounds {(sc.near, sc.far)}")
+        n_test = len(sc.i_test)
+        require(n_test == 3, f"llff: {n_test} test views (llffhold 8 of 20 frames)")
+        del sc, frames
+
+        base = ["--config", os.path.join(ROOT, "configs", "fern.txt"), "--datadir", data,
+                "--basedir", logs, "--device", DEV]
+        n = LLFF_ITERS
+        kernels.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        trainer, stamps = _run(run_nerf, base + ["--N_iters", str(n), "--i_print", "20", "--no_reload",
+                                                 "--i_weights", str(n), "--i_testset", str(n),
+                                                 "--i_video", str(n)])
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        c_train = kernels.launch_counts()
+        run_peak = torch.cuda.max_memory_allocated() / 2**30
+        args = trainer.args
+        require(trainer.render_cfg.ndc and not args.no_batching and trainer.global_step == n,
+                f"llff: ndc {trainer.render_cfg.ndc}, no_batching {args.no_batching}, "
+                f"step {trainer.global_step}")
+        expdir = os.path.join(logs, args.expname)
+        fern = _check_run(np, trainer, expdir, n, n_test, hw, stamps, "fern", LLFF_VIDEO_FRAMES)
+        # every step had TV (steps <= 1000): K5, its backward, each step
+        require(c_train["segment_accumulate_k5"] >= n,
+                f"llff: K5 launched {c_train['segment_accumulate_k5']} times in {n} TV steps")
+
+        t0 = time.perf_counter()
+        r, _ = _run(run_nerf, base + ["--N_iters", str(n), "--render_only", "--render_test"])
+        torch.cuda.synchronize()
+        render_only_s = time.perf_counter() - t0
+        require(r.global_step == n, f"llff render only restored step {r.global_step}")
+        only_psnrs = _psnr_pickle(os.path.join(expdir, "renderonly_test_{:06d}".format(n)))
+        psnr_diff = max(abs(x - y) for x, y in zip(only_psnrs, fern["test_psnrs"]))
+        require(len(only_psnrs) == n_test and psnr_diff <= PSNR_MATCH_DB,
+                f"llff render-only PSNRs {only_psnrs} vs training's {fern['test_psnrs']}")
+        del r
+        r, _ = _run(run_nerf, base + ["--N_iters", str(n), "--render_only", "--render_factor", "4"])
+        pathdir = os.path.join(expdir, "renderonly_path_{:06d}".format(n))
+        small = {read_png(os.path.join(pathdir, "{:03d}.png".format(i))).shape
+                 for i in range(LLFF_VIDEO_FRAMES)}
+        require(small == {(hw[0] // 4, 2 * (hw[1] // 4), 3)}, f"llff render_factor 4 figures {small}")
+        del r
+
+        # the ray pool on the card, then eager and graphed pool steps
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pool = trainer.build_ray_pool()
+        torch.cuda.synchronize()
+        pool_s = time.perf_counter() - t0
+        pool_rows, pool_gib = pool.shape[0], pool.numel() * pool.element_size() / 2**30
+        rows = itertools.count(0, args.N_rand)
+        batches = lambda: trainer.sample_pool(pool, next(rows), args.N_rand)
+        torch.cuda.reset_peak_memory_stats()
+        c0 = kernels.launch_counts()
+        tv_s, tv_losses = timed_steps(torch, trainer, 10, batches=batches)  # TV on
+        c1 = kernels.launch_counts()
+        trainer.global_step = 1001
+        notv_s, notv_losses = timed_steps(torch, trainer, 20, batches=batches)
+        c2 = kernels.launch_counts()
+        train_peak = torch.cuda.max_memory_allocated() / 2**30
+        require(all(np.isfinite(tv_losses + notv_losses)), "llff: non-finite timed loss")
+        prof = None
+        if profile:
+            prof = {"path": "llff", **profile_steps(torch, trainer, 3, statistics.median(notv_s),
+                                                    batches=batches)}
+        at = next(rows)
+        graphed = {"tv": graphed_window(torch, trainer, LLFF_GRAPH_TV_START, "tv", LLFF_SPEC, profile,
+                                        pool=pool, offset=at),
+                   "no_tv": graphed_window(torch, trainer, GRAPH_NO_TV_START, "no_tv", LLFF_SPEC,
+                                           profile, pool=pool, offset=at)}
+        for window, k5 in (("tv", True), ("no_tv", False)):
+            per = graphed[window]["launches_per_step"]
+            require(per["hash_encode_fwd"] > 0 and per["hash_encode_bwd"] > 0
+                    and (per["segment_accumulate_k5"] >= 1) == k5,
+                    f"llff graphed {window} launches a step: {per}")
+
+        # one test view: the peak memory of a render, then the same rays on
+        # the card (K2) and through the CPU's plain path
+        sc = trainer.scene
+        c2w = sc.poses[sc.i_test[0]]
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        trainer.render_image(c2w)
+        torch.cuda.synchronize()
+        view_s = time.perf_counter() - t0
+        view_peak = torch.cuda.max_memory_allocated() / 2**30
+        cfg = trainer.render_cfg.eval_mode()
+        ro, rd = get_rays(sc.H, sc.W, torch.as_tensor(sc.K), torch.as_tensor(c2w[:3, :4]))
+        vd = (rd / torch.linalg.norm(rd, dim=-1, keepdim=True)).reshape(-1, 3)
+        ro, rd = get_ndc_rays(sc.H, sc.W, float(sc.K[0][0]), 1.0, ro, rd)
+        rays = (ro.reshape(-1, 3), rd.reshape(-1, 3), vd)
+        rgb_card = render_on_rays(torch, trainer.state, rays, trainer.bbox, cfg, sc.near, sc.far,
+                                  args.chunk)
+        cpu_state = NGPState(trainer.model_cfg, device="cpu")
+        cpu_state.load_state_dict({k: v.cpu() for k, v in trainer.state.state_dict().items()})
+        t0 = time.perf_counter()
+        rgb_cpu = render_on_rays(torch, cpu_state, rays, trainer.bbox.cpu(), cfg, sc.near, sc.far,
+                                 LLFF_CPU_CHUNK)
+        cpu_view_s = time.perf_counter() - t0
+        ok, view_err = jax_view_close(rgb_card.numpy(), rgb_cpu.numpy())
+        require(ok and rgb_card.shape == (sc.H * sc.W, 3), f"llff: card view against the CPU's: {view_err}")
+        del cpu_state, pool
+
+        counts = kernels.launch_counts()
+        for name in ("hash_encode_fwd", "hash_encode_bwd", "segment_accumulate_k5"):
+            require(counts[name] > 0, f"kernel {name} was not launched on the llff path")
+        for name in OFF_PATH:
+            require(counts[name] == 0, f"kernel {name} was launched on the llff path")
+        per_step = lambda a, b, k: {key: (b[key] - a[key]) / k for key in a}
+        phase_s = time.perf_counter() - t_phase
+        rec = {
+            "phase": "llff", "card": smi, "frames": LLFF_FRAMES, "hw": list(hw), "iters": n,
+            "write_s": write_s, "load_s": load_s, "png_diffs": png_diffs, "train_s": train_s,
+            "print_iters": [h[0] for h in trainer.history], "fern": fern,
+            "test_psnr_mean": float(np.mean(fern["test_psnrs"])),
+            "render_s_per_view": fern["testset_s_per_view"], "video_s": fern["video_s"],
+            "render_only_s": render_only_s, "render_only_psnr_max_diff_db": psnr_diff,
+            "pool_rows": pool_rows, "pool_gib": pool_gib, "pool_build_s": pool_s,
+            "step_ms_tv": [t * 1e3 for t in tv_s], "step_ms_no_tv": [t * 1e3 for t in notv_s],
+            "train_rays_per_s_tv": args.N_rand / statistics.median(tv_s),
+            "train_rays_per_s_no_tv": args.N_rand / statistics.median(notv_s),
+            "launches_per_step_tv": per_step(c0, c1, len(tv_s)),
+            "launches_per_step_no_tv": per_step(c1, c2, len(notv_s)),
+            "graphed": graphed,
+            "train_rays_per_s_graphed_tv": graphed["tv"]["train_rays_per_s_graphed"],
+            "train_rays_per_s_graphed_no_tv": graphed["no_tv"]["train_rays_per_s_graphed"],
+            "view_s": view_s, "cpu_view_s": cpu_view_s, "card_vs_cpu_view": view_err,
+            "peak_mem_gib_run": run_peak, "peak_mem_gib_training": train_peak,
+            "peak_mem_gib_view": view_peak, "launches_in_training": c_train, "launches": counts,
+            "phase_s": phase_s,
+        }
+        emit(rec)
+        if prof is not None:
+            emit(prof)
+        shown = [("write_s", write_s), ("load_s", load_s), ("train_s", train_s),
+                 ("eager rays/s TV", rec["train_rays_per_s_tv"]),
+                 ("graphed rays/s TV", rec["train_rays_per_s_graphed_tv"]),
+                 ("graphed rays/s no TV", rec["train_rays_per_s_graphed_no_tv"]),
+                 ("test PSNR dB (sign of life)", rec["test_psnr_mean"]),
+                 ("render s per 378x504 view", rec["render_s_per_view"]), ("video_s", rec["video_s"]),
+                 ("pool GiB", pool_gib), ("view peak GiB", view_peak), ("phase_s", phase_s)]
+        print("llff: " + "; ".join(f"{k} {v:.6g} [{smi}]" for k, v in shown), flush=True)
+        return rec
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+
+
 def phase_bench(torch):
     """The line of `python -m hashnerf_torch.bench`, for the flagship and
     for BENCH_PARITY=1 (the chair step), run in this process."""
@@ -1919,6 +2273,8 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     blender = phase_blender(torch, np, dev["smi"], opts.profile)
     torch.cuda.empty_cache()
+    llff = phase_llff(torch, np, dev["smi"], opts.profile)
+    torch.cuda.empty_cache()
     benches = phase_bench(torch)
 
     fine = packed["shapes"]["fine_slabs"]
@@ -1932,6 +2288,7 @@ def main(argv=None) -> int:
         k = kern[name]
         by_path = {p: rec["launches"][name] for p, rec in paths.items()}
         by_path["blender"] = blender["launches"][name]
+        by_path["llff"] = llff["launches"][name]
         lines.append({
             "name": name, "route": "cuda", **info,
             "launches": sum(by_path.values()), "launches_by_path": by_path,
@@ -1946,7 +2303,7 @@ def main(argv=None) -> int:
             json.dump({"device": dev, "kernels": kern, "k4_hot_row": k4_hot, "k5_hot_rows": k5_hot,
                        "packed_kernels": packed, "occupancy": occupancy, "culled_k5": culled_k5,
                        "packed_encode": packed_enc, "main_paths": paths, "blender": blender,
-                       "bench": benches,
+                       "llff": llff, "bench": benches,
                        "seconds": time.perf_counter() - t_start}, f, indent=1)
     print(f"chip_smoke seconds: {time.perf_counter() - t_start:.1f} [{dev['smi']}]", flush=True)
     print(f"card: {dev['smi']}", flush=True)

@@ -1,9 +1,9 @@
 """Pinhole ray generation and the ray-bbox clip.
 
 Counterpart of get_rays / get_rays_at / get_rays_np / get_directions /
-ray_from_directions / ray_aabb_near_far in hashnerf_tpu/ops/rays.py. The
-NDC warp and equirect directions come with the loaders that use them
-(ROADMAP A6).
+ray_from_directions / get_ndc_rays / ray_aabb_near_far in
+hashnerf_tpu/ops/rays.py. The equirect directions come with the st3d
+loader (ROADMAP A6).
 """
 from __future__ import annotations
 
@@ -80,6 +80,41 @@ def ray_from_directions(directions: np.ndarray, c2w: np.ndarray):
     rays_d = rays_d / np.linalg.norm(rays_d, axis=-1, keepdims=True)
     rays_o = np.broadcast_to(c2w[:3, -1], rays_d.shape)
     return rays_o.reshape(-1, 3), rays_d.reshape(-1, 3)
+
+
+def get_ndc_rays(H: int, W: int, focal: float, near: float, rays_o, rays_d):
+    """Warp rays into the NDC space of a forward-facing scene: the ray is
+    moved to the near plane z = -near, then projected. Takes torch tensors
+    (on any device, and inside a captured graph) or numpy arrays, as the JAX
+    function takes jnp or np. Each division is a division of two arrays, as
+    JAX computes it (PyTorch would compute `2 * near / z` as a product with
+    the reciprocal of z); the factors -1 / (W / (2 f)) are Python floats in
+    both."""
+    if isinstance(rays_o, torch.Tensor):
+        stack = torch.stack
+
+        def two_near_over(z):
+            return torch.full_like(z, 2.0 * near) / z
+    else:
+        stack = np.stack
+
+        def two_near_over(z):
+            return 2.0 * near / z
+
+    t = -(near + rays_o[..., 2]) / rays_d[..., 2]
+    rays_o = rays_o + t[..., None] * rays_d
+
+    ox_oz = rays_o[..., 0] / rays_o[..., 2]
+    oy_oz = rays_o[..., 1] / rays_o[..., 2]
+
+    o0 = -1.0 / (W / (2.0 * focal)) * ox_oz
+    o1 = -1.0 / (H / (2.0 * focal)) * oy_oz
+    o2 = 1.0 + two_near_over(rays_o[..., 2])
+
+    d0 = -1.0 / (W / (2.0 * focal)) * (rays_d[..., 0] / rays_d[..., 2] - ox_oz)
+    d1 = -1.0 / (H / (2.0 * focal)) * (rays_d[..., 1] / rays_d[..., 2] - oy_oz)
+    d2 = 1.0 - o2
+    return stack([o0, o1, o2], -1), stack([d0, d1, d2], -1)
 
 
 def ray_aabb_near_far(rays_o, rays_d, bbox, near, far):

@@ -1,7 +1,8 @@
 """Volume renderer: stratified + hierarchical ray-march, chunked rendering.
 
-Counterpart of hashnerf_tpu/render/renderer.py without NDC (ROADMAP A3):
-`aabb_clip` tightens each ray's [near, far] to the bbox; with an occupancy
+Counterpart of hashnerf_tpu/render/renderer.py: `render` warps a
+forward-facing scene's rays to NDC (`ndc`) after taking their view
+directions; `aabb_clip` tightens each ray's [near, far] to the bbox; with an occupancy
 config and a grid, each pass queries only its budget of best-scoring
 samples (render/occupancy.py), globally (in blocks) or per ray;
 `fast_merge` draws the importance samples sorted (JAX then merges them with
@@ -19,7 +20,7 @@ from typing import Callable, Dict, NamedTuple, Optional
 import numpy as np
 import torch
 
-from hashnerf_torch.ops.rays import get_rays, ray_aabb_near_far
+from hashnerf_torch.ops.rays import get_ndc_rays, get_rays, ray_aabb_near_far
 from hashnerf_torch.ops.sampling import (
     merge_sorted, perturb_z_vals, sample_pdf, sorted_uniform, stratified_z_vals,
 )
@@ -39,6 +40,7 @@ class RenderConfig:
     raw_noise_std: float = 0.0
     white_bkgd: bool = False
     lindisp: bool = False
+    ndc: bool = False  # render() warps its rays to NDC (forward-facing scenes)
     use_viewdirs: bool = True
     aabb_clip: bool = False  # off = reference-exact z ranges
     # occupancy culling; None = exact evaluation of every sample
@@ -249,7 +251,9 @@ def render(
     """Chunked rendering of the full (H, W) image seen from c2w.
 
     PyTorch runs eagerly, so the chunks are a host loop (the JAX package
-    scans them in one program). As in JAX, the rays are padded with zero
+    scans them in one program). Under cfg.ndc the rays are warped to NDC
+    with focal K[0][0], after their view directions are taken. As in JAX,
+    the rays are padded with zero
     rays to a whole number of chunks: a culled pass spends its budget over
     the whole chunk. Pass occ_grid to cull at eval too. Runs without
     autograd. Returns (rgb_map, depth_map, acc_map, extras), each shaped
@@ -261,6 +265,8 @@ def render(
     if cfg.use_viewdirs:
         viewdirs = rays_d / torch.linalg.norm(rays_d, dim=-1, keepdim=True)
         viewdirs = viewdirs.reshape(-1, 3)
+    if cfg.ndc:
+        rays_o, rays_d = get_ndc_rays(H, W, float(K[0][0]), 1.0, rays_o, rays_d)
     rays_o = rays_o.reshape(-1, 3)
     rays_d = rays_d.reshape(-1, 3)
     N = rays_o.shape[0]

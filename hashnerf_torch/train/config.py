@@ -235,14 +235,12 @@ def check_supported(args) -> None:
             f"hashnerf_torch: {what} is not ported yet (ROADMAP {row})"
         )
 
-    if args.dataset_type not in ("synthetic", "blender"):
+    if args.dataset_type not in ("synthetic", "blender", "llff"):
         no(f"dataset_type {args.dataset_type!r}", "A6")
     if args.i_embed != 1:
         no(f"--i_embed {args.i_embed} (only the hash grid, 1)", "A1/A2")
     if args.use_viewdirs and args.i_embed_views != 2:
         no(f"--i_embed_views {args.i_embed_views} (only SH, 2)", "A1")
-    if not args.no_batching:
-        no("ray batching across images (set no_batching)", "A6")
     if args.compute_dtype not in (None, "bfloat16", "float16"):
         no(f"--compute_dtype {args.compute_dtype} (only bfloat16 and float16)", "A7.4")
     if (args.num_devices or 0) > 1:

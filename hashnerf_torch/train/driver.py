@@ -1,24 +1,29 @@
 """Training driver: the train step, the Trainer and the training loop.
 
-Counterpart of hashnerf_tpu/train/driver.py for the per-image
-(`no_batching`) path: losses = fine MSE + coarse MSE + entropy sparsity + TV
-while global_step <= 1000, RAdam with two parameter groups and exponential
-LR decay, periodic print / checkpoint / spiral video / test-set figures.
+Counterpart of hashnerf_tpu/train/driver.py: losses = fine MSE + coarse
+MSE + entropy sparsity + TV while global_step <= 1000, RAdam with two
+parameter groups and exponential LR decay, periodic print / checkpoint /
+spiral video / test-set figures. Batches come from one training image at a
+time (`no_batching`) or, by default, from a shuffled pool of every training
+ray on the device (ray batching); on a forward-facing scene (`scene.ndc`)
+the loss warps its rays to NDC.
 Besides the reference-exact step it takes the packed layout (with its own TV),
 `share_fine`, bf16 MLPs, `aabb_clip`, `fast_merge` and occupancy culling
 with its grid's lifecycle: updates every `update_every` steps, culling from
 `warmup_steps` on once the grid holds density, the keep schedule, and the
 eval budgets.
 
-`Trainer.step` runs one step eagerly. `Trainer.run_steps` runs many, in the
-blocks of the JAX package's scanned `run_steps` (`--steps_per_dispatch`):
-each block samples its rays on the device and, on a GPU, replays CUDA
-graphs of the step and of the grid update (train/graphs.py) with no host
-sync inside the block; on the CPU the same block body runs eagerly. Every
-random draw of an eager step (stratified jitter, sigma noise, importance
-samples, TV cuboids and rows, and those of a grid update) can be handed in
-through `TrainDraws` and `OccUpdateDraws`, which is how the tests give the
-port the draws JAX took from its keys.
+`Trainer.step` runs one step eagerly. `Trainer.run_steps` and
+`Trainer.run_steps_pool` run many, in the blocks of the JAX package's
+scanned `run_steps` / `run_steps_pool` (`--steps_per_dispatch`): each block
+samples its rays on the device (from the images, or the next rows of the
+ray pool) and, on a GPU, replays CUDA graphs of the step and of the grid
+update (train/graphs.py) with no host sync inside the block; on the CPU the
+same block body runs eagerly. Every random draw of an eager step
+(stratified jitter, sigma noise, importance samples, TV cuboids and rows,
+and those of a grid update) can be handed in through `TrainDraws` and
+`OccUpdateDraws`, which is how the tests give the port the draws JAX took
+from its keys.
 """
 from __future__ import annotations
 
@@ -34,7 +39,7 @@ from hashnerf_torch import resolve_device
 from hashnerf_torch.data.scene import Scene
 from hashnerf_torch.models.factory import ModelConfig, NGPState, query_fn
 from hashnerf_torch.ops.hash_encoding import HashGridConfig
-from hashnerf_torch.ops.rays import get_rays_at
+from hashnerf_torch.ops.rays import get_ndc_rays, get_rays, get_rays_at
 from hashnerf_torch.render.occupancy import (
     OccupancyConfig, OccUpdateDraws, init_occupancy_grid, update_occupancy_grid,
 )
@@ -83,9 +88,9 @@ def _positive_or_none(v: float) -> Optional[float]:
     return v if v > 0 else None
 
 
-def render_config_from_args(args, lindisp: bool = False) -> RenderConfig:
-    """The JAX package turns aabb_clip off for NDC scenes; the port has no
-    NDC scenes yet (ROADMAP A6)."""
+def render_config_from_args(args, ndc: bool = False, lindisp: bool = False) -> RenderConfig:
+    """The render settings of args; ndc for a forward-facing scene, which
+    turns aabb_clip off (its bbox lies in NDC space)."""
     occupancy = None
     if args.use_occupancy:
         occupancy = OccupancyConfig(
@@ -131,8 +136,9 @@ def render_config_from_args(args, lindisp: bool = False) -> RenderConfig:
         raw_noise_std=args.raw_noise_std,
         white_bkgd=args.white_bkgd,
         lindisp=lindisp,
+        ndc=ndc,
         use_viewdirs=args.use_viewdirs,
-        aabb_clip=args.aabb_clip,
+        aabb_clip=args.aabb_clip and not ndc,
         occupancy=occupancy,
         fast_merge=args.fast_merge,
     )
@@ -165,21 +171,29 @@ def make_optimizer(args, state: NGPState) -> RAdam:
 
 
 def make_loss_fn(args, render_cfg: RenderConfig, bbox: torch.Tensor,
-                 model_cfg: ModelConfig, with_tv: bool = True):
+                 model_cfg: ModelConfig, with_tv: bool = True, hwf=None):
     """The training loss: image + coarse image + entropy sparsity (+ TV, the
-    packed TV under packed_layout).
+    packed TV under packed_layout). Under render_cfg.ndc the batch's rays
+    are warped to NDC with hwf = (H, W, focal) first; its viewdirs stay the
+    world directions (the caller takes them before the warp).
 
     loss_fn(state, batch, tv_weight, draws=None, generator=None, occ_grid=None)
       -> (loss, (psnr, img_loss)); occ_grid culls the render.
     """
+    if render_cfg.ndc and hwf is None:
+        raise ValueError("make_loss_fn: render_cfg.ndc needs hwf = (H, W, focal)")
     sparse_w = args.sparse_loss_weight
 
     def loss_fn(state, batch, tv_weight, draws: Optional[TrainDraws] = None,
                 generator: Optional[torch.Generator] = None,
                 occ_grid: Optional[torch.Tensor] = None):
         draws = draws or TrainDraws()
+        rays_o, rays_d = batch["rays_o"], batch["rays_d"]
+        if render_cfg.ndc:
+            H, W, focal = int(hwf[0]), int(hwf[1]), float(hwf[2])
+            rays_o, rays_d = get_ndc_rays(H, W, focal, 1.0, rays_o, rays_d)
         ret = render_rays(
-            state, query_fn, batch["rays_o"], batch["rays_d"], batch.get("viewdirs"),
+            state, query_fn, rays_o, rays_d, batch.get("viewdirs"),
             batch["near"], batch["far"], bbox, render_cfg,
             draws=draws.render, generator=generator, occ_grid=occ_grid,
         )
@@ -218,7 +232,9 @@ class Trainer:
         self.scene = scene
         self.device = resolve_device(device if device is not None else args.device)
         self.model_cfg = model_config_from_args(args)
-        self.render_cfg = render_config_from_args(args, lindisp=args.lindisp)
+        # a forward-facing scene renders in NDC, where lindisp has no say
+        self.render_cfg = render_config_from_args(
+            args, ndc=scene.ndc, lindisp=args.lindisp and not scene.ndc)
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
         self.state = NGPState(self.model_cfg, self.generator, self.device)
@@ -233,6 +249,10 @@ class Trainer:
         self._poses = torch.as_tensor(scene.poses[:, :3, :4], dtype=torch.float32, device=self.device)
         self._K = torch.as_tensor(scene.K, dtype=torch.float32, device=self.device)
         self._i_train = torch.as_tensor(np.asarray(scene.i_train), dtype=torch.int64, device=self.device)
+        # ray batching: the first pool row of the next step, and a step's row
+        # offsets; pool blocks advance the former on the device
+        self._pool_offset = torch.zeros(1, dtype=torch.int64, device=self.device)
+        self._pool_rows = torch.arange(args.N_rand, device=self.device)
         # annealed keep budget "STEP:FRAC,...": from each STEP on, FRAC
         self.keep_schedule = None
         if args.occ_keep_schedule and self.render_cfg.occupancy is not None:
@@ -273,7 +293,8 @@ class Trainer:
         fn = self._loss_fns.get((with_tv, keep))
         if fn is None:
             fn = self._loss_fns[(with_tv, keep)] = make_loss_fn(
-                self.args, self._render_cfg_for(keep), self.bbox, self.model_cfg, with_tv=with_tv)
+                self.args, self._render_cfg_for(keep), self.bbox, self.model_cfg, with_tv=with_tv,
+                hwf=self.scene.hwf)
         return fn
 
     def _update_grid(self, draws: Optional[OccUpdateDraws] = None) -> None:
@@ -390,6 +411,48 @@ class Trainer:
         return self._sample(self._i_train.index_select(0, pick), self.args.N_rand, precrop)
 
     # ------------------------------------------------------------------ #
+    # Ray batching: a shuffled pool of every training ray, on the device
+    # ------------------------------------------------------------------ #
+    def build_ray_pool(self, shuffle: bool = True) -> torch.Tensor:
+        """(N * H * W, 3, 3) float32 rows [origin, direction, rgb] of every
+        pixel of the N training images, built on the device: in image, row,
+        column order (the JAX package's unshuffled pool), then shuffled by
+        shuffle_pool."""
+        sc = self.scene
+        rows = []
+        for i in np.asarray(sc.i_train):
+            rays_o, rays_d = get_rays(sc.H, sc.W, self._K, self._poses[int(i)])
+            rows.append(torch.stack([rays_o, rays_d, self._images[int(i)]], -2))
+        pool = torch.stack(rows).reshape(-1, 3, 3)
+        del rows
+        if shuffle:
+            self.shuffle_pool(pool)
+        return pool
+
+    def shuffle_pool(self, pool: torch.Tensor) -> None:
+        """Shuffle the pool's rows in place: one randperm on the Trainer's
+        generator, a gather into scratch and a copy back. Captured pool
+        blocks read the pool at its one address, so it is never rebound."""
+        perm = torch.randperm(pool.shape[0], generator=self.generator, device=self.device)
+        pool.copy_(pool.index_select(0, perm))
+
+    def _pool_batch(self, rows: torch.Tensor) -> Dict[str, torch.Tensor]:
+        n = rows.shape[0]
+        return {
+            "rays_o": rows[:, 0],
+            "rays_d": rows[:, 1],
+            "target": rows[:, 2],
+            "near": torch.full((n,), self.near, dtype=torch.float32, device=self.device),
+            "far": torch.full((n,), self.far, dtype=torch.float32, device=self.device),
+        }
+
+    def sample_pool(self, pool: torch.Tensor, i_batch: int, n_rand: int) -> Dict[str, torch.Tensor]:
+        """Rows [i_batch, i_batch + n_rand) of the pool as a batch (fewer at
+        its end), copied out of it: the pool may be shuffled before the
+        step."""
+        return self._pool_batch(pool[i_batch:i_batch + n_rand].clone())
+
+    # ------------------------------------------------------------------ #
     # Many steps a launch (--steps_per_dispatch)
     # ------------------------------------------------------------------ #
     def training_state(self) -> List[torch.Tensor]:
@@ -404,18 +467,30 @@ class Trainer:
         return out
 
     def _build_block(self, b: int, use_tv: bool, occ_mode: Optional[str], precrop: bool,
-                     keep: Optional[float]):
+                     keep: Optional[float], pool: Optional[torch.Tensor] = None):
         """A function that runs b steps (and, with occ_mode, a grid update
         after every update_every of them) and returns the last step's
-        metrics: the counterpart of JAX's scanned block. On a GPU it
-        replays the captured step and update graphs (a capture or replay
-        that fails raises); on the CPU it runs the same bodies eagerly."""
+        metrics: the counterpart of JAX's scanned block. Each step samples
+        its batch on the device, or, given the ray pool, takes the pool's
+        next N_rand rows from the device offset _pool_offset and advances
+        it. On a GPU it replays the captured step and update graphs (a
+        capture or replay that fails raises); on the CPU it runs the same
+        bodies eagerly."""
         tv_w = self.args.tv_loss_weight if use_tv else 0.0
         grid = self.occ_grid if occ_mode == "cull" else None
         upd = self.render_cfg.occupancy.update_every if occ_mode is not None else 0
 
+        if pool is None:
+            def batch():
+                return self.sample_batch(precrop)
+        else:
+            def batch():
+                rows = pool.index_select(0, self._pool_offset + self._pool_rows)
+                self._pool_offset.add_(self.args.N_rand)
+                return self._pool_batch(rows)
+
         def one():
-            return self._train_one(self.sample_batch(precrop), tv_w, keep, grid)
+            return self._train_one(batch(), tv_w, keep, grid)
 
         if self.device.type != "cuda":
             def block():
@@ -429,7 +504,8 @@ class Trainer:
 
         if self._graphs is None:
             self._graphs = GraphCache(self.generator, self.training_state())
-        step_graph = self._graphs.get(("step", use_tv, grid is not None, precrop, keep), one)
+        source = () if pool is None else ("pool", pool.data_ptr(), pool.shape[0])
+        step_graph = self._graphs.get(("step", use_tv, grid is not None, precrop, keep) + source, one)
         update_graph = self._graphs.get(("update",), self._update_grid) if upd else None
 
         def block():
@@ -445,24 +521,30 @@ class Trainer:
         return block
 
     def _run_block(self, b: int, use_tv: bool, occ_mode: Optional[str], precrop: bool,
-                   keep: Optional[float]):
-        metrics = self._build_block(b, use_tv, occ_mode, precrop, keep)()
+                   keep: Optional[float], pool: Optional[torch.Tensor] = None, offset: int = 0):
+        if pool is None:
+            block = self._build_block(b, use_tv, occ_mode, precrop, keep)
+        else:
+            # a capture's warm-up step reads its rows from the offset too
+            self._pool_offset.fill_(offset)
+            block = self._build_block(b, use_tv, occ_mode, precrop, keep, pool)
+            self._pool_offset.fill_(offset)
+        metrics = block()
         self.last_occ_keep = self._keep_fractions(keep) if occ_mode == "cull" else None
         return metrics
 
-    def run_steps(self, n_steps: int, block_size: int = 0, precrop: bool = False):
-        """Run n_steps optimization steps in blocks of block_size (default
-        args.steps_per_dispatch, at least 1), split where the JAX package's
-        run_steps splits them so that each block is static: at the TV
-        cutoff (rounded up to the update grid under occupancy), at the
-        occupancy warmup's end (readiness read once a block, on the host),
-        at the next keep-schedule step, with a block of grid updates capped
-        at update_every and a remainder under update_every run as single
-        steps. Returns the last step's metrics."""
+    def _block_plan(self, n_steps: int, block_size: int):
+        """The JAX package's static block plan of run_steps and
+        run_steps_pool: yields (b, use_tv, occ_mode, keep) for each block in
+        turn, b = 0 for one eager step. Blocks end at the TV cutoff (rounded
+        up to the update grid under occupancy), at the occupancy warmup's end
+        (readiness read once a block, on the host) and at the next
+        keep-schedule step; a block of grid updates is capped at
+        update_every, and a remainder under update_every runs as single
+        steps. The caller runs each block, and moves global_step past it,
+        before it asks for the next."""
         args = self.args
-        block_size = block_size or max(1, args.steps_per_dispatch)
         occ = self.render_cfg.occupancy
-        metrics = None
         remaining = n_steps
         while remaining > 0:
             use_tv = self.global_step <= 1000 and args.tv_loss_weight > 0
@@ -497,12 +579,47 @@ class Trainer:
             if b == 0:
                 # under update_every steps to a boundary: single steps
                 for _ in range(min(k, occ.update_every if occ is not None else 1)):
-                    metrics = self.step(self.sample_batch(precrop))
+                    yield 0, use_tv, occ_mode, keep
                     remaining -= 1
+                continue
+            yield b, use_tv, occ_mode, keep
+            remaining -= b
+
+    def run_steps(self, n_steps: int, block_size: int = 0, precrop: bool = False):
+        """Run n_steps optimization steps, each on a batch sampled on the
+        device, in the blocks of _block_plan, block_size (default
+        args.steps_per_dispatch, at least 1) steps at most. Returns the last
+        step's metrics."""
+        metrics = None
+        for b, use_tv, occ_mode, keep in self._block_plan(
+                n_steps, block_size or max(1, self.args.steps_per_dispatch)):
+            if b == 0:
+                metrics = self.step(self.sample_batch(precrop))
                 continue
             metrics = self._run_block(b, use_tv, occ_mode, precrop, keep)
             self.global_step += b
-            remaining -= b
+        return metrics
+
+    def run_steps_pool(self, pool: torch.Tensor, offset: int, n_steps: int, block_size: int = 0):
+        """Run n_steps optimization steps on the pool's rows from `offset`
+        on, N_rand a step, in the blocks of _block_plan (block_size default
+        args.steps_per_dispatch). The caller reshuffles the pool between
+        epochs; offset + n_steps * N_rand must not pass its end. Returns the
+        last step's metrics."""
+        n_rand, done, metrics = self.args.N_rand, 0, None
+        if offset + n_steps * n_rand > pool.shape[0]:
+            raise ValueError(f"run_steps_pool: {n_steps} steps of {n_rand} rays from row {offset} "
+                             f"pass the pool's end ({pool.shape[0]} rows)")
+        for b, use_tv, occ_mode, keep in self._block_plan(
+                n_steps, block_size or max(1, self.args.steps_per_dispatch)):
+            at = offset + done * n_rand
+            if b == 0:
+                metrics = self.step(self.sample_pool(pool, at, n_rand))
+                done += 1
+                continue
+            metrics = self._run_block(b, use_tv, occ_mode, False, keep, pool, at)
+            self.global_step += b
+            done += b
         return metrics
 
     # Eval renders are exact by default: the training budget clips geometry
@@ -555,11 +672,15 @@ class Trainer:
 
 def train_loop(args, scene: Scene, n_iters: Optional[int] = None, log_fn=print,
                device=None) -> Trainer:
-    """The per-image training loop with periodic print, checkpoint, spiral
-    video and test-set figures; returns the Trainer. With --steps_per_dispatch K > 1
-    the steps between two events (print, checkpoint, test set, the precrop
-    boundary) run as run_steps blocks of K, as the JAX loop's scanned span
-    runs them; else one step at a time, its image picked on the host."""
+    """The training loop with periodic print, checkpoint, spiral video and
+    test-set figures; returns the Trainer. With ray batching (the default;
+    off with --no_batching) each step takes the next N_rand rows of a ray
+    pool on the device, reshuffled in place at the end of each epoch; else
+    N_rand pixels of one training image. With --steps_per_dispatch K > 1 the
+    steps between two events (print, checkpoint, video, test set, the
+    precrop boundary, the pool's end) run as run_steps / run_steps_pool
+    blocks of K, as the JAX loop's scanned spans run them; else one step at
+    a time, its image picked on the host."""
     check_supported(args)
     trainer = Trainer(args, scene, device=device)
     savepath = os.path.join(args.basedir, args.expname)
@@ -569,16 +690,41 @@ def train_loop(args, scene: Scene, n_iters: Optional[int] = None, log_fn=print,
 
     n_iters = n_iters or args.N_iters
     spd = max(1, args.steps_per_dispatch)
+    use_batching = not args.no_batching
+    pool = trainer.build_ray_pool() if use_batching else None
+    i_batch = 0
     loss_list, psnr_list, time_list = [], [], []
     time0 = time.time()
     np_rng = np.random.default_rng(0)
+
+    def span_end(i: int) -> int:
+        """The last step of a span from step i: the next event's."""
+        end = n_iters
+        for e in (args.i_print, args.i_weights, args.i_video, args.i_testset):
+            if e and e > 0:
+                end = min(end, ((i - 1) // e + 1) * e)
+        return end
+
     i = trainer.global_step + 1
     while i <= n_iters:
-        if spd > 1:
-            end = n_iters
-            for e in (args.i_print, args.i_weights, args.i_video, args.i_testset):
-                if e and e > 0:
-                    end = min(end, ((i - 1) // e + 1) * e)
+        if use_batching and spd > 1:
+            end = min(span_end(i), i + (pool.shape[0] - i_batch) // args.N_rand - 1)
+            if end < i:
+                trainer.shuffle_pool(pool)
+                i_batch = 0
+                continue
+            metrics = trainer.run_steps_pool(pool, i_batch, end - i + 1, block_size=spd)
+            i_batch += (end - i + 1) * args.N_rand
+            i = end
+        elif use_batching:
+            batch = trainer.sample_pool(pool, i_batch, args.N_rand)
+            i_batch += args.N_rand
+            if i_batch >= pool.shape[0]:
+                trainer.shuffle_pool(pool)
+                i_batch = 0
+            metrics = trainer.step(batch)
+        elif spd > 1:
+            end = span_end(i)
             precrop = i < args.precrop_iters
             if precrop:
                 end = min(end, args.precrop_iters - 1)

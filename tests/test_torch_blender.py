@@ -145,7 +145,7 @@ def test_dataset_writer_matches_jax(tmp_path):
     np.testing.assert_array_equal(sc.images[:3], (frames["train"][..., :3] / 255.0).astype(np.float32))
 
 
-@pytest.mark.parametrize("dataset_type,row", [("llff", "A6"), ("LINEMOD", "A6"), ("deepvoxels", "A6")])
+@pytest.mark.parametrize("dataset_type,row", [("scannet", "A6"), ("LINEMOD", "A6"), ("deepvoxels", "A6")])
 def test_load_scene_dispatch(blender_dir, dataset_type, row):
     from hashnerf_torch.data import load_scene
     from hashnerf_torch.train.config import parse_args
