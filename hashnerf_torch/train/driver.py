@@ -13,17 +13,16 @@ with its grid's lifecycle: updates every `update_every` steps, culling from
 `warmup_steps` on once the grid holds density, the keep schedule, and the
 eval budgets.
 
-`Trainer.step` runs one step eagerly. `Trainer.run_steps` and
-`Trainer.run_steps_pool` run many, in the blocks of the JAX package's
-scanned `run_steps` / `run_steps_pool` (`--steps_per_dispatch`): each block
-samples its rays on the device (from the images, or the next rows of the
-ray pool) and, on a GPU, replays CUDA graphs of the step and of the grid
-update (train/graphs.py) with no host sync inside the block; on the CPU the
-same block body runs eagerly. Every random draw of an eager step
-(stratified jitter, sigma noise, importance samples, TV cuboids and rows,
-and those of a grid update) can be handed in through `TrainDraws` and
-`OccUpdateDraws`, which is how the tests give the port the draws JAX took
-from its keys.
+`Trainer.step` runs one step eagerly. `Trainer.run_steps` runs many, in
+the blocks of the JAX package's scanned `run_steps` / `run_steps_pool`
+(`--steps_per_dispatch`): each block samples its rays on the device (from
+the images, or the next rows of the ray pool) and, on a GPU, replays CUDA
+graphs of the step and of the grid update (train/graphs.py) with no host
+sync inside the block; on the CPU the same block body runs eagerly. Every
+random draw of an eager step (stratified jitter, sigma noise, importance
+samples, TV cuboids and rows, and those of a grid update) can be handed in
+through `TrainDraws` and `OccUpdateDraws`, which is how the tests give the
+port the draws JAX took from its keys.
 """
 from __future__ import annotations
 
@@ -534,14 +533,14 @@ class Trainer:
         return metrics
 
     def _block_plan(self, n_steps: int, block_size: int):
-        """The JAX package's static block plan of run_steps and
-        run_steps_pool: yields (b, use_tv, occ_mode, keep) for each block in
-        turn, b = 0 for one eager step. Blocks end at the TV cutoff (rounded
-        up to the update grid under occupancy), at the occupancy warmup's end
-        (readiness read once a block, on the host) and at the next
-        keep-schedule step; a block of grid updates is capped at
-        update_every, and a remainder under update_every runs as single
-        steps. The caller runs each block, and moves global_step past it,
+        """The JAX package's static block plan of its run_steps and
+        run_steps_pool (both run_steps here): yields (b, use_tv, occ_mode,
+        keep) for each block in turn, b = 0 for one eager step. Blocks end
+        at the TV cutoff (rounded up to the update grid under occupancy), at
+        the occupancy warmup's end (readiness read once a block, on the
+        host) and at the next keep-schedule step; a block of grid updates
+        is capped at update_every, and a remainder under update_every runs
+        as single steps. The caller runs each block, and moves global_step past it,
         before it asks for the next."""
         args = self.args
         occ = self.render_cfg.occupancy
@@ -585,42 +584,45 @@ class Trainer:
             yield b, use_tv, occ_mode, keep
             remaining -= b
 
-    def run_steps(self, n_steps: int, block_size: int = 0, precrop: bool = False):
-        """Run n_steps optimization steps, each on a batch sampled on the
-        device, in the blocks of _block_plan, block_size (default
-        args.steps_per_dispatch, at least 1) steps at most. Returns the last
-        step's metrics."""
-        metrics = None
-        for b, use_tv, occ_mode, keep in self._block_plan(
-                n_steps, block_size or max(1, self.args.steps_per_dispatch)):
-            if b == 0:
-                metrics = self.step(self.sample_batch(precrop))
-                continue
-            metrics = self._run_block(b, use_tv, occ_mode, precrop, keep)
-            self.global_step += b
-        return metrics
-
-    def run_steps_pool(self, pool: torch.Tensor, offset: int, n_steps: int, block_size: int = 0):
-        """Run n_steps optimization steps on the pool's rows from `offset`
-        on, N_rand a step, in the blocks of _block_plan (block_size default
-        args.steps_per_dispatch). The caller reshuffles the pool between
-        epochs; offset + n_steps * N_rand must not pass its end. Returns the
-        last step's metrics."""
+    def run_steps(self, n_steps: int, block_size: int = 0, precrop: bool = False,
+                  pool: Optional[torch.Tensor] = None, offset: int = 0):
+        """Run n_steps optimization steps in the blocks of _block_plan,
+        block_size (default args.steps_per_dispatch, at least 1) steps at
+        most. Each step samples its batch on the device from the images or,
+        given the ray pool, takes its next N_rand rows from row `offset` on
+        (the caller reshuffles the pool between epochs; offset + n_steps *
+        N_rand must not pass its end). Returns the last step's metrics."""
         n_rand, done, metrics = self.args.N_rand, 0, None
-        if offset + n_steps * n_rand > pool.shape[0]:
-            raise ValueError(f"run_steps_pool: {n_steps} steps of {n_rand} rays from row {offset} "
+        if pool is not None and offset + n_steps * n_rand > pool.shape[0]:
+            raise ValueError(f"run_steps: {n_steps} steps of {n_rand} rays from row {offset} "
                              f"pass the pool's end ({pool.shape[0]} rows)")
         for b, use_tv, occ_mode, keep in self._block_plan(
                 n_steps, block_size or max(1, self.args.steps_per_dispatch)):
             at = offset + done * n_rand
             if b == 0:
-                metrics = self.step(self.sample_pool(pool, at, n_rand))
+                metrics = self.step(self.sample_batch(precrop) if pool is None
+                                    else self.sample_pool(pool, at, n_rand))
                 done += 1
                 continue
-            metrics = self._run_block(b, use_tv, occ_mode, False, keep, pool, at)
+            metrics = self._run_block(b, use_tv, occ_mode, precrop, keep, pool, at)
             self.global_step += b
             done += b
         return metrics
+
+    def capture_first_step(self, block_size: int, precrop: bool = False,
+                           pool: Optional[torch.Tensor] = None, offset: int = 0):
+        """The first step of the block of block_size that run_steps would
+        start at global_step, from a new capture (cached graphs dropped):
+        its batch as run_steps takes it, no grid update, global_step not
+        moved. What a captured step computes at its capture, to hold
+        against step(); the parameters' .grad are the capture's. Returns
+        its metrics; raises if the plan's block there is not block_size."""
+        b, use_tv, occ_mode, keep = next(self._block_plan(block_size, block_size))
+        if b != block_size:
+            raise ValueError(f"capture_first_step: the block from step {self.global_step} "
+                             f"is {b} steps, not {block_size}")
+        self._graphs = None
+        return self._run_block(1, use_tv, occ_mode, precrop, keep, pool, offset)
 
     # Eval renders are exact by default: the training budget clips geometry
     # on full-image ray grids. Culled eval is opt-in, by this switch (the
@@ -678,8 +680,7 @@ def train_loop(args, scene: Scene, n_iters: Optional[int] = None, log_fn=print,
     pool on the device, reshuffled in place at the end of each epoch; else
     N_rand pixels of one training image. With --steps_per_dispatch K > 1 the
     steps between two events (print, checkpoint, video, test set, the
-    precrop boundary, the pool's end) run as run_steps / run_steps_pool
-    blocks of K, as the JAX loop's scanned spans run them; else one step at
+    precrop boundary, the pool's end) run as run_steps blocks of K, as the JAX loop's scanned spans run them; else one step at
     a time, its image picked on the host."""
     check_supported(args)
     trainer = Trainer(args, scene, device=device)
@@ -713,7 +714,7 @@ def train_loop(args, scene: Scene, n_iters: Optional[int] = None, log_fn=print,
                 trainer.shuffle_pool(pool)
                 i_batch = 0
                 continue
-            metrics = trainer.run_steps_pool(pool, i_batch, end - i + 1, block_size=spd)
+            metrics = trainer.run_steps(end - i + 1, block_size=spd, pool=pool, offset=i_batch)
             i_batch += (end - i + 1) * args.N_rand
             i = end
         elif use_batching:

@@ -485,9 +485,9 @@ def outside_row_gate(got, want) -> float:
 @pytest.mark.cuda
 @pytest.mark.parametrize("which", ["chair", "flagship"])
 def test_graphed_pool_blocks_equal_eager_steps(cuda_device, which):
-    """Ray batching: 16 steps as run_steps_pool(16) (captured, then 16
-    replays reading rows from the device offset) and as 16 eager
-    sample_pool steps on the same rows, from one state; then the pool is
+    """Ray batching: 16 steps as one run_steps block of 16 on the pool
+    (captured, then 16 replays reading rows from the device offset) and as
+    16 eager sample_pool steps on the same rows, from one state; then the pool is
     reshuffled in place and a second block replays the same graph on the
     new rows, again against eager steps on them. The last loss within 1e-4
     and at most 0.1% of the entries outside the atomics' row gate: after 16
@@ -511,7 +511,7 @@ def test_graphed_pool_blocks_equal_eager_steps(cuda_device, which):
                 x.copy_(s)
         t.generator.set_state(rng)
         t.global_step, t._occ_ready = start, ready
-        m = t.run_steps_pool(pool, 64 * 16, 16, block_size=16)
+        m = t.run_steps(16, block_size=16, pool=pool, offset=64 * 16)
         assert t.global_step == start + 16
         assert abs(float(m["loss"]) - float(me["loss"])) <= 1e-4 * abs(float(me["loss"]))
         assert outside_row_gate(t.training_state(), eager) <= 1e-3

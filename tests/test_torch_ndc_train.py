@@ -153,7 +153,7 @@ def test_ndc_view_matches_jax(port_state, jax_setup):
 @pytest.mark.parametrize("spd", [1, 8])
 def test_ndc_train_loop_with_batching_loss_decreases(tmp_path, spd):
     """tests/test_ndc_train.py's run in the port, through train_loop with ray
-    batching: one sample_pool step at a time, or run_steps_pool blocks."""
+    batching: one sample_pool step at a time, or run_steps blocks on the pool."""
     from hashnerf_torch.train.config import config_parser
     from hashnerf_torch.train.driver import train_loop
 

@@ -1,8 +1,9 @@
 """Ray batching in the port against the JAX package on the CPU: the ray pool
 (unshuffled against hashnerf_tpu.native.build_ray_pool, shuffled as a
-permutation of it, reshuffled in place), run_steps_pool against the same
-number of sample_pool steps bit for bit, its block plan against JAX's
-Trainer.run_steps_pool, and train_loop's pool spans and epochs against
+permutation of it, reshuffled in place), run_steps on the pool against the
+same number of sample_pool steps bit for bit, its block plan against JAX's
+Trainer.run_steps_pool, a fresh capture's first step against step(), and
+train_loop's pool spans and epochs against
 JAX's train_loop (blocks, steps and the trainer's pool stubbed, so nothing
 compiles)."""
 import numpy as np
@@ -81,7 +82,7 @@ def test_run_steps_pool_equals_sample_pool_steps(flags, start, n, block):
     assert torch.equal(pool, b.build_ray_pool())
     a.global_step = b.global_step = start
     offset = 2 * 32
-    ma = a.run_steps_pool(pool, offset, n, block_size=block)
+    ma = a.run_steps(n, block_size=block, pool=pool, offset=offset)
     for k in range(n):
         mb = b.step(b.sample_pool(pool, offset + k * 32, 32))
     assert a.global_step == b.global_step == start + n
@@ -93,7 +94,27 @@ def test_run_steps_pool_equals_sample_pool_steps(flags, start, n, block):
         assert torch.equal(a.occ_grid, b.occ_grid) and a._occ_ready == b._occ_ready
         assert a.last_occ_keep == b.last_occ_keep
     with pytest.raises(ValueError, match="pool's end"):
-        a.run_steps_pool(pool, pool.shape[0] - 64, 3)
+        a.run_steps(3, pool=pool, offset=pool.shape[0] - 64)
+
+
+@pytest.mark.parametrize("source", ["images", "pool"])
+def test_capture_first_step_is_the_eager_step(source):
+    """The step a fresh capture runs (graph_window's one-step gate) is, on the
+    CPU, step() on the same batch bit for bit: loss and every gradient;
+    global_step stays, and a plan whose block is shorter raises."""
+    a, b = _trainer(), _trainer()
+    pool = a.build_ray_pool() if source == "pool" else None
+    if pool is not None:
+        assert torch.equal(pool, b.build_ray_pool())
+    a.global_step = b.global_step = 40
+    ma = a.capture_first_step(16, pool=pool, offset=96)
+    mb = b.step(b.sample_batch(False) if pool is None else b.sample_pool(pool, 96, 32))
+    assert a.global_step == 40 and torch.equal(ma["loss"], mb["loss"])
+    for (name, x), (_, y) in zip(a.state.named_parameters(), b.state.named_parameters()):
+        assert torch.equal(x.grad, y.grad), name
+    a.global_step = 990  # the TV window ends at 1000: a block of 11
+    with pytest.raises(ValueError, match="is 11 steps, not 16"):
+        a.capture_first_step(16, pool=pool)
 
 
 # --------------------------------------------------------------------------- #
@@ -169,7 +190,7 @@ def torch_pool_plan(flags, start, n_steps, block_size, offset):
     pool[:, 0, 0] = torch.arange(pool.shape[0], dtype=torch.float32)
     tt._run_block = run_block
     tt.step = step
-    tt.run_steps_pool(pool, offset, n_steps, block_size=block_size)
+    tt.run_steps(n_steps, block_size=block_size, pool=pool, offset=offset)
     return plan, tt.global_step
 
 
@@ -182,8 +203,8 @@ POOL_PLANS = {
 
 @pytest.mark.parametrize("case", sorted(POOL_PLANS))
 def test_pool_block_plan_matches_jax(case):
-    """run_steps_pool splits like JAX's (the plan of run_steps), and each
-    block and single step starts at JAX's pool row."""
+    """run_steps on the pool splits like JAX's run_steps_pool (the plan of
+    run_steps), and each block and single step starts at JAX's pool row."""
     flags, start, n, block, offset = POOL_PLANS[case]
     want, j_end = jax_pool_plan(flags, start, n, block, offset)
     got, t_end = torch_pool_plan(flags, start, n, block, offset)
@@ -193,16 +214,26 @@ def test_pool_block_plan_matches_jax(case):
         assert got[-2:] == [("step", 40 + 8 * N_RAND), ("step", 40 + 9 * N_RAND)]
 
 
-def _loop_calls(monkeypatch, Trainer, train_loop, args, scene, pool):
+def _loop_calls(monkeypatch, Trainer, train_loop, args, scene, pool, blocks):
     """train_loop's pool calls with the Trainer's pool, blocks and steps
-    stubbed: [(kind, i_batch, n_steps)]; a reshuffle shows as i_batch 0."""
+    stubbed: [(kind, i_batch, n_steps)]; a reshuffle shows as i_batch 0.
+    `blocks` names the method that runs pool blocks: JAX's run_steps_pool,
+    the port's run_steps (given the pool)."""
     calls = []
 
-    def run_steps_pool(self, pool, offset, n_steps, block_size=0):
+    def block(self, offset, n_steps, block_size):
         assert block_size == args.steps_per_dispatch
         calls.append(("block", int(offset), n_steps))
         self.global_step += n_steps
         return {"loss": 0.0, "psnr": 0.0}
+
+    if blocks == "run_steps_pool":
+        def run_blocks(self, pool, offset, n_steps, block_size=0):
+            return block(self, offset, n_steps, block_size)
+    else:
+        def run_blocks(self, n_steps, block_size=0, precrop=False, pool=None, offset=0):
+            assert pool is not None and not precrop
+            return block(self, offset, n_steps, block_size)
 
     def sample_pool(self, pool, i_batch, n_rand):
         calls.append(("step", int(i_batch), 1))
@@ -213,7 +244,7 @@ def _loop_calls(monkeypatch, Trainer, train_loop, args, scene, pool):
         return {"loss": 0.0, "psnr": 0.0}
 
     monkeypatch.setattr(Trainer, "build_ray_pool", lambda self: pool)
-    monkeypatch.setattr(Trainer, "run_steps_pool", run_steps_pool)
+    monkeypatch.setattr(Trainer, blocks, run_blocks)
     monkeypatch.setattr(Trainer, "sample_pool", sample_pool)
     monkeypatch.setattr(Trainer, "step", step)
     train_loop(args, scene, log_fn=lambda *_: None)
@@ -241,11 +272,13 @@ def test_train_loop_pool_spans_match_jax(tmp_path, monkeypatch, spd):
 
     rows = 10 * N_RAND + N_RAND // 2
     want = _loop_calls(monkeypatch, jdriver.Trainer, jdriver.train_loop, args_for(tmp_path / "j"),
-                       jscene(H=8, W=8, n_train=2, n_test=1), jnp.zeros((rows, 3, 3)))
+                       jscene(H=8, W=8, n_train=2, n_test=1), jnp.zeros((rows, 3, 3)),
+                       "run_steps_pool")
     shuffles = []
     monkeypatch.setattr(driver.Trainer, "shuffle_pool", lambda self, pool: shuffles.append(pool))
     got = _loop_calls(monkeypatch, driver.Trainer, driver.train_loop, args_for(tmp_path / "t"),
-                      make_synthetic_scene(H=8, W=8, n_train=2, n_test=1), torch.zeros(rows, 3, 3))
+                      make_synthetic_scene(H=8, W=8, n_train=2, n_test=1), torch.zeros(rows, 3, 3),
+                      "run_steps")
     assert got == want
     assert sum(n for _, _, n in got) == 50
     assert len(shuffles) == sum(1 for c in got[1:] if c[1] == 0) > 0

@@ -88,7 +88,8 @@ def torch_plan(flags, start, n_steps, block_size, precrop):
     tt.global_step = start
     plan = []
 
-    def run_block(b, use_tv, occ_mode, precrop, keep):
+    def run_block(b, use_tv, occ_mode, precrop, keep, pool=None, at=0):
+        assert pool is None
         plan.append((b, use_tv, occ_mode, precrop, keep))
         if occ_mode is not None:
             tt.occ_grid.fill_(1.0)
