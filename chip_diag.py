@@ -7,14 +7,27 @@ gates. Each prints JSON lines; only pool-faults is a gate.
         times in one process, or for `--path llff` the llff phase's two
         graphed pool windows `reps` times on one trainer at the llff
         phase's state (configs/fern.txt, 300 steps and 30 timed ones, on
-        chip_smoke.llff_set's set), with every gate printed instead of
-        raised: how far the graph-against-eager counts of graphed_window
-        spread from run to run, and whether each window passes.
-    python3 chip_diag.py pool-faults
+        chip_smoke.llff_set's set), or for `--path st3d` the st3d phase's
+        two windows of its hash run at that run's state (configs/st3d.txt,
+        320 steps and 10 timed pool steps, on chip_smoke.st3d_set's set),
+        with every gate printed instead of raised: how far the
+        graph-against-eager counts of graphed_window spread from run to
+        run, and whether each window passes.
+    python3 chip_diag.py pool-faults [--path llff]
         On that llff trainer, two faults of the pool blocks planted in turn
         (in this process only): a row offset that never advances, and a
         pool rebound after the capture. The llff window without TV must
-        stop each at the graph gate; exits 1 if one passes.
+        stop each at the graph gate. With `--path st3d`, two faults of the
+        column pool's layout inside the captured blocks: the rgb target
+        read one float off on the hash run's trainer, and the depth and
+        gradient targets read one float off on OmniNeRF's, each under the
+        run's window without TV. Exits 1 if a fault passes.
+    python3 chip_diag.py st3d-step [--reps 2]
+        On the st3d phase's OmniNeRF trainer, chip_smoke's card-against-CPU
+        step (st3d_step_card_vs_cpu) on `reps` pool batches, its gate
+        printed instead of raised: the card's, the CPU float32 step's and
+        the controls' (TF32, bf16 operands) errors against the CPU float64
+        step.
     python3 chip_diag.py spread-why [--reps 2]
         The chair's and llff's eager pairs of one window (16 steps twice
         from one state), `reps` of them: how the table entries the runs
@@ -103,6 +116,43 @@ def _llff_windows(torch, np, reps: int):
         shutil.rmtree(work, ignore_errors=True)
 
 
+def _st3d_trainer(torch, np, work: str, run: str):
+    """The st3d phase's trainer of `run` (of chip_smoke.ST3D_ITERS) and its
+    column pool at the state its graphed windows start from: run_nerf.main
+    on chip_smoke.st3d_set's set under `work` (made once), the pool rebuilt
+    from the loader's rays (st3d_pool), then the phase's 10 eager pool
+    steps. Returns (trainer, pool, the pool row the windows start at)."""
+    import chip_smoke as cs
+    from hashnerf_torch.data.st3d import load_st3d_data
+    from hashnerf_torch.run_nerf import main as run_nerf
+
+    data = os.path.join(work, "pano", cs.ST3D_NAME)
+    if not os.path.isdir(data):
+        cs.st3d_set(np, data)
+    tr, _ = cs._run(run_nerf, cs.st3d_argv(data, os.path.join(work, "logs"), run))
+    pool = cs.st3d_pool(np, tr, load_st3d_data(data)[0])
+    n_rand = tr.args.N_rand
+    for k in range(10):
+        tr.step(tr.sample_pool(pool, k * n_rand, n_rand))
+    return tr, pool, 10 * n_rand
+
+
+def _st3d_windows(torch, np, reps: int):
+    """The st3d phase's graphed pool windows of its hash run, `reps` times
+    on one trainer (_st3d_trainer); yields (rep, window, record)."""
+    import chip_smoke as cs
+
+    work = tempfile.mkdtemp(prefix="chip_diag_st3d_")
+    try:
+        tr, pool, at = _st3d_trainer(torch, np, work, "hash")
+        for rep in range(reps):
+            for window, start in (("tv", cs.ST3D_GRAPH_TV_START), ("no_tv", cs.GRAPH_NO_TV_START)):
+                yield rep, window, cs.graphed_window(torch, tr, "st3d", start, window, False,
+                                                     pool=pool, offset=at)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def gate_spread(torch, np, path: str, reps: int) -> None:
     import chip_smoke as cs
 
@@ -116,6 +166,8 @@ def gate_spread(torch, np, path: str, reps: int) -> None:
     cs.require = require
     if path == "llff":
         runs = _llff_windows(torch, np, reps)
+    elif path == "st3d":
+        runs = _st3d_windows(torch, np, reps)
     else:
         runs = ((rep, window, rec["graphed"][window])
                 for rep in range(reps) for rec in [cs.phase_main_path(torch, np, path, False)]
@@ -168,37 +220,105 @@ def _pool_rebound(torch, tr):
     return undo
 
 
-POOL_FAULTS = (("offset_frozen", _offset_frozen), ("pool_rebound", _pool_rebound))
+def _columns_shifted(first: str):
+    """A column layout off by one inside the captured pool blocks: while a
+    block is built (its step captured), each pool row's floats from column
+    `first` on are read one later, the row's last wrapping to `first`'s
+    place; eager steps read the pool right."""
+    def plant(torch, tr):
+        from hashnerf_torch.train.driver import POOL_COLUMNS, POOL_LAYOUTS, Trainer
+
+        build, pool_batch = Trainer._build_block, Trainer._pool_batch
+
+        def shifted(self, rows):
+            flat = rows.reshape(rows.shape[0], -1)
+            names = POOL_LAYOUTS[flat.shape[1]]
+            at = 0
+            for name, w in POOL_COLUMNS:
+                if name == first:
+                    break
+                at += w if name in names else 0
+            return pool_batch(self, torch.cat([flat[:, :at], flat[:, at + 1:], flat[:, at:at + 1]], 1))
+
+        def faulty(self, *a, **k):
+            Trainer._pool_batch = shifted
+            try:
+                return build(self, *a, **k)
+            finally:
+                Trainer._pool_batch = pool_batch
+
+        Trainer._build_block = faulty
+
+        def undo():
+            Trainer._build_block = build
+        return undo
+    return plant
 
 
-def pool_faults(torch, np) -> bool:
-    """Each pool fault planted in turn on the llff trainer (_llff_trainer),
-    then the llff window without TV (from GRAPH_NO_TV_START) run under the
-    graph gate: each must stop there (chip_smoke.CheckFailed naming the
-    window). Prints one JSON line per fault; returns whether all stopped."""
+POOL_FAULTS = {
+    "llff": (("offset_frozen", _offset_frozen), ("pool_rebound", _pool_rebound)),
+    # (fault, the st3d run it is planted on)
+    "st3d": (("target_shifted", _columns_shifted("target"), "hash"),
+             ("depth_grad_shifted", _columns_shifted("target_depth"), "omninerf")),
+}
+
+
+def pool_faults(torch, np, path: str) -> bool:
+    """Each pool fault of POOL_FAULTS[path] planted in turn, then the
+    path's window without TV run under the graph gate: llff's on the llff
+    trainer (_llff_trainer), from GRAPH_NO_TV_START; st3d's on its run's
+    trainer (_st3d_trainer), the hash run's from GRAPH_NO_TV_START and
+    OmniNeRF's from its last step, as phase_st3d runs them. Each must stop
+    there (chip_smoke.CheckFailed naming the window). Prints one JSON line
+    per fault; returns whether all stopped."""
     import chip_smoke as cs
 
-    work = tempfile.mkdtemp(prefix="chip_diag_llff_")
-    rejected = 0
+    work = tempfile.mkdtemp(prefix=f"chip_diag_{path}_")
+    faults, rejected, trainers = POOL_FAULTS[path], 0, {}
     try:
-        tr, pool, at = _llff_trainer(torch, np, work)
-        for name, plant in POOL_FAULTS:
+        for name, plant, *run in faults:
+            run = run[0] if run else "llff"
+            if run not in trainers:
+                trainers.clear()
+                torch.cuda.empty_cache()
+                trainers[run] = (_llff_trainer(torch, np, work) if run == "llff"
+                                 else _st3d_trainer(torch, np, work, run))
+            tr, pool, at = trainers[run]
+            start = tr.global_step if run == "omninerf" else cs.GRAPH_NO_TV_START
             undo = plant(torch, tr)
             try:
-                cs.graphed_window(torch, tr, "llff", cs.GRAPH_NO_TV_START, "no_tv", False,
-                                  pool=pool, offset=at)
+                cs.graphed_window(torch, tr, path, start, "no_tv", False, pool=pool, offset=at)
                 msg = None
             except cs.CheckFailed as e:
                 msg = str(e)
             finally:
                 undo()
             hit = msg is not None and msg.startswith("graphed block from step")
-            print(json.dumps({"fault": name, "path": "llff", "rejected": hit,
+            print(json.dumps({"fault": name, "path": path, "run": run, "rejected": hit,
                               "message": None if msg is None else msg[:4000]}), flush=True)
             rejected += hit
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    return rejected == len(POOL_FAULTS)
+    return rejected == len(faults)
+
+
+def st3d_step(torch, np, reps: int) -> None:
+    """chip_smoke.st3d_step_card_vs_cpu on `reps` pool batches of the st3d
+    phase's OmniNeRF trainer, its gate printed instead of raised."""
+    import chip_smoke as cs
+
+    fails = []
+    cs.require = lambda cond, what: cond or fails.append(what)
+    work = tempfile.mkdtemp(prefix="chip_diag_st3d_")
+    try:
+        tr, pool, at = _st3d_trainer(torch, np, work, "omninerf")
+        n_rand = tr.args.N_rand
+        for rep in range(reps):
+            seen = len(fails)
+            rec = cs.st3d_step_card_vs_cpu(torch, np, tr, tr.sample_pool(pool, at + rep * n_rand, n_rand))
+            print(json.dumps({"rep": rep, "step": rec, "gates_failed": fails[seen:]}), flush=True)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
 
 
 def spread_why(torch, np, reps: int) -> None:
@@ -360,9 +480,12 @@ def blender_step(torch) -> None:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("what", choices=("gate-spread", "pool-faults", "spread-why", "one-step",
-                                     "blender-step"))
-    ap.add_argument("--path", default="flagship", choices=("chair", "packed", "flagship", "llff"))
+    ap.add_argument("what", choices=("gate-spread", "pool-faults", "st3d-step", "spread-why",
+                                     "one-step", "blender-step"))
+    ap.add_argument("--path", default=None,
+                    choices=("chair", "packed", "flagship", "llff", "st3d"),
+                    help="gate-spread's path (default flagship); pool-faults' (llff or st3d, "
+                         "default llff)")
     ap.add_argument("--reps", type=int, default=2)
     opts = ap.parse_args(argv)
 
@@ -379,9 +502,14 @@ def main(argv=None) -> int:
     print(json.dumps({"torch": torch.__version__, "cuda": torch.version.cuda,
                       "device": torch.cuda.get_device_name(0)}), flush=True)
     if opts.what == "gate-spread":
-        gate_spread(torch, np, opts.path, opts.reps)
+        gate_spread(torch, np, opts.path or "flagship", opts.reps)
     elif opts.what == "pool-faults":
-        return 0 if pool_faults(torch, np) else 1
+        path = opts.path or "llff"
+        if path not in POOL_FAULTS:
+            ap.error(f"pool-faults takes --path llff or st3d, not {path}")
+        return 0 if pool_faults(torch, np, path) else 1
+    elif opts.what == "st3d-step":
+        st3d_step(torch, np, opts.reps)
     elif opts.what == "spread-why":
         spread_why(torch, np, opts.reps)
     elif opts.what == "one-step":

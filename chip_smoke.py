@@ -104,10 +104,33 @@ Imports hashnerf_torch (never jax or hashnerf_tpu) and, on one CUDA card:
     every 8th row of one test view rendered on the card and on the CPU's
     plain path from the same rays, held by JAX_VIEW_*_TOL. K2, K6 and K5
     (every TV step) must launch on it, K1, K3 and K4 not;
- 6. bench: the line of `python -m hashnerf_torch.bench` for the flagship
+ 6. st3d: the panorama path end to end (phase_st3d, ST3D_*): a procedural
+    512 x 1024 RGB-D panorama of a room written by st3d_set, 100 train
+    views with occlusion masks and 10 test views made from it by
+    hashnerf_torch.tools.generate_equirect_data, loaded (host peak traced);
+    configs/st3d.txt through run_nerf.main as written (hash grid,
+    NeRFSmall, use_gradient vestigial: K2, K6, K5 while TV is on) and as
+    OmniNeRF's model (positional NeRFGradient 8 x 256, Adam, depth and
+    gradient supervision: no kernel of KERNEL_INFO), each in graphed pool
+    blocks of 16 with the test set (statistics.txt, video2.gif) at the last
+    step; then the pool again from the loader's rays (its rows the
+    loader's), eager pool steps and graphed pool windows held to the graph
+    gate, one panorama timed; for the hash run K2 and K6 on the coarse and
+    fine sample points of a pool batch, held to their plain versions; for
+    OmniNeRF one step on the card against the CPU's float64 step (its TF32
+    and bf16 controls stopped by the same gate) and every 8th row of the
+    ground-truth panorama on the card against the CPU;
+ 7. loaders: scannet (configs/scannet_scene0000.txt, 1296 x 968 frames, a
+    binary PLY), deepvoxels (positional NeRF 8 x 256, 512 x 512) and
+    LINEMOD (hash defaults, its K, the +-10 box), each written by
+    loader_set from the procedural tracer and trained 64 steps through
+    run_nerf.main with one test view (phase_loaders, LOADERS);
+    PATHS["st3d"] and PATHS["loaders"] name the kernels each run must
+    launch, and every other kernel must show 0 launches there;
+ 8. bench: the line of `python -m hashnerf_torch.bench` for the flagship
     and for BENCH_PARITY=1;
- 7. prints one line {"kernels": [...]} with each kernel's launches on the
-    main paths, the blender path and the llff path (graph replays
+ 9. prints one line {"kernels": [...]} with each kernel's launches on the
+    main paths, the blender, llff, st3d and loaders phases (graph replays
     included), error, times and bound, the total seconds and the card, and
     as the last line {"ok": true, "device": {...}}.
 
@@ -115,8 +138,9 @@ Any failed check raises, and the script exits non-zero without the last
 line. It exits non-zero at once when no CUDA device is present or when
 hashnerf_torch cannot be imported (a directory holding only this script).
 `--profile` adds a torch.profiler breakdown of three eager steps without TV
-of each path and of the llff pool steps, of one graphed block of each
-window, and of three chair steps with TV on the blender set.
+of each path and of the llff and st3d pool steps (for OmniNeRF with its
+GEMMs' share), of one graphed block of each window, and of three chair
+steps with TV on the blender set.
 """
 from __future__ import annotations
 
@@ -230,7 +254,20 @@ PATHS = {
                  "tv_start": 256, "no_tv_start": 1024, "keeps_tv": (0.5, 0.375),
                  "keeps_no_tv": FLAGSHIP_KEEP, "k5_no_tv": True, "eval_cull": EVAL_CULL_FLAGS,
                  "graph_tv_start": 256},
+    # Phases of their own (slice 9), not run by phase_main_path: each run
+    # of the phase must launch exactly the kernels listed for it (K5 for
+    # the TV loss of the hash grid's steps <= 1000) and no other kernel of
+    # KERNEL_INFO; nothing is culled.
+    "st3d": {"phase": "st3d", "keeps_tv": None, "keeps_no_tv": None,
+             "runs": {"hash": ("hash_encode_fwd", "hash_encode_bwd", "segment_accumulate_k5"),
+                      "omninerf": ()}},
+    "loaders": {"phase": "loaders", "keeps_tv": None, "keeps_no_tv": None,
+                "runs": {"scannet": ("hash_encode_fwd", "hash_encode_bwd", "segment_accumulate_k5"),
+                         "deepvoxels": (),
+                         "LINEMOD": ("hash_encode_fwd", "hash_encode_bwd",
+                                     "segment_accumulate_k5")}},
 }
+MAIN_PATHS = tuple(p for p, spec in PATHS.items() if "phase" not in spec)
 GRAPH_BLOCK = 16  # the flagship preset's --steps_per_dispatch
 GRAPH_NO_TV_START = 1024  # the last keep-schedule step; on the update grid
 GRAPH_TIMED_BLOCKS = {"tv": 3, "no_tv": 4}
@@ -1252,10 +1289,10 @@ def timed_steps(torch, trainer, n: int, keeps=None, batches=None):
     args, sc = trainer.args, trainer.scene
     ts, losses = [], []
     for _ in range(n):
-        img_i = int(sc.i_train[trainer.global_step % len(sc.i_train)])
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         if batches is None:
+            img_i = int(sc.i_train[trainer.global_step % len(sc.i_train)])
             batch = trainer.sample_image(
                 img_i, args.N_rand, precrop=trainer.global_step + 1 < args.precrop_iters
             )
@@ -1463,7 +1500,8 @@ def row_gate(got, want):
 # a last loss 3.3e-4 of itself apart, the same in both pairs, with the runs
 # of each mode 0-5 entries apart. GATE_CROSS_MODE holds the largest share
 # of a group's entries that the two modes left outside (the smaller pair)
-# in 30 windows of each path (llff: 50, at the llff phase's own state),
+# in 30 windows of each path (llff: 50, at the llff phase's own state;
+# st3d: its hash run's two windows at the st3d phase's own state),
 # measured by chip_diag.py gate-spread on an H100 80GB HBM3 at 700 W
 # (PERF.md §6): per path for the tables, whose spread differs 300-fold
 # between paths, the largest of any path for the MLPs, the grid and the
@@ -1471,7 +1509,10 @@ def row_gate(got, want):
 # far more (chip_smoke_faults.py: an lr frozen at capture, 54% of the
 # chair's table entries; a skipped grid-update replay, 10% of the grid;
 # chip_diag.py pool-faults: a pool row offset that never advances, or a
-# pool rebound after the capture, 40% of llff's table entries).
+# pool rebound after the capture, 40% of llff's table entries; on st3d's
+# column pool, the rgb target read one float off, 600,325 table gradient
+# entries in one step, and the depth and gradient targets read one off,
+# 824,942 of OmniNeRF's MLP gradient entries in one step).
 GATE_GROUPS = {
     "tables": lambda tr: tr.state.table_parameters(),
     "mlp": lambda tr: tr.state.net_parameters(),
@@ -1480,7 +1521,8 @@ GATE_GROUPS = {
 GATE_SPREAD_FACTOR = 3
 GATE_CROSS_MODE = {
     "tables": {"chair": 2114 / 16777216, "packed": 1076573 / 29412064,
-               "flagship": 34221 / 29412064, "llff": 44487 / 16777216},
+               "flagship": 34221 / 29412064, "llff": 44487 / 16777216,
+               "st3d": 650 / 16777216},
     "mlp": 7 / 9344, "grid": 4085 / 2097152, "loss": 3.31e-4,
 }
 GATE_FLOOR_MARGIN = 4
@@ -2038,14 +2080,16 @@ def render_on_rays(torch, state, rays, bbox, cfg, near: float, far: float, chunk
     return torch.cat(out)
 
 
-def llff_encode_check(torch, trainer, batch):
-    """K2 and K6 at the llff path's shapes, on its own points: the coarse
-    (N_rand x 64) and fine (N_rand x 128) sample points of one pool batch,
-    warped to NDC and sampled as a training step samples them (a generator
-    of its own), in the scene's NDC box (its z pad 1e-4: a sample at t = 0
-    or 1 lies on a face), on the trained table, with a seeded cotangent.
-    Each is held against its plain version by check_encode and timed beside
-    it and its bound (the rows it touches from the plain corner expansion)."""
+def encode_check(torch, trainer, batch, path: str, ndc: bool = False):
+    """K2 and K6 at a pool path's shapes, on its own points: the coarse
+    (N_rand x N_samples) and fine (N_rand x (N_samples + N_importance))
+    sample points of one pool batch, warped to NDC where the path is
+    (llff) and sampled as a training step samples them (a generator of its
+    own), in the trainer's box (llff's NDC box has a z pad of 1e-4: a
+    sample at t = 0 or 1 lies on a face), on the trained table, with a
+    seeded cotangent. Each is held against its plain version by
+    check_encode and timed beside it and its bound (the rows it touches
+    from the plain corner expansion)."""
     from hashnerf_torch.kernels.hash_encode import (
         hash_encode_bwd, hash_encode_bwd_expand_plain, hash_encode_bwd_plain, hash_encode_fwd,
         hash_encode_fwd_plain,
@@ -2063,10 +2107,13 @@ def llff_encode_check(torch, trainer, batch):
 
     gen = torch.Generator(device=DEV)
     gen.manual_seed(1)
-    d = batch["rays_d"]
-    o_ndc, d_ndc = get_ndc_rays(sc.H, sc.W, sc.focal, 1.0, batch["rays_o"], d)
+    o, d = batch["rays_o"], batch["rays_d"]
+    if ndc:
+        o, d_in = get_ndc_rays(sc.H, sc.W, sc.focal, 1.0, o, d)
+    else:
+        d_in = d
     with torch.no_grad():
-        render_rays(state, capture, o_ndc, d_ndc, d / torch.linalg.norm(d, dim=-1, keepdim=True),
+        render_rays(state, capture, o, d_in, d / torch.linalg.norm(d, dim=-1, keepdim=True),
                     batch["near"], batch["far"], trainer.bbox, trainer.render_cfg, generator=gen)
     table = state.hash_table.detach()
     L, T, F = table.shape
@@ -2075,7 +2122,7 @@ def llff_encode_check(torch, trainer, batch):
     for name, n_samples in (("coarse", args.N_samples), ("fine", args.N_samples + args.N_importance)):
         xs = pts[name]
         n = xs.shape[0]
-        require(n == args.N_rand * n_samples, f"llff {name} pass encodes {n} points")
+        require(n == args.N_rand * n_samples, f"{path} {name} pass encodes {n} points")
         gs = torch.randn((n, L * F), generator=gen, device=DEV)
         ref = {
             "k2": hash_encode_fwd_plain(table, xs, bmin, bmax, res),
@@ -2083,7 +2130,8 @@ def llff_encode_check(torch, trainer, batch):
             "k6": hash_encode_bwd_plain(xs, bmin, bmax, res, gs, T),
             "k6_abs_sum": hash_encode_bwd_plain(xs, bmin, bmax, res, gs.abs(), T),
         }
-        errs = check_encode(torch, f"llff {name} pass", ref, hash_encode_fwd(table, xs, bmin, bmax, res),
+        errs = check_encode(torch, f"{path} {name} pass", ref,
+                            hash_encode_fwd(table, xs, bmin, bmax, res),
                             hash_encode_bwd(xs, bmin, bmax, res, gs, T))
         z_face = ((xs[:, 2] - bmin[2]).abs() <= 2e-4) | ((bmax[2] - xs[:, 2]).abs() <= 2e-4)
         rows = int(torch.unique(hash_encode_bwd_expand_plain(xs, bmin, bmax, res, gs, T)[0]).numel())
@@ -2100,7 +2148,7 @@ def llff_encode_check(torch, trainer, batch):
             "k6_plain_ms": cuda_ms(torch, lambda: hash_encode_bwd_plain(xs, bmin, bmax, res, gs, T),
                                    reps=3),
         }
-        emit({"phase": "encode_shape", "points": f"llff_{name}", **out[name]})
+        emit({"phase": "encode_shape", "points": f"{path}_{name}", **out[name]})
         del ref
     return out
 
@@ -2109,7 +2157,7 @@ def phase_llff(torch, np, smi: str, profile: bool):
     """The LLFF path end to end (see LLFF_*): write the set, check the
     loader against the frames written, train configs/fern.txt with ray
     batching and NDC, render only, then the pool windows, K2 and K6 at the
-    path's shapes (llff_encode_check) and rows of one NDC view on the card
+    path's shapes (encode_check) and rows of one NDC view on the card
     against the CPU; K2, K6 and K5 (every TV step) must launch on it and
     K1, K3 and K4 must not."""
     import itertools
@@ -2225,7 +2273,8 @@ def phase_llff(torch, np, smi: str, profile: bool):
         counts = kernels.launch_counts()
 
         # K2 and K6 at this path's shapes, on a pool batch's sample points
-        encode = llff_encode_check(torch, trainer, trainer.sample_pool(pool, next(rows), args.N_rand))
+        encode = encode_check(torch, trainer, trainer.sample_pool(pool, next(rows), args.N_rand), "llff",
+                              ndc=True)
         # the view's rays of every LLFF_CPU_ROW_STRIDE-th row, on the card (K2)
         # and through the CPU's plain path
         cfg = trainer.render_cfg.eval_mode()
@@ -2290,6 +2339,621 @@ def phase_llff(torch, np, smi: str, profile: bool):
         shutil.rmtree(workdir, ignore_errors=True)
 
 
+# The st3d phase (slice 9): one procedural 512 x 1024 RGB-D panorama of a
+# room (st3d_set), 100 train views with occlusion masks and 10 test views
+# made from it by the port's hashnerf_torch.tools.generate_equirect_data
+# (the loader's fixed counts: the real size); configs/st3d.txt trained on it
+# through run_nerf.main as written (the hash grid, NeRFSmall, use_gradient
+# vestigial) and as OmniNeRF's model (ST3D_OMNI_FLAGS: positional NeRFGradient
+# 8 x 256, Adam, depth and gradient supervision), each for ST3D_ITERS steps
+# (of 200,000) in graphed pool blocks of 16, the test set at the last step
+# with --st3d_eval_views 2; then eager and graphed pool windows, one
+# panorama timed, and for OmniNeRF one step and every ST3D_CPU_ROW_STRIDE-th
+# row of the ground-truth panorama on the card against the CPU.
+ST3D_NAME = "room"
+ST3D_HW = (512, 1024)
+ST3D_ITERS = {"hash": 320, "omninerf": 192}
+ST3D_OMNI_FLAGS = ["--i_embed", "0", "--i_embed_views", "0", "--use_depth", "--use_gradient"]
+ST3D_EVAL_VIEWS = 2
+ST3D_GRAPH_TV_START = 336
+ST3D_CPU_ROW_STRIDE = 8  # 64 of the panorama's 512 rows
+ST3D_CPU_CHUNK = 2048
+# One OmniNeRF step from one state and draws on the card, on the CPU in
+# float32 and on the CPU in float64: the card's error against the float64
+# step, of the loss and of the MLP gradients (the largest ||g - g64|| /
+# ||g64|| of a tensor), at most ST3D_F32_ERR_FACTOR x the CPU float32
+# step's own, plus 1e-6. A float32 step is no closer than that: its GEMMs
+# sum 358,400 points' products, and ReLUs whose inputs round across 0
+# switch, so its gradients are 1e-4 to 3e-4 of their norms from the
+# float64 step's on either side (OmniNeRF's trained state, H100 80GB HBM3).
+ST3D_F32_ERR_FACTOR = 4
+# The step's controls, each the card's step at a precision the gate exists
+# to exclude: TF32 GEMMs (allow_tf32, which the port turns off to match
+# JAX's HIGHEST) and bf16-rounded operands (compute_dtype bfloat16). The
+# gate must stop each, every run: it shows the factor still tells these
+# precisions from float32's (chip_diag.py st3d-step measured the controls'
+# gradients 1.2e-2 to 0.26 of their norms from float64, 16x and more the
+# CPU float32 step's own, against the card's 0.88x to 1.43x; PERF.md §6).
+ST3D_CONTROLS = ("tf32", "bf16")
+
+
+def st3d_set(np, root: str):
+    """Write a procedural RGB-D panorama at root (<name>_rgb.png and the
+    16-bit <name>_d.png, name the folder's) and make the st3d set of it with
+    the port's data tool. The scene: an axis-aligned room around the
+    camera, each wall its colour under a sinusoid texture, and two spheres
+    coloured by their normals; depth is the distance to the first hit,
+    scaled to the 16-bit range by its largest. Returns (write_s,
+    generate_s)."""
+    from hashnerf_torch.ops.rays import equirect_directions
+    from hashnerf_torch.tools.generate_equirect_data import generate
+    from hashnerf_torch.utils.png import write_png
+
+    t0 = time.perf_counter()
+    H, W = ST3D_HW
+    d = equirect_directions(H, W).astype(np.float64)
+    lo, hi = np.array([-1.6, -1.0, -1.9]), np.array([1.4, 1.3, 1.7])
+    with np.errstate(divide="ignore"):
+        tb = np.where(d > 0, hi / d, np.where(d < 0, lo / d, np.inf))
+    axis, t = np.argmin(tb, -1), np.min(tb, -1)
+    p = d * t[..., None]
+    u = np.take_along_axis(p, ((axis + 1) % 3)[..., None], -1)[..., 0]
+    v = np.take_along_axis(p, ((axis + 2) % 3)[..., None], -1)[..., 0]
+    base = np.array([[0.8, 0.4, 0.3], [0.35, 0.6, 0.8], [0.5, 0.75, 0.4]])[axis]
+    rgb = base * (0.55 + 0.45 * (0.5 + 0.5 * np.sin(6.0 * u) * np.cos(5.0 * v)))[..., None]
+    for c, r in ((np.array([0.7, -0.4, -0.9]), 0.35), (np.array([-0.6, 0.2, 0.8]), 0.45)):
+        b = np.sum(-c * d, -1)
+        disc = b * b - (np.sum(c * c) - r * r)
+        ts = -b - np.sqrt(np.maximum(disc, 0.0))
+        hit = (disc > 0) & (ts > 0) & (ts < t)
+        n = (d * ts[..., None] - c) / r
+        rgb = np.where(hit[..., None], 0.5 + 0.5 * n, rgb)
+        t = np.where(hit, ts, t)
+    os.makedirs(root)
+    name = os.path.basename(root.rstrip("/"))
+    write_png(os.path.join(root, name + "_rgb.png"),
+              np.clip(np.round(rgb * 255.0), 0, 255).astype(np.uint8))
+    write_png(os.path.join(root, name + "_d.png"), np.round(t / t.max() * 65535).astype(np.uint16))
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    generate(root, n_train=100, n_test=10, radius=0.3, seed=0)
+    return write_s, time.perf_counter() - t0
+
+
+def st3d_argv(data: str, logs: str, run: str):
+    """run_nerf's arguments for the st3d phase's run `run` (of ST3D_ITERS)
+    on the set at data: configs/st3d.txt (with ST3D_OMNI_FLAGS for
+    omninerf) for ST3D_ITERS[run] steps in graphed pool blocks of 16, the
+    test set and a checkpoint at the last."""
+    n = str(ST3D_ITERS[run])
+    return ["--config", os.path.join(ROOT, "configs", "st3d.txt"), "--datadir", data,
+            "--basedir", logs, "--device", DEV, "--no_reload", "--steps_per_dispatch", "16",
+            "--st3d_eval_views", str(ST3D_EVAL_VIEWS), "--i_print", "32",
+            *(ST3D_OMNI_FLAGS if run == "omninerf" else []),
+            "--N_iters", n, "--i_weights", n, "--i_testset", n]
+
+
+def st3d_pool(np, trainer, rays):
+    """The pool as main_st3d builds it from the loader's rays (a RayBundle):
+    the columns the trainer's run supervises, shuffled in place by
+    np.random.default_rng(0)'s permutation."""
+    args = trainer.args
+    pool = trainer.build_column_pool({
+        "rays_o": rays.o, "rays_d": rays.d, "target": rays.rgb,
+        "target_depth": rays.depth if args.use_depth else None,
+        "target_grad": rays.g if args.use_gradient else None})
+    trainer.shuffle_pool(pool, np.random.default_rng(0).permutation(rays.o.shape[0]))
+    return pool
+
+
+def st3d_step_card_vs_cpu(torch, np, trainer, batch):
+    """One loss and backward of OmniNeRF's step from the trainer's state
+    on one pool batch with the same draws (drawn on the CPU from a seed),
+    on the card and on CPU copies of the state in float32 and float64,
+    held by ST3D_F32_ERR_FACTOR; the card's ST3D_CONTROLS, each of which
+    the same gate must stop. On the card also: the render returns a finite grad_map, and the
+    loss holds the depth and the gradient terms (each adds to the loss of
+    the same render without it)."""
+    import copy
+    import dataclasses
+
+    from hashnerf_torch.models.factory import NGPState, query_fn
+    from hashnerf_torch.render.renderer import RenderDraws, render_rays
+    from hashnerf_torch.train.driver import TrainDraws, make_loss_fn
+
+    args = trainer.args
+    R, S, Si = batch["rays_o"].shape[0], args.N_samples, args.N_importance
+    gen = torch.Generator().manual_seed(2)
+    draws = RenderDraws(t_strat=torch.rand((R, S), generator=gen),
+                        noise0=torch.randn((R, S), generator=gen),
+                        u_pdf=torch.rand((R, Si), generator=gen),
+                        noise1=torch.randn((R, S + Si), generator=gen))
+    cpu_state = NGPState(trainer.model_cfg, device="cpu")
+    cpu_state.load_state_dict({k: v.cpu() for k, v in trainer.state.state_dict().items()})
+    f64_state = copy.deepcopy(cpu_state).double()
+    bf16_cfg = dataclasses.replace(trainer.model_cfg, compute_dtype="bfloat16")
+    bf16_state = NGPState(bf16_cfg, device=DEV)
+    bf16_state.load_state_dict(trainer.state.state_dict())
+
+    def on(dev, dt):
+        b = {k: v.to(dev, dt) for k, v in batch.items()}
+        b["viewdirs"] = b["rays_d"] / torch.linalg.norm(b["rays_d"], dim=-1, keepdim=True)
+        return b, TrainDraws(render=RenderDraws(*(None if x is None else x.to(dev, dt)
+                                                  for x in draws)))
+
+    legs = {"card": (trainer.state, DEV, torch.float32), "cpu": (cpu_state, "cpu", torch.float32),
+            "cpu_f64": (f64_state, "cpu", torch.float64), "tf32": (trainer.state, DEV, torch.float32),
+            "bf16": (bf16_state, DEV, torch.float32)}
+    out, tf32 = {}, torch.backends.cuda.matmul.allow_tf32
+    for where in ("card", "cpu", "cpu_f64") + ST3D_CONTROLS:
+        state, dev, dt = legs[where]
+        cfg = bf16_cfg if where == "bf16" else trainer.model_cfg
+        loss_fn = make_loss_fn(args, trainer.render_cfg, trainer.bbox.to(dev, dt), cfg)
+        b, d = on(dev, dt)
+        for q in state.parameters():
+            q.grad = None
+        torch.backends.cuda.matmul.allow_tf32 = where == "tf32"
+        try:
+            t0 = time.perf_counter()
+            loss, _ = loss_fn(state, b, 0.0, draws=d)
+            loss.backward()
+            out[where] = (float(loss.detach()),
+                          [q.grad.detach().cpu().double() for q in state.net_parameters()],
+                          time.perf_counter() - t0)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+    ref_loss, ref_g, _ = out["cpu_f64"]
+
+    def errors(where):
+        loss, g, _ = out[where]
+        return (abs(loss - ref_loss) / abs(ref_loss),
+                max(float((a - r).norm() / r.norm().clamp_min(1e-300)) for a, r in zip(g, ref_g)))
+
+    (card_loss, card_grad), (cpu_loss, cpu_grad) = errors("card"), errors("cpu")
+    F = ST3D_F32_ERR_FACTOR
+    passes = lambda e: e[0] <= F * cpu_loss + 1e-6 and e[1] <= F * cpu_grad + 1e-6
+    controls = {c: {"loss_err": e[0], "grad_err_over_norm": e[1], "passes_the_gate": passes(e)}
+                for c in ST3D_CONTROLS for e in [errors(c)]}
+    del bf16_state
+    # the supervision on the card: the same render with each term alone
+    b, card_draws = on(DEV, torch.float32)
+    terms = {}
+    with torch.no_grad():
+        ret = render_rays(trainer.state, query_fn, b["rays_o"], b["rays_d"], b["viewdirs"],
+                          b["near"], b["far"], trainer.bbox, trainer.render_cfg,
+                          draws=card_draws.render)
+        for name, flags in (("neither", ()), ("depth", ("use_depth",)), ("gradient", ("use_gradient",))):
+            a = argparse.Namespace(**{**vars(args), "use_depth": "use_depth" in flags,
+                                      "use_gradient": "use_gradient" in flags})
+            fn = make_loss_fn(a, trainer.render_cfg, trainer.bbox, trainer.model_cfg)
+            terms[name] = float(fn(trainer.state, b, 0.0, draws=card_draws)[0])
+    grad_map = ret.get("grad_map")
+    l_card = out["card"][0]
+    rec = {"rays": R, "loss_card": l_card, "loss_cpu": out["cpu"][0], "loss_cpu_f64": ref_loss,
+           "loss_err_card": card_loss, "loss_err_cpu": cpu_loss,
+           "grad_err_over_norm_card": card_grad, "grad_err_over_norm_cpu": cpu_grad,
+           "grad_tensors": len(ref_g), "factor": ST3D_F32_ERR_FACTOR,
+           "cpu_s": out["cpu"][2], "cpu_f64_s": out["cpu_f64"][2], "loss_terms": terms,
+           "grad_map_shape": None if grad_map is None else list(grad_map.shape),
+           "controls": controls}
+    require(passes((card_loss, card_grad)),
+            f"st3d omninerf: one step on the card against the CPU's float64 step: {rec}")
+    require(not any(c["passes_the_gate"] for c in controls.values()),
+            f"st3d omninerf: a control passes the card's step gate: {rec}")
+    require(grad_map is not None and grad_map.shape == (R, 3) and bool(torch.isfinite(grad_map).all())
+            and terms["depth"] > terms["neither"] and terms["gradient"] > terms["neither"]
+            and abs(terms["depth"] + terms["gradient"] - terms["neither"] - l_card) <= 1e-4 * l_card,
+            f"st3d omninerf: grad_map and the depth and gradient terms: {rec}")
+    return rec
+
+
+def _gemm_ms(rows):
+    """Device ms a step of the GEMM kernels among profile_steps' top rows."""
+    return sum(r["ms_per_step"] for r in rows if "gemm" in r["name"].lower())
+
+
+def phase_st3d(torch, np, smi: str, profile: bool):
+    """The st3d path end to end (see ST3D_*): write and make the set, load
+    it (host peak traced), then configs/st3d.txt as written and as
+    OmniNeRF through run_nerf.main; after each, the pool again from the
+    loader's rays (rows equal to the loader's), eager and graphed pool
+    windows and one panorama timed; for the hash grid, after its launches
+    are read, K2 and K6 on its own points (encode_check); for OmniNeRF one
+    step and rows of the ground-truth panorama card against CPU. Each run
+    launches the kernels PATHS["st3d"] names for it and no other."""
+    import itertools
+    import resource
+    import tracemalloc
+
+    from hashnerf_torch import kernels
+    from hashnerf_torch.data.st3d import load_st3d_data
+    from hashnerf_torch.models.factory import NGPState
+    from hashnerf_torch.models.nerf import NeRFGradient
+    from hashnerf_torch.run_nerf import eval_test_omninerf, main as run_nerf
+
+    t_phase = time.perf_counter()
+    workdir = tempfile.mkdtemp(prefix="hashnerf_torch_st3d_")
+    try:
+        data, logs = os.path.join(workdir, "pano", ST3D_NAME), os.path.join(workdir, "logs")
+        write_s, gen_s = st3d_set(np, data)
+        tracemalloc.start()
+        t0 = time.perf_counter()
+        rays, rays_test, H, W = load_st3d_data(data)
+        load_s = time.perf_counter() - t0
+        load_peak_gib = tracemalloc.get_traced_memory()[1] / 2**30
+        tracemalloc.stop()
+        n_rays = rays.o.shape[0]
+        bundle_gib = sum(a.nbytes for a in (rays.o, rays.d, rays.rgb, rays.depth, rays.g)) / 2**30
+        require((H, W) == ST3D_HW and rays_test.rgb.shape[0] == 11 * H * W
+                and 0.5 * 100 * H * W < n_rays <= 100 * H * W,
+                f"st3d: {n_rays} train rays, {rays_test.rgb.shape[0]} test rays, {(H, W)}")
+        gt = rays_test.rgb[-H * W:].reshape(H, W, 3)
+
+        runs = {}
+        for name in ST3D_ITERS:
+            n = ST3D_ITERS[name]
+            kernels.reset_launch_counts()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            trainer, stamps = _run(run_nerf, st3d_argv(data, logs, name))
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t0
+            run_peak = torch.cuda.max_memory_allocated() / 2**30
+            args = trainer.args
+            hashed = trainer.state.hash_table is not None
+            require(trainer.global_step == n and hashed == (name == "hash")
+                    and isinstance(trainer.state.coarse, NeRFGradient) == (not hashed),
+                    f"st3d {name}: step {trainer.global_step}, model {trainer.state.coarse}")
+            losses = [h[1] for h in trainer.history]
+            require(len(losses) == n // 32 and all(np.isfinite(losses))
+                    and np.mean(losses[-3:]) < np.mean(losses[:3]), f"st3d {name}: losses {losses}")
+            expdir = os.path.join(logs, args.expname)
+            testdir = os.path.join(expdir, "testset_{:06d}".format(n))
+            require(os.path.exists(os.path.join(expdir, "{:06d}.ckpt".format(n))),
+                    f"st3d {name}: no checkpoint")
+            with open(os.path.join(testdir, "statistics.txt")) as f:
+                stats = f.read()
+            psnr = float(stats.split("psnr:")[1])
+            frames, shape = gif_frames(os.path.join(testdir, "video2.gif"))
+            require(np.isfinite(psnr) and frames == 2 * (ST3D_EVAL_VIEWS - 1) and shape == (H, W),
+                    f"st3d {name}: statistics {stats!r}, video2.gif {frames} frames of {shape}")
+
+            # the pool as main_st3d builds it, from the loader's rays
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pool = st3d_pool(np, trainer, rays)
+            torch.cuda.synchronize()
+            pool_s = time.perf_counter() - t0
+            want_cols = 9 + 3 * args.use_gradient + args.use_depth
+            require(pool.shape == (n_rays, want_cols), f"st3d {name}: pool {tuple(pool.shape)}")
+            pool_gib = pool.numel() * pool.element_size() / 2**30
+            rows = itertools.count(0, args.N_rand)
+            batches = lambda: trainer.sample_pool(pool, next(rows), args.N_rand)
+            torch.cuda.reset_peak_memory_stats()
+            c0 = kernels.launch_counts()
+            eager_s, eager_losses = timed_steps(torch, trainer, 10, batches=batches)
+            c1 = kernels.launch_counts()
+            train_peak = torch.cuda.max_memory_allocated() / 2**30
+            require(all(np.isfinite(eager_losses)), f"st3d {name}: non-finite eager loss")
+            prof = None
+            if profile:
+                prof = {"path": f"st3d_{name}", **profile_steps(
+                    torch, trainer, 3, statistics.median(eager_s), batches=batches)}
+                gemm = _gemm_ms(prof["top"])
+                prof["gemm_ms_per_step_top25"] = gemm
+                prof["gemm_share_of_busy"] = gemm / prof["device_busy_ms_per_step"]
+            at = next(rows)
+            windows = {"tv": ST3D_GRAPH_TV_START, "no_tv": GRAPH_NO_TV_START} if hashed else {
+                "no_tv": trainer.global_step}
+            graphed = {w: graphed_window(torch, trainer, "st3d", start, w, profile, pool=pool,
+                                         offset=at) for w, start in windows.items()}
+            for w, rec in graphed.items():
+                per = rec["launches_per_step"]
+                if hashed:
+                    ok = (per["hash_encode_fwd"] > 0 and per["hash_encode_bwd"] > 0
+                          and (per["segment_accumulate_k5"] >= 1) == (w == "tv"))
+                else:
+                    ok = not any(per.values())
+                require(ok, f"st3d {name} graphed {w} launches a step: {per}")
+
+            # one panorama, timed: the ground-truth view alone, so no GIF
+            args.st3d_eval_views = 1
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            rgbs, _, view_psnr = eval_test_omninerf(trainer, rays_test, H, W,
+                                                    os.path.join(expdir, "one_view"))
+            torch.cuda.synchronize()
+            view_s = time.perf_counter() - t0
+            view_peak = torch.cuda.max_memory_allocated() / 2**30
+            require(rgbs.shape == (1, H, W, 3) and np.isfinite(view_psnr)
+                    and not os.path.exists(os.path.join(expdir, "one_view", "video2.gif")),
+                    f"st3d {name}: one view {rgbs.shape}, PSNR {view_psnr}")
+            counts = kernels.launch_counts()
+            want = PATHS["st3d"]["runs"][name]
+            bad = {k: v for k, v in counts.items() if (v > 0) != (k in want)}
+            require(not bad, f"st3d {name}: launches {counts}, must launch exactly {want}")
+            # K2 and K6 at run A's shapes, on a pool batch's sample points
+            encode = encode_check(torch, trainer, trainer.sample_pool(pool, next(rows), args.N_rand),
+                                  "st3d") if hashed else None
+
+            rec = {"run": name, "iters": n, "run_s": run_s, "losses": losses,
+                   "test_psnr_gt_view": psnr, "pool_rows": n_rays, "pool_columns": want_cols,
+                   "pool_gib": pool_gib, "pool_build_s": pool_s,
+                   "step_ms_eager": [t * 1e3 for t in eager_s],
+                   "train_rays_per_s_eager": args.N_rand / statistics.median(eager_s),
+                   "launches_per_step_eager": {k: (c1[k] - c0[k]) / len(eager_s) for k in c0},
+                   "graphed": graphed,
+                   "train_rays_per_s_graphed": {w: g["train_rays_per_s_graphed"]
+                                                for w, g in graphed.items()},
+                   "panorama_s": view_s, "panorama_psnr": view_psnr,
+                   "peak_mem_gib_run": run_peak, "peak_mem_gib_training": train_peak,
+                   "peak_mem_gib_panorama": view_peak, "launches": counts}
+            if hashed:
+                rec["encode"] = encode
+            else:
+                rec["card_vs_cpu_step"] = st3d_step_card_vs_cpu(
+                    torch, np, trainer, trainer.sample_pool(pool, next(rows), args.N_rand))
+                # every ST3D_CPU_ROW_STRIDE-th row of the ground-truth panorama
+                cfg = trainer.render_cfg.eval_mode()
+                o = torch.from_numpy(rays_test.o[-H * W:].reshape(H, W, 3)[::ST3D_CPU_ROW_STRIDE])
+                d = torch.from_numpy(rays_test.d[-H * W:].reshape(H, W, 3)[::ST3D_CPU_ROW_STRIDE])
+                o, d = o.reshape(-1, 3), d.reshape(-1, 3)
+                ray_set = (o, d, d / torch.linalg.norm(d, dim=-1, keepdim=True))
+                rgb_card = render_on_rays(torch, trainer.state, ray_set, trainer.bbox, cfg,
+                                          trainer.near, trainer.far, args.chunk)
+                cpu_state = NGPState(trainer.model_cfg, device="cpu")
+                cpu_state.load_state_dict({k: v.cpu() for k, v in trainer.state.state_dict().items()})
+                t0 = time.perf_counter()
+                rgb_cpu = render_on_rays(torch, cpu_state, ray_set, trainer.bbox.cpu(), cfg,
+                                         trainer.near, trainer.far, ST3D_CPU_CHUNK)
+                cpu_rows_s = time.perf_counter() - t0
+                ok, err = jax_view_close(rgb_card.numpy(), rgb_cpu.numpy())
+                # the same rows of the card's whole panorama (render() in chunks)
+                whole = rgbs[0][::ST3D_CPU_ROW_STRIDE].reshape(-1, 3)
+                ok_whole, err_whole = jax_view_close(whole, rgb_cpu.numpy())
+                require(ok and ok_whole and rgb_card.shape == (o.shape[0], 3),
+                        f"st3d omninerf: rows card against CPU {err}, the panorama's {err_whole}")
+                rec.update({"cpu_rows": o.shape[0], "cpu_rows_s": cpu_rows_s,
+                            "card_vs_cpu_rows": err, "panorama_vs_cpu_rows": err_whole})
+                del cpu_state
+            emit({"phase": "st3d", "card": smi, **rec})
+            if prof is not None:
+                rec["profile"] = prof
+                emit(prof)
+            runs[name] = rec
+            del trainer, pool
+            torch.cuda.empty_cache()
+
+        phase_s = time.perf_counter() - t_phase
+        out = {"phase": "st3d", "card": smi, "hw": [H, W], "write_s": write_s, "generate_s": gen_s,
+               "load_s": load_s, "train_rays": n_rays, "bundle_gib": bundle_gib,
+               "load_host_peak_gib_traced": load_peak_gib,
+               "host_peak_rss_gib": resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20,
+               "runs": runs, "phase_s": phase_s,
+               "launches": {k: sum(r["launches"][k] for r in runs.values()) for k in KERNEL_INFO}}
+        shown = [("write_s", write_s), ("generate_s", gen_s), ("load_s", load_s),
+                 ("pool rows", n_rays), ("pool GiB hash", runs["hash"]["pool_gib"]),
+                 ("pool GiB omninerf", runs["omninerf"]["pool_gib"]),
+                 ("load host peak GiB", load_peak_gib), ("host peak RSS GiB", out["host_peak_rss_gib"])]
+        for name, r in runs.items():
+            shown += [(f"{name} eager rays/s", r["train_rays_per_s_eager"])]
+            shown += [(f"{name} graphed rays/s {w}", v) for w, v in r["train_rays_per_s_graphed"].items()]
+            shown += [(f"{name} panorama s", r["panorama_s"]), (f"{name} peak GiB run", r["peak_mem_gib_run"])]
+            if "profile" in r:
+                shown += [(f"{name} busy ms/step", r["profile"]["device_busy_ms_per_step"]),
+                          (f"{name} GEMM share", r["profile"]["gemm_share_of_busy"])]
+        shown.append(("phase_s", phase_s))
+        print("st3d: " + "; ".join(f"{k} {v:.6g} [{smi}]" for k, v in shown), flush=True)
+        return out
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+
+
+# The loaders phase (slice 9): every new loader on the card, cut short, on
+# sets of the real frame sizes traced from the procedural "multi" scene
+# (cameras on the r = 4 ring, as make_synthetic_scene's), through
+# run_nerf.main: LOADER_ITERS eager steps, a checkpoint and the test set's
+# one view at the last. The cuts, each: frames (LOADER_FRAMES), steps (of
+# 50,000), the procedural scene for the real one; scannet keeps its
+# trainskip of 10 (only the frames it keeps are written).
+LOADER_ITERS = 64
+LOADER_FRAMES = {"train": 20, "val": 1, "test": 1}  # scannet's train list; 2 kept
+LOADER_RUN = ["--N_iters", str(LOADER_ITERS), "--i_print", "8", "--i_weights", str(LOADER_ITERS),
+              "--i_testset", str(LOADER_ITERS), "--i_video", "0", "--no_reload"]
+LOADERS = {
+    # configs/scannet_scene0000.txt as written (hash grid, ray pool, lrate
+    # 0.01, 64 + 128 samples) on ScanNet's 1296 x 968 frames and a binary
+    # PLY of the scene's surface
+    "scannet": {"hw": (968, 1296), "flags": ["--config", os.path.join(
+        "configs", "scannet_scene0000.txt")]},
+    # positional NeRF 8 x 256 (OmniNeRF's encoders without the gradient
+    # head), Adam, at DeepVoxels' 512 x 512; 4 train, 1 test, 1 validation
+    "deepvoxels": {"hw": (512, 512), "flags": [
+        "--dataset_type", "deepvoxels", "--shape", "greek", "--i_embed", "0", "--i_embed_views",
+        "0", "--use_viewdirs", "--N_samples", "64", "--N_importance", "128", "--N_rand", "1024",
+        "--testskip", "1"]},
+    # the hash-grid defaults with LINEMOD's K (its 640 x 480 camera) and the
+    # +-10 fallback box; 2 train, 1 val, 1 test
+    "LINEMOD": {"hw": (480, 640), "flags": [
+        "--dataset_type", "LINEMOD", "--use_viewdirs", "--N_samples", "64", "--N_importance",
+        "128", "--N_rand", "1024", "--testskip", "1"]},
+}
+LINEMOD_K = [[572.4114, 0.0, 325.2611], [0.0, 573.57043, 242.04899], [0.0, 0.0, 1.0]]
+
+
+def _ring_poses(np, n: int):
+    from hashnerf_torch.data.pose_paths import pose_spherical
+
+    return [pose_spherical(a, -30.0, 4.0) for a in np.linspace(-180, 180, n + 1)[:-1]]
+
+
+def _trace_frame(np, hw, K, pose):
+    from hashnerf_torch.data.synthetic import _render_view
+
+    img = _render_view(hw[0], hw[1], np.asarray(K), np.asarray(pose)[:3, :4], "multi", 1)
+    return np.clip(np.round(img * 255.0), 0, 255).astype(np.uint8)
+
+
+def loader_set(np, kind: str, root: str):
+    """Write a set of `kind`'s layout at root and return its (H, W) and the
+    number of frames written."""
+    import json
+
+    from hashnerf_torch.utils.png import write_png
+
+    H, W = LOADERS[kind]["hw"]
+    if kind == "scannet":
+        sceneID = "scene0000_00"
+        nerfdir = os.path.join(root, "nerfstyle_" + sceneID)
+        os.makedirs(os.path.join(nerfdir, "frames"))
+        angle_x = 2 * math.atan(W / 2 / 1170.0)  # ScanNet's color camera, fx about 1170
+        focal = 0.5 * W / math.tan(0.5 * angle_x)
+        K = [[focal, 0, 0.5 * W], [0, focal, 0.5 * H], [0, 0, 1]]
+        poses, written = _ring_poses(np, sum(LOADER_FRAMES.values())), 0
+        at = 0
+        for split, n in LOADER_FRAMES.items():
+            frames = []
+            for i in range(n):
+                pose = poses[at + i]
+                fname = f"frames/{split}_{i}"
+                if split != "train" or i % 10 == 0:  # trainskip 10 reads no other
+                    write_png(os.path.join(nerfdir, fname + ".png"), _trace_frame(np, (H, W), K, pose))
+                    written += 1
+                cv = np.array(pose)
+                cv[:3, 1:3] *= -1  # the loader flips OpenCV's y and z back
+                frames.append({"file_path": fname, "transform_matrix": cv.tolist()})
+            at += n
+            with open(os.path.join(nerfdir, f"transforms_{split}.json"), "w") as f:
+                json.dump({"camera_angle_x": angle_x, "frames": frames}, f)
+        # vh_clean's layout: float x, y, z and uchar colours, then the faces
+        scandir = os.path.join(root, "scans", sceneID)
+        os.makedirs(scandir)
+        from hashnerf_torch.data.synthetic import _MULTI_SPHERES
+
+        rng = np.random.default_rng(0)
+        verts = []
+        for c, r in _MULTI_SPHERES:
+            v = rng.normal(size=(50000, 3))
+            verts.append(c + r * v / np.linalg.norm(v, axis=-1, keepdims=True))
+        verts = np.concatenate(verts)
+        dt = np.dtype([("x", "<f4"), ("y", "<f4"), ("z", "<f4"), ("red", "u1"), ("green", "u1"),
+                       ("blue", "u1"), ("alpha", "u1")])
+        arr = np.zeros(len(verts), dt)
+        for i, c in enumerate("xyz"):
+            arr[c] = verts[:, i]
+        header = (f"ply\nformat binary_little_endian 1.0\nelement vertex {len(verts)}\n"
+                  + "".join(f"property float {c}\n" for c in "xyz")
+                  + "".join(f"property uchar {c}\n" for c in ("red", "green", "blue", "alpha"))
+                  + "element face 0\nproperty list uchar int vertex_indices\nend_header\n")
+        with open(os.path.join(scandir, f"{sceneID}_vh_clean.ply"), "wb") as f:
+            f.write(header.encode() + arr.tobytes())
+        return (H, W), written
+    if kind == "deepvoxels":
+        focal = 1.2 * W
+        poses, at = _ring_poses(np, 6), 0
+        transf = np.diag([1.0, -1.0, -1.0, 1.0])  # the loader's flip, its own inverse
+        K = [[focal, 0, 0.5 * W], [0, focal, 0.5 * H], [0, 0, 1]]
+        for split, n in (("train", 4), ("test", 1), ("validation", 1)):
+            base = os.path.join(root, split, "greek")
+            os.makedirs(os.path.join(base, "pose"))
+            os.makedirs(os.path.join(base, "rgb"))
+            for i in range(n):
+                pose = np.asarray(poses[at + i])
+                with open(os.path.join(base, "pose", f"{i:03d}.txt"), "w") as f:
+                    f.write(" ".join(str(v) for v in (pose @ transf).ravel()))
+                write_png(os.path.join(base, "rgb", f"{i:03d}.png"), _trace_frame(np, (H, W), K, pose))
+            at += n
+            if split == "train":
+                with open(os.path.join(base, "intrinsics.txt"), "w") as f:
+                    f.write(f"{focal} {W / 2} {H / 2}\n0 0 0\n1.0\n1.0\n{H} {W}\n0\n")
+        return (H, W), 6
+    # LINEMOD
+    poses, at = _ring_poses(np, 4), 0
+    for split, n in (("train", 2), ("val", 1), ("test", 1)):
+        os.makedirs(os.path.join(root, split))
+        frames = []
+        for i in range(n):
+            fp = os.path.join(root, split, f"{i}.png")
+            write_png(fp, _trace_frame(np, (H, W), LINEMOD_K, poses[at + i]))
+            frames.append({"file_path": fp, "transform_matrix": np.asarray(poses[at + i]).tolist(),
+                           "intrinsic_matrix": LINEMOD_K})
+        at += n
+        with open(os.path.join(root, f"transforms_{split}.json"), "w") as f:
+            json.dump({"frames": frames, "near": 2.3, "far": 5.7}, f)
+    return (H, W), 4
+
+
+def phase_loaders(torch, np, smi: str):
+    """Each new loader (LOADERS) on the card: write its set, train through
+    run_nerf.main for LOADER_ITERS steps with the test set's view at the
+    last; the loss finite and falling, a checkpoint, the view's figure and
+    PSNR; each run launches the kernels PATHS["loaders"] names for it and
+    no other."""
+    from hashnerf_torch import kernels
+    from hashnerf_torch.run_nerf import main as run_nerf
+    from hashnerf_torch.utils.png import read_png
+
+    t_phase = time.perf_counter()
+    workdir = tempfile.mkdtemp(prefix="hashnerf_torch_loaders_")
+    runs = {}
+    try:
+        for kind, spec in LOADERS.items():
+            data, logs = os.path.join(workdir, kind), os.path.join(workdir, "logs_" + kind)
+            t0 = time.perf_counter()
+            hw, n_frames = loader_set(np, kind, data)
+            write_s = time.perf_counter() - t0
+            flags = [os.path.join(ROOT, f) if f.startswith("configs") else f for f in spec["flags"]]
+            kernels.reset_launch_counts()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            trainer, stamps = _run(run_nerf, flags + ["--datadir", data, "--basedir", logs,
+                                                      "--device", DEV] + LOADER_RUN)
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t0
+            counts = kernels.launch_counts()
+            sc, args = trainer.scene, trainer.args
+            losses = [h[1] for h in trainer.history]
+            require(trainer.global_step == LOADER_ITERS and (sc.H, sc.W) == hw
+                    and all(np.isfinite(losses)) and np.mean(losses[-3:]) < np.mean(losses[:3]),
+                    f"{kind}: step {trainer.global_step}, {(sc.H, sc.W)}, losses {losses}")
+            expdir = os.path.join(logs, args.expname)
+            testdir = os.path.join(expdir, "testset_{:06d}".format(LOADER_ITERS))
+            require(os.path.exists(os.path.join(expdir, "{:06d}.ckpt".format(LOADER_ITERS)))
+                    and len(sc.i_test) == 1
+                    and read_png(os.path.join(testdir, "000.png")).shape == (hw[0], 2 * hw[1], 3),
+                    f"{kind}: no checkpoint or test figure")
+            psnrs = _psnr_pickle(testdir)
+            want = PATHS["loaders"]["runs"][kind]
+            bad = {k: v for k, v in counts.items() if (v > 0) != (k in want)}
+            require(not bad and np.isfinite(psnrs[0]),
+                    f"{kind}: launches {counts}, must launch exactly {want}; PSNR {psnrs}")
+            t_first = stamps.at("[TRAIN] Iter: 8 ")
+            view_s = stamps.at("Saved test set") - stamps.at("Saved checkpoints")  # its one view
+            train_rays_s = (LOADER_ITERS - 8) * args.N_rand / (stamps.at("Saved checkpoints") - t_first)
+            bbox = trainer.bbox.tolist()
+            runs[kind] = {"hw": list(hw), "frames_written": n_frames, "train_views": len(sc.i_train),
+                          "write_s": write_s, "run_s": run_s, "losses": losses,
+                          "train_rays_per_s_eager": train_rays_s, "view_s": view_s,
+                          "test_psnr": psnrs[0], "bbox": bbox, "near_far": [sc.near, sc.far],
+                          "model": type(trainer.state.coarse).__name__,
+                          "optimizer": type(trainer.optimizer).__name__,
+                          "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+                          "launches": counts}
+            emit({"phase": "loaders", "loader": kind, "card": smi, **runs[kind]})
+            del trainer
+            torch.cuda.empty_cache()
+        phase_s = time.perf_counter() - t_phase
+        shown = []
+        for kind, r in runs.items():
+            shown += [(f"{kind} rays/s", r["train_rays_per_s_eager"]), (f"{kind} view s", r["view_s"])]
+        shown.append(("phase_s", phase_s))
+        print("loaders: " + "; ".join(f"{k} {v:.6g} [{smi}]" for k, v in shown), flush=True)
+        return {"phase": "loaders", "card": smi, "runs": runs, "phase_s": phase_s,
+                "launches": {k: sum(r["launches"][k] for r in runs.values()) for k in KERNEL_INFO}}
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+
+
 def phase_bench(torch):
     """The line of `python -m hashnerf_torch.bench`, for the flagship and
     for BENCH_PARITY=1 (the chair step), run in this process."""
@@ -2341,11 +3005,15 @@ def main(argv=None) -> int:
     packed_enc = phase_packed_encode(torch, np, kept_pts)
     del kept_pts
     torch.cuda.empty_cache()
-    paths = {path: phase_main_path(torch, np, path, opts.profile) for path in PATHS}
+    paths = {path: phase_main_path(torch, np, path, opts.profile) for path in MAIN_PATHS}
     torch.cuda.empty_cache()
     blender = phase_blender(torch, np, dev["smi"], opts.profile)
     torch.cuda.empty_cache()
     llff = phase_llff(torch, np, dev["smi"], opts.profile)
+    torch.cuda.empty_cache()
+    st3d = phase_st3d(torch, np, dev["smi"], opts.profile)
+    torch.cuda.empty_cache()
+    loaders = phase_loaders(torch, np, dev["smi"])
     torch.cuda.empty_cache()
     benches = phase_bench(torch)
 
@@ -2361,6 +3029,8 @@ def main(argv=None) -> int:
         by_path = {p: rec["launches"][name] for p, rec in paths.items()}
         by_path["blender"] = blender["launches"][name]
         by_path["llff"] = llff["launches"][name]
+        by_path["st3d"] = st3d["launches"][name]
+        by_path["loaders"] = loaders["launches"][name]
         lines.append({
             "name": name, "route": "cuda", **info,
             "launches": sum(by_path.values()), "launches_by_path": by_path,
@@ -2375,7 +3045,7 @@ def main(argv=None) -> int:
             json.dump({"device": dev, "kernels": kern, "k4_hot_row": k4_hot, "k5_hot_rows": k5_hot,
                        "packed_kernels": packed, "occupancy": occupancy, "culled_k5": culled_k5,
                        "packed_encode": packed_enc, "main_paths": paths, "blender": blender,
-                       "llff": llff, "bench": benches,
+                       "llff": llff, "st3d": st3d, "loaders": loaders, "bench": benches,
                        "seconds": time.perf_counter() - t_start}, f, indent=1)
     print(f"chip_smoke seconds: {time.perf_counter() - t_start:.1f} [{dev['smi']}]", flush=True)
     print(f"card: {dev['smi']}", flush=True)

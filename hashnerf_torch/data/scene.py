@@ -1,5 +1,5 @@
 """Numpy copy of hashnerf_tpu/data/scene.py (the port imports nothing of
-the JAX package); the st3d RayBundle comes with the st3d loader (ROADMAP A6).
+the JAX package): the Scene every loader returns, and st3d's RayBundle.
 
 Uniform Scene container emitted by every loader.
 
@@ -52,3 +52,19 @@ class Scene:
             return np.array([[-10.0, -10.0, -10.0], [10.0, 10.0, 10.0]], np.float32)
         return np.stack([self.bounding_box[0], self.bounding_box[1]], 0).astype(np.float32)
 
+
+
+@dataclasses.dataclass
+class RayBundle:
+    """Flat per-ray training data of the st3d / OmniNeRF path."""
+
+    o: np.ndarray  # (N, 3)
+    d: np.ndarray  # (N, 3)
+    rgb: np.ndarray  # (N, 3)
+    depth: Optional[np.ndarray] = None  # (N,)
+    g: Optional[np.ndarray] = None  # (N, 3) image-gradient target
+
+    def shuffled(self, rng: np.random.Generator) -> "RayBundle":
+        perm = rng.permutation(self.rgb.shape[0])
+        pick = lambda a: None if a is None else a[perm]
+        return RayBundle(self.o[perm], self.d[perm], self.rgb[perm], pick(self.depth), pick(self.g))

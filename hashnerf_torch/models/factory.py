@@ -21,11 +21,15 @@ import torch
 from torch import nn
 
 from hashnerf_torch.kernels.hash_encode import hash_encode
-from hashnerf_torch.models.nerf import NeRFSmall, NeRFSmallConfig
+from hashnerf_torch.models.nerf import NeRF, NeRFConfig, NeRFGradient, NeRFSmall, NeRFSmallConfig
 from hashnerf_torch.ops.hash_encoding import HashGridConfig, init_hash_table
 from hashnerf_torch.ops.packed_grid import PackedGridConfig, init_packed_tables, packed_encode
+from hashnerf_torch.ops.positional import PositionalConfig, positional_encode
 from hashnerf_torch.ops.sh_encoding import sh_encode, sh_out_dim
 
+# the reference's embedder ids
+EMBED_IDENTITY = -1
+EMBED_POSITIONAL = 0
 EMBED_HASH = 1
 EMBED_SH = 2
 
@@ -34,8 +38,15 @@ EMBED_SH = 2
 class ModelConfig:
     i_embed: int = EMBED_HASH
     i_embed_views: int = EMBED_SH
+    multires: int = 10
+    multires_views: int = 4
     use_viewdirs: bool = True
+    use_gradient: bool = False  # NeRFGradient (the NeRF family only)
     N_importance: int = 0
+    netdepth: int = 8
+    netwidth: int = 256
+    netdepth_fine: int = 8
+    netwidth_fine: int = 256
     sh_degree: int = 4
     # one net for both render passes: the state has no fine net
     share_fine: bool = False
@@ -46,12 +57,36 @@ class ModelConfig:
     log2_blocks: int = -1  # packed fine rows per level; -1 = log2_hashmap_size - 3
 
     def __post_init__(self):
-        if self.i_embed != EMBED_HASH or self.i_embed_views != EMBED_SH:
-            raise NotImplementedError(
-                "hashnerf_torch ports only the hash-grid point encoder with the "
-                "SH view encoder (i_embed=1, i_embed_views=2); the others are "
-                "ROADMAP A1/A2"
-            )
+        if self.i_embed not in (EMBED_IDENTITY, EMBED_POSITIONAL, EMBED_HASH, EMBED_SH):
+            raise ValueError(f"unknown i_embed {self.i_embed} (-1, 0, 1 or 2)")
+        if self.use_viewdirs and self.i_embed_views not in (EMBED_IDENTITY, EMBED_POSITIONAL,
+                                                            EMBED_SH):
+            raise ValueError(f"unsupported i_embed_views {self.i_embed_views} (-1, 0 or 2)")
+
+    @property
+    def positional(self) -> PositionalConfig:
+        return PositionalConfig(num_freqs=self.multires, max_freq_log2=self.multires - 1)
+
+    @property
+    def positional_views(self) -> PositionalConfig:
+        return PositionalConfig(num_freqs=self.multires_views,
+                                max_freq_log2=self.multires_views - 1)
+
+    @property
+    def input_ch(self) -> int:
+        if self.i_embed == EMBED_HASH:
+            return self.hash_grid.out_dim
+        if self.i_embed == EMBED_SH:
+            return sh_out_dim(self.sh_degree)
+        return self.positional.out_dim if self.i_embed == EMBED_POSITIONAL else 3
+
+    @property
+    def input_ch_views(self) -> int:
+        if not self.use_viewdirs:
+            return 0
+        if self.i_embed_views == EMBED_SH:
+            return sh_out_dim(self.sh_degree)
+        return self.positional_views.out_dim if self.i_embed_views == EMBED_POSITIONAL else 3
 
     @property
     def packed_grid(self) -> PackedGridConfig:
@@ -68,22 +103,38 @@ class ModelConfig:
             log2_blocks=self.log2_blocks if self.log2_blocks > 0 else h.log2_hashmap_size - 3,
         )
 
-    def mlp_config(self) -> NeRFSmallConfig:
-        return NeRFSmallConfig(
-            input_ch=self.hash_grid.out_dim,
-            input_ch_views=sh_out_dim(self.sh_degree) if self.use_viewdirs else 0,
+    def mlp_config(self, fine: bool = False):
+        """The coarse (or fine) MLP's config: NeRFSmall's under the hash
+        grid, else NeRF's."""
+        if self.i_embed == EMBED_HASH:
+            return NeRFSmallConfig(input_ch=self.input_ch, input_ch_views=self.input_ch_views,
+                                   compute_dtype=self.compute_dtype)
+        return NeRFConfig(
+            D=self.netdepth_fine if fine else self.netdepth,
+            W=self.netwidth_fine if fine else self.netwidth,
+            input_ch=self.input_ch, input_ch_views=self.input_ch_views,
+            output_ch=5 if self.N_importance > 0 else 4, use_viewdirs=self.use_viewdirs,
             compute_dtype=self.compute_dtype,
         )
 
+    def make_mlp(self, fine: bool, generator=None, device=None) -> nn.Module:
+        if self.i_embed == EMBED_HASH:
+            return NeRFSmall(self.mlp_config(fine), generator, device)
+        cls = NeRFGradient if self.use_gradient else NeRF
+        return cls(self.mlp_config(fine), generator, device)
+
 
 class NGPState(nn.Module):
-    """All learnable state: hash_table ((L, 2^T, F), or {"dense", "fine"}
-    under packed_layout), coarse, fine (or None)."""
+    """All learnable state: hash_table ((L, 2^T, F), {"dense", "fine"}
+    under packed_layout, or None without the hash grid), coarse, fine (or
+    None)."""
 
     def __init__(self, cfg: ModelConfig, generator: Optional[torch.Generator] = None, device=None):
         super().__init__()
         self.cfg = cfg
-        if cfg.packed_layout:
+        if cfg.i_embed != EMBED_HASH:
+            self.hash_table = None
+        elif cfg.packed_layout:
             self.packed_cfg = cfg.packed_grid
             self.hash_table = nn.ParameterDict({
                 k: nn.Parameter(t)
@@ -94,12 +145,13 @@ class NGPState(nn.Module):
             self.register_buffer(
                 "resolutions", cfg.hash_grid.resolutions_tensor(device), persistent=False
             )
-        mcfg = cfg.mlp_config()
-        self.coarse = NeRFSmall(mcfg, generator, device)
+        self.coarse = cfg.make_mlp(False, generator, device)
         has_fine = cfg.N_importance > 0 and not cfg.share_fine
-        self.fine = NeRFSmall(mcfg, generator, device) if has_fine else None
+        self.fine = cfg.make_mlp(True, generator, device) if has_fine else None
 
     def table_parameters(self) -> List[nn.Parameter]:
+        if self.hash_table is None:
+            return []
         if isinstance(self.hash_table, nn.ParameterDict):
             return list(self.hash_table.values())
         return [self.hash_table]
@@ -111,21 +163,35 @@ class NGPState(nn.Module):
 
 def query_fn(state: NGPState, pts, viewdirs, bbox, fine: bool = False) -> torch.Tensor:
     """Encode points (+ view directions), run the MLP, zero sigma outside
-    the bbox. pts (R, S, 3), viewdirs (R, 3) or None, bbox (2, 3)
-    -> raw (R, S, 4)."""
+    the bbox (the hash grid's keep mask). pts (R, S, 3), viewdirs (R, 3) or
+    None, bbox (2, 3) -> raw (R, S, C): C 4, or NeRF's output_ch without
+    viewdirs, or 7 for NeRFGradient."""
+    cfg = state.cfg
     R, S = pts.shape[0], pts.shape[1]
     flat = pts.reshape(-1, 3).contiguous()
-    if state.cfg.packed_layout:
+    keep = None  # every point kept
+    if cfg.i_embed == EMBED_IDENTITY:
+        embedded = flat
+    elif cfg.i_embed == EMBED_POSITIONAL:
+        embedded = positional_encode(flat, cfg.positional)
+    elif cfg.i_embed == EMBED_SH:
+        embedded = sh_encode(flat, cfg.sh_degree)
+    elif cfg.packed_layout:
         embedded, keep = packed_encode(state.hash_table, flat, bbox[0], bbox[1], state.packed_cfg)
     else:
         embedded, keep = hash_encode(
             state.hash_table, flat, bbox[0].contiguous(), bbox[1].contiguous(), state.resolutions
         )
-    if state.cfg.use_viewdirs and viewdirs is not None:
+    if cfg.use_viewdirs and viewdirs is not None:
         dirs = viewdirs[:, None, :].expand(R, S, 3).reshape(-1, 3)
-        embedded = torch.cat([embedded, sh_encode(dirs, state.cfg.sh_degree)], dim=-1)
+        if cfg.i_embed_views == EMBED_SH:
+            dirs = sh_encode(dirs, cfg.sh_degree)
+        elif cfg.i_embed_views == EMBED_POSITIONAL:
+            dirs = positional_encode(dirs, cfg.positional_views)
+        embedded = torch.cat([embedded, dirs], dim=-1)
     mlp = state.fine if (fine and state.fine is not None) else state.coarse
     raw = mlp(embedded)
-    sigma = torch.where(keep, raw[..., 3], torch.zeros_like(raw[..., 3]))
-    raw = torch.cat([raw[..., :3], sigma[..., None], raw[..., 4:]], dim=-1)
+    if keep is not None:
+        sigma = torch.where(keep, raw[..., 3], torch.zeros_like(raw[..., 3]))
+        raw = torch.cat([raw[..., :3], sigma[..., None], raw[..., 4:]], dim=-1)
     return raw.reshape(R, S, raw.shape[-1])

@@ -1,11 +1,20 @@
-"""NeRFSmall, the Instant-NGP-style tiny MLP pair, as an nn.Module.
+"""The NeRF MLPs as nn.Modules: NeRFSmall, NeRF and NeRFGradient.
 
-Counterpart of NeRFSmall in hashnerf_tpu/models/nerf.py: a bias-free sigma
-net (num_layers x hidden_dim) to 1 + geo_feat_dim outputs, then a bias-free
-color net over [view encoding, geo features] to 3 rgb logits. Weights are
-nn.Linear's (out, in); the JAX package stores (in, out) (see convert.py).
-Init is U(-1/sqrt(fan_in), 1/sqrt(fan_in)), nn.Linear's default bound,
-drawn from an explicit torch.Generator.
+Counterparts of hashnerf_tpu/models/nerf.py:
+  * NeRFSmall, the Instant-NGP-style tiny pair: a bias-free sigma net
+    (num_layers x hidden_dim) to 1 + geo_feat_dim outputs, then a bias-free
+    color net over [view encoding, geo features] to 3 rgb logits;
+  * NeRF, the classic D x W trunk with biases, the encoded points concatenated
+    back in after each layer in `skips`, then either the viewdir branch
+    (alpha_linear and feature_linear on the trunk, one views_linears layer
+    of W // 2 over [feature, views], rgb_linear) or output_linear;
+  * NeRFGradient, NeRF with a gradient_linear head (W // 2 -> 3) beside
+    rgb_linear: (N, 7) = [rgb, alpha, gradient].
+Weights are nn.Linear's (out, in); the JAX package stores (in, out) (see
+convert.py). Weights and biases are drawn from U(-1/sqrt(fan_in),
+1/sqrt(fan_in)), nn.Linear's default bound, from an explicit
+torch.Generator. The products are plain float32 `F.linear`s, as JAX runs
+them outside any Pallas kernel.
 
 compute_dtype "bfloat16" or "float16" follows the JAX package's compute
 mode: the input and the weight of each layer are rounded to that type and
@@ -19,8 +28,9 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional
+from typing import Optional, Sequence
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -38,12 +48,28 @@ class NeRFSmallConfig:
     compute_dtype: Optional[str] = None  # None (float32), "bfloat16" or "float16"
 
 
-def _linear(fan_in: int, fan_out: int, generator, device) -> nn.Linear:
-    lin = nn.Linear(fan_in, fan_out, bias=False, device=device)
+def _linear(fan_in: int, fan_out: int, generator, device, bias: bool = False) -> nn.Linear:
+    lin = nn.Linear(fan_in, fan_out, bias=bias, device=device)
     bound = 1.0 / math.sqrt(fan_in)
     with torch.no_grad():
         lin.weight.uniform_(-bound, bound, generator=generator)
+        if bias:
+            lin.bias.uniform_(-bound, bound, generator=generator)
     return lin
+
+
+def _compute_dtype(name: Optional[str], what: str):
+    if name not in (None, "bfloat16", "float16"):
+        raise NotImplementedError(f"{what}: compute_dtype {name!r} is not ported (ROADMAP A7.4)")
+    return None if name is None else getattr(torch, name)
+
+
+def _apply(layer: nn.Linear, h: torch.Tensor, dtype) -> torch.Tensor:
+    """layer(h) in float32, or with input and weight rounded to dtype (the
+    bias is added in float32, as JAX adds it)."""
+    if dtype is None:
+        return layer(h)
+    return F.linear(h.to(dtype).float(), layer.weight.to(dtype).float(), layer.bias)
 
 
 class NeRFSmall(nn.Module):
@@ -67,16 +93,10 @@ class NeRFSmall(nn.Module):
             color.append(_linear(in_dim, out_dim, generator, device))
         self.sigma_net = nn.ModuleList(sigma)
         self.color_net = nn.ModuleList(color)
-        if cfg.compute_dtype not in (None, "bfloat16", "float16"):
-            raise NotImplementedError(
-                f"NeRFSmall: compute_dtype {cfg.compute_dtype!r} is not ported (ROADMAP A7.4)"
-            )
-        self._dtype = None if cfg.compute_dtype is None else getattr(torch, cfg.compute_dtype)
+        self._dtype = _compute_dtype(cfg.compute_dtype, "NeRFSmall")
 
     def _layer(self, layer: nn.Linear, h: torch.Tensor) -> torch.Tensor:
-        if self._dtype is None:
-            return layer(h)
-        return F.linear(h.to(self._dtype).float(), layer.weight.to(self._dtype).float())
+        return _apply(layer, h, self._dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x: (N, input_ch + input_ch_views) -> (N, 4) = [rgb logits, sigma]."""
@@ -95,3 +115,96 @@ class NeRFSmall(nn.Module):
             if l != cfg.num_layers_color - 1:
                 h = torch.relu(h)
         return torch.cat([h, sigma], dim=-1)
+
+
+@dataclasses.dataclass(frozen=True)
+class NeRFConfig:
+    D: int = 8
+    W: int = 256
+    input_ch: int = 3
+    input_ch_views: int = 3
+    output_ch: int = 4
+    skips: Sequence[int] = (4,)
+    use_viewdirs: bool = False
+    compute_dtype: Optional[str] = None  # None (float32), "bfloat16" or "float16"
+
+
+class NeRF(nn.Module):
+    """x (N, input_ch + input_ch_views) -> (N, 4) = [rgb logits, alpha] with
+    use_viewdirs, else (N, output_ch)."""
+
+    def __init__(self, cfg: NeRFConfig, generator: Optional[torch.Generator] = None, device=None):
+        super().__init__()
+        self.cfg = cfg
+        W = cfg.W
+        lin = lambda i, o: _linear(i, o, generator, device, bias=True)
+        self.pts_linears = nn.ModuleList(
+            [lin(cfg.input_ch, W)]
+            + [lin(W + cfg.input_ch if i in cfg.skips else W, W) for i in range(cfg.D - 1)]
+        )
+        if cfg.use_viewdirs:
+            self.views_linears = nn.ModuleList([lin(cfg.input_ch_views + W, W // 2)])
+            self.feature_linear = lin(W, W)
+            self.alpha_linear = lin(W, 1)
+            self.rgb_linear = lin(W // 2, 3)
+        else:
+            self.output_linear = lin(W, cfg.output_ch)
+        self._dtype = _compute_dtype(cfg.compute_dtype, type(self).__name__)
+
+    def _heads(self, h: torch.Tensor) -> list:
+        """The outputs of the viewdir branch's last hidden layer h."""
+        return [_apply(self.rgb_linear, h, self._dtype)]
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        cfg, dt = self.cfg, self._dtype
+        pts = x[..., : cfg.input_ch]
+        views = x[..., cfg.input_ch : cfg.input_ch + cfg.input_ch_views]
+        h = pts
+        for i, layer in enumerate(self.pts_linears):
+            h = torch.relu(_apply(layer, h, dt))
+            if i in cfg.skips:
+                h = torch.cat([pts, h], dim=-1)
+        if not cfg.use_viewdirs:
+            return _apply(self.output_linear, h, dt)
+        alpha = _apply(self.alpha_linear, h, dt)
+        h = torch.cat([_apply(self.feature_linear, h, dt), views], dim=-1)
+        for layer in self.views_linears:
+            h = torch.relu(_apply(layer, h, dt))
+        rgb, *rest = self._heads(h)
+        return torch.cat([rgb, alpha] + rest, dim=-1)
+
+
+class NeRFGradient(NeRF):
+    """NeRF with a gradient head: (N, 7) = [rgb logits, alpha, gradient]
+    with use_viewdirs (without it, NeRF's output_linear alone)."""
+
+    def __init__(self, cfg: NeRFConfig, generator: Optional[torch.Generator] = None, device=None):
+        super().__init__(cfg, generator, device)
+        if cfg.use_viewdirs:
+            self.gradient_linear = _linear(cfg.W // 2, 3, generator, device, bias=True)
+
+    def _heads(self, h: torch.Tensor) -> list:
+        return [_apply(self.rgb_linear, h, self._dtype), _apply(self.gradient_linear, h, self._dtype)]
+
+
+@torch.no_grad()
+def load_nerf_weights_from_keras(model: NeRF, weights) -> NeRF:
+    """Copy the original TF-NeRF Keras weight list into `model` in place.
+    The list alternates [W (in, out), b] per layer in the order
+    pts_linears, feature_linear, views_linears[0], rgb_linear, alpha_linear
+    (the JAX package's load_nerf_weights_from_keras); each W goes in
+    transposed. Needs use_viewdirs."""
+    cfg = model.cfg
+    if not cfg.use_viewdirs:
+        raise NotImplementedError("Keras import requires use_viewdirs=True")
+    layers = list(model.pts_linears) + [model.feature_linear, model.views_linears[0],
+                                        model.rgb_linear, model.alpha_linear]
+    for k, layer in enumerate(layers):
+        w = np.asarray(weights[2 * k], dtype=np.float32).T
+        b = np.asarray(weights[2 * k + 1], dtype=np.float32).reshape(-1)
+        if tuple(layer.weight.shape) != w.shape or tuple(layer.bias.shape) != b.shape:
+            raise ValueError(f"Keras layer {k}: {w.shape} / {b.shape}, the model has "
+                             f"{tuple(layer.weight.shape)} / {tuple(layer.bias.shape)}")
+        layer.weight.copy_(torch.from_numpy(np.ascontiguousarray(w)))
+        layer.bias.copy_(torch.from_numpy(b))
+    return model

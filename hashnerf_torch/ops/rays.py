@@ -1,9 +1,8 @@
 """Pinhole ray generation and the ray-bbox clip.
 
 Counterpart of get_rays / get_rays_at / get_rays_np / get_directions /
-ray_from_directions / get_ndc_rays / ray_aabb_near_far in
-hashnerf_tpu/ops/rays.py. The equirect directions come with the st3d
-loader (ROADMAP A6).
+ray_from_directions / get_ndc_rays / equirect_directions /
+ray_aabb_near_far in hashnerf_tpu/ops/rays.py.
 """
 from __future__ import annotations
 
@@ -115,6 +114,21 @@ def get_ndc_rays(H: int, W: int, focal: float, near: float, rays_o, rays_d):
     d1 = -1.0 / (H / (2.0 * focal)) * (rays_d[..., 1] / rays_d[..., 2] - oy_oz)
     d2 = 1.0 - o2
     return stack([o0, o1, o2], -1), stack([d0, d1, d2], -1)
+
+
+def equirect_directions(H: int, W: int) -> np.ndarray:
+    """(H, W, 3) float32 unit directions of an equirectangular panorama
+    (st3d): row x has latitude theta = (1 - 2x/H) pi/2, column y longitude
+    phi = 2 pi (0.5 - y/W); direction [cos t cos p, sin t, -cos t sin p]
+    (y up), in float64, then float32."""
+    x = np.arange(H, dtype=np.float64)[:, None]
+    y = np.arange(W, dtype=np.float64)[None, :]
+    theta = (1.0 - 2.0 * x / H) * np.pi / 2.0
+    phi = 2.0 * np.pi * (0.5 - y / W)
+    a0 = np.cos(theta) * np.cos(phi)
+    a1 = np.broadcast_to(np.sin(theta), (H, W))
+    a2 = -np.cos(theta) * np.sin(phi)
+    return np.stack([a0, a1, a2], axis=-1).astype(np.float32)
 
 
 def ray_aabb_near_far(rays_o, rays_d, bbox, near, far):

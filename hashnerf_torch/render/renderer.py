@@ -1,8 +1,10 @@
 """Volume renderer: stratified + hierarchical ray-march, chunked rendering.
 
-Counterpart of hashnerf_tpu/render/renderer.py: `render` warps a
-forward-facing scene's rays to NDC (`ndc`) after taking their view
-directions; `aabb_clip` tightens each ray's [near, far] to the bbox; with an occupancy
+Counterpart of hashnerf_tpu/render/renderer.py: `render` renders a view
+from a pose or given rays, and warps a forward-facing scene's rays to NDC
+(`ndc`) after taking their view directions; a NeRFGradient's gradient
+head is composited into `grad_map`; `aabb_clip` tightens each ray's
+[near, far] to the bbox; with an occupancy
 config and a grid, each pass queries only its budget of best-scoring
 samples (render/occupancy.py), globally (in blocks) or per ray;
 `fast_merge` draws the importance samples sorted (JAX then merges them with
@@ -139,7 +141,7 @@ def render_rays(
 
     def march(z_vals, noise, fine, scores=None):
         """One pass: query and composite. Returns (VolumeOutputs, weights on
-        the full z grid). Per-ray culling queries each ray's top-K samples,
+        the full z grid, raw). Per-ray culling queries each ray's top-K samples,
         in z order, and composites them with their original intervals; the
         weights go back onto the full grid for the fine pass's PDF."""
         if not per_ray:
@@ -153,7 +155,7 @@ def render_rays(
                                          scores=scores)
             out = raw2outputs(raw, z_vals, rays_d, cfg.raw_noise_std, cfg.white_bkgd,
                               noise=noise, generator=generator)
-            return out, out.weights
+            return out, out.weights, raw
 
         S = z_vals.shape[-1]
         K = keep_per_ray(S, keep_fraction(fine))
@@ -169,14 +171,14 @@ def render_rays(
                           noise=noise, generator=generator,
                           dists=torch.gather(dists_full, -1, idx))
         w_full = torch.zeros_like(z_vals, dtype=out.weights.dtype).scatter(-1, idx, out.weights)
-        return out, w_full
+        return out, w_full, raw
 
     z_vals = stratified_z_vals(near, far, cfg.N_samples, cfg.lindisp)
     if cfg.perturb:
         z_vals = perturb_z_vals(z_vals, draws.t_strat, generator)
 
     scores_c = score_z(z_vals) if occ is not None else None
-    out, w_full = march(z_vals, draws.noise0, fine=False, scores=scores_c)
+    out, w_full, raw = march(z_vals, draws.noise0, fine=False, scores=scores_c)
 
     ret = {}
     if cfg.N_importance > 0:
@@ -210,7 +212,7 @@ def render_rays(
                 t_fill = torch.cummin(torch.gather(payload, -1, perm), dim=-1).values
                 scores_f = torch.where((t_fill < 1e-3) & (scores_f > 0),
                                        torch.zeros_like(scores_f), scores_f)
-            out, _ = march(z_vals, draws.noise1, fine=True, scores=scores_f)
+            out, _, raw = march(z_vals, draws.noise1, fine=True, scores=scores_f)
         else:
             u = u_pdf
             if cfg.fast_merge and not det:
@@ -223,13 +225,16 @@ def render_rays(
             z_samples = sample_pdf(z_vals_mid, w_full[..., 1:-1], cfg.N_importance, det=det,
                                    u=u, generator=generator).detach()
             z_vals = merge_sorted(z_vals, z_samples)
-            out, _ = march(z_vals, draws.noise1, fine=True)
+            out, _, raw = march(z_vals, draws.noise1, fine=True)
         ret["z_std"] = torch.std(z_samples, dim=-1, correction=0)
 
     ret.update(
         rgb_map=out.rgb_map, depth_map=out.depth_map, acc_map=out.acc_map,
         disp_map=out.disp_map, sparsity_loss=out.sparsity_loss,
     )
+    if raw.shape[-1] >= 7:
+        # NeRFGradient: its gradient head composited with the last pass's weights
+        ret["grad_map"] = torch.sum(out.weights[..., None] * raw[..., 4:7], dim=-2)
     return ret
 
 
@@ -241,14 +246,17 @@ def render(
     K,
     bbox: torch.Tensor,
     cfg: RenderConfig,
-    c2w,
+    c2w=None,
     chunk: int = 1024 * 32,
     near: float = 0.0,
     far: float = 1.0,
     generator: Optional[torch.Generator] = None,
     occ_grid: Optional[torch.Tensor] = None,
+    rays=None,
 ):
-    """Chunked rendering of the full (H, W) image seen from c2w.
+    """Chunked rendering of the full (H, W) image seen from c2w, or of
+    given rays = (rays_o, rays_d) (..., 3) each (st3d's panoramas; H, W and
+    K are then used only by the NDC warp).
 
     PyTorch runs eagerly, so the chunks are a host loop (the JAX package
     scans them in one program). Under cfg.ndc the rays are warped to NDC
@@ -257,9 +265,13 @@ def render(
     rays to a whole number of chunks: a culled pass spends its budget over
     the whole chunk. Pass occ_grid to cull at eval too. Runs without
     autograd. Returns (rgb_map, depth_map, acc_map, extras), each shaped
-    (H, W, ...).
+    (H, W, ...), or as the given rays.
     """
-    rays_o, rays_d = get_rays(H, W, K, torch.as_tensor(c2w, device=bbox.device))
+    if rays is None:
+        rays_o, rays_d = get_rays(H, W, K, torch.as_tensor(c2w, device=bbox.device))
+    else:
+        rays_o, rays_d = (torch.as_tensor(r, dtype=torch.float32, device=bbox.device)
+                          for r in rays)
     sh = rays_d.shape
     viewdirs = None
     if cfg.use_viewdirs:

@@ -2,8 +2,9 @@
 
 Counterpart of hashnerf_tpu/train/checkpoint.py. The port writes its own
 format: one `torch.save` file per step, `{iter:06d}.ckpt`, holding the
-state_dicts of the NGPState module and the RAdam optimizer and the name of
-the table layout; loading uses `weights_only=True`. It also reads the JAX
+state_dicts of the NGPState module and the optimizer (RAdam under the hash
+grid, else Adam) and the name of the table layout; loading uses
+`weights_only=True`. It also reads the JAX
 package's checkpoints, under the same names: a pickle of builtins holding
 `global_step`, and the parameters and the optax state as flax msgpack bytes
 (utils/msgpack.py). `load_checkpoint` tells the two apart by content (a
@@ -24,15 +25,17 @@ import torch
 from hashnerf_torch.convert import jax_pairs
 from hashnerf_torch.utils.msgpack import msgpack_restore
 
-# Table layouts: the per-corner (L, 2^T, F) table, and the packed {dense, fine}.
+# Table layouts: the per-corner (L, 2^T, F) table, the packed {dense, fine},
+# and none (the NeRF family).
 LAYOUTS = {
     False: "hash (per-corner (L, 2^T, F) table)",
     True: "packed ({dense, fine} tables)",
+    None: "no table (NeRF-family MLPs)",
 }
 
 
 def _layout(state) -> str:
-    return LAYOUTS[state.cfg.packed_layout]
+    return LAYOUTS[None if state.hash_table is None else state.cfg.packed_layout]
 
 
 def save_checkpoint(path: str, global_step: int, state, optimizer) -> None:
@@ -108,32 +111,51 @@ def _group(opt: dict, name: str, path: str) -> dict:
                          "(inner_states/{name}/inner_state)") from None
 
 
+def _adam_state(opt, path: str) -> dict:
+    """optax.adam's state, a chain of (scale_by_adam: count, mu, nu) and
+    (the schedule's count): the first."""
+    try:
+        adam = opt[0]
+        adam["mu"], adam["nu"], adam["count"]
+    except (KeyError, TypeError, IndexError):
+        raise ValueError(f"{path}: the optimizer state is not optax.adam's "
+                         "([{count, mu, nu}, {count}])") from None
+    return adam
+
+
 @torch.no_grad()
 def load_jax_checkpoint(path: str, state, optimizer) -> int:
     """Load a checkpoint of the JAX package into `state` and the port's
-    RAdam `optimizer` in place; returns global_step.
+    optimizer in place; returns global_step.
 
-    Parameters as convert.load_jax_state takes them; RAdam's mu and nu per
-    leaf, transposed as the parameters are; the step count of each group
-    (the hash tables' "embed", the MLPs' "net") into each of its
-    parameters' step tensors. Every part and shape is checked before
-    anything is loaded (ValueError)."""
+    Parameters as convert.load_jax_state takes them; the moments mu and nu
+    per leaf, transposed as the parameters are; under the hash grid
+    (RAdam) the step count of each group (the hash tables' "embed", the
+    MLPs' "net") into each of its parameters' step tensors, else (Adam)
+    the one count into every parameter's. Every part and shape is checked
+    before anything is loaded (ValueError)."""
     payload = _read_jax_payload(path)
     params = _lists(msgpack_restore(payload["state"]))
     opt = _lists(msgpack_restore(payload["opt_state"]))
-    embed, net = _group(opt, "embed", path), _group(opt, "net", path)
+    if state.hash_table is None:
+        adam = _adam_state(opt, path)
+        counts = {"net": adam["count"]}
+        moment = lambda m: (None, adam[m]["coarse"], adam[m].get("fine"))
+    else:
+        embed, net = _group(opt, "embed", path), _group(opt, "net", path)
+        counts = {"embed": embed["step"], "net": net["step"]}
+        moment = lambda m: (embed[m]["hash_table"], net[m]["coarse"], net[m].get("fine"))
     try:
-        p_pairs = jax_pairs(state, params["hash_table"], params["coarse"], params.get("fine"))
-        moments = [jax_pairs(state, embed[m]["hash_table"], net[m]["coarse"], net[m].get("fine"))
-                   for m in ("mu", "nu")]
-    except (KeyError, TypeError) as e:
+        p_pairs = jax_pairs(state, params.get("hash_table"), params["coarse"], params.get("fine"))
+        moments = [jax_pairs(state, *moment(m)) for m in ("mu", "nu")]
+    except (KeyError, TypeError, AttributeError) as e:
         raise ValueError(f"{path}: not the layout of the JAX NGPState ({e!r})") from None
     except ValueError as e:
         raise ValueError(f"{path}: {e}") from None
     tables = {id(p) for p in state.table_parameters()}
     steps = {}
-    for name, group in (("embed", embed), ("net", net)):
-        step = np.asarray(group["step"])
+    for name, count in counts.items():
+        step = np.asarray(count)
         if step.shape != ():
             raise ValueError(f"{path}: the {name} step count has shape {step.shape}")
         steps[name] = float(step)

@@ -235,18 +235,15 @@ def check_supported(args) -> None:
             f"hashnerf_torch: {what} is not ported yet (ROADMAP {row})"
         )
 
-    if args.dataset_type not in ("synthetic", "blender", "llff"):
-        no(f"dataset_type {args.dataset_type!r}", "A6")
-    if args.i_embed != 1:
-        no(f"--i_embed {args.i_embed} (only the hash grid, 1)", "A1/A2")
-    if args.use_viewdirs and args.i_embed_views != 2:
-        no(f"--i_embed_views {args.i_embed_views} (only SH, 2)", "A1")
     if args.compute_dtype not in (None, "bfloat16", "float16"):
         no(f"--compute_dtype {args.compute_dtype} (only bfloat16 and float16)", "A7.4")
     if (args.num_devices or 0) > 1:
         no(f"--num_devices {args.num_devices}", "A8")
-    if args.use_depth or args.use_gradient:
-        no("st3d depth/gradient supervision", "A6")
+    if args.dataset_type == "st3d":
+        from hashnerf_torch.data.st3d import cv2_or_none, needs_exr
+
+        if needs_exr(args.datadir) and cv2_or_none() is None:
+            no("reading an mp3d set's depth.exr without cv2", "A6")
 
 
 # The JAX package's named bundles of the opt-in execution set, copied from

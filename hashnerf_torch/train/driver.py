@@ -1,12 +1,15 @@
 """Training driver: the train step, the Trainer and the training loop.
 
 Counterpart of hashnerf_tpu/train/driver.py: losses = fine MSE + coarse
-MSE + entropy sparsity + TV while global_step <= 1000, RAdam with two
-parameter groups and exponential LR decay, periodic print / checkpoint /
-spiral video / test-set figures. Batches come from one training image at a
-time (`no_batching`) or, by default, from a shuffled pool of every training
-ray on the device (ray batching); on a forward-facing scene (`scene.ndc`)
-the loss warps its rays to NDC.
+MSE + entropy sparsity + TV while global_step <= 1000 (the hash grid only),
+with st3d's depth (L1) and gradient (MSE) supervision when asked for; RAdam
+with two parameter groups for the hash grid, Adam for the NeRF family, both
+with exponential LR decay; periodic print / checkpoint / spiral video /
+test-set figures. Batches come from one training image at a time
+(`no_batching`) or, by default, from a shuffled pool of every training ray
+on the device (ray batching); st3d's pool is built from the loader's ray
+columns (`build_column_pool`). On a forward-facing scene (`scene.ndc`) the
+loss warps its rays to NDC.
 Besides the reference-exact step it takes the packed layout (with its own TV),
 `share_fine`, bf16 MLPs, `aabb_clip`, `fast_merge` and occupancy culling
 with its grid's lifecycle: updates every `update_every` steps, culling from
@@ -36,7 +39,7 @@ import torch
 
 from hashnerf_torch import resolve_device
 from hashnerf_torch.data.scene import Scene
-from hashnerf_torch.models.factory import ModelConfig, NGPState, query_fn
+from hashnerf_torch.models.factory import EMBED_HASH, ModelConfig, NGPState, query_fn
 from hashnerf_torch.ops.hash_encoding import HashGridConfig
 from hashnerf_torch.ops.rays import get_ndc_rays, get_rays, get_rays_at
 from hashnerf_torch.render.occupancy import (
@@ -45,6 +48,7 @@ from hashnerf_torch.render.occupancy import (
 from hashnerf_torch.render.renderer import (
     RenderConfig, RenderDraws, render, render_path, render_rays,
 )
+from hashnerf_torch.train.adam import Adam
 from hashnerf_torch.train.checkpoint import latest_checkpoint, load_checkpoint, save_checkpoint
 from hashnerf_torch.train.config import check_supported
 from hashnerf_torch.train.graphs import GraphCache
@@ -64,12 +68,29 @@ class TrainDraws(NamedTuple):
     tv_fine_rows: Optional[torch.Tensor] = None  # packed_layout: (Lf, k_rows), level-local
 
 
+# The columns of a ray-pool row, in order, with their widths: an image
+# pool has the first three (as (N, 3, 3) rows); st3d's pool adds its depth
+# and gradient targets when the run supervises them.
+POOL_COLUMNS = (("rays_o", 3), ("rays_d", 3), ("target", 3), ("target_depth", 1),
+                ("target_grad", 3))
+# A row's width tells its columns: 9, 10, 12 or 13 floats, one set each.
+POOL_LAYOUTS = {9 + d + 3 * g: ("rays_o", "rays_d", "target") + ("target_depth",) * d
+                + ("target_grad",) * g for d in (0, 1) for g in (0, 1)}
+
+
 def model_config_from_args(args) -> ModelConfig:
     return ModelConfig(
         i_embed=args.i_embed,
         i_embed_views=args.i_embed_views,
+        multires=args.multires,
+        multires_views=args.multires_views,
         use_viewdirs=args.use_viewdirs,
+        use_gradient=args.use_gradient,
         N_importance=args.N_importance,
+        netdepth=args.netdepth,
+        netwidth=args.netwidth,
+        netdepth_fine=args.netdepth_fine,
+        netwidth_fine=args.netwidth_fine,
         share_fine=args.share_fine,
         hash_grid=HashGridConfig(
             n_levels=args.n_levels,
@@ -156,9 +177,14 @@ def make_lr_schedule(lrate: float, lrate_decay: int):
     return sched
 
 
-def make_optimizer(args, state: NGPState) -> RAdam:
-    """RAdam with two groups: the MLPs (wd 1e-6, eps 1e-8) and the hash
-    table, or both packed tables (wd 0, eps 1e-15), both betas (0.9, 0.99)."""
+def make_optimizer(args, state: NGPState):
+    """Under the hash grid, RAdam with two groups: the MLPs (wd 1e-6, eps
+    1e-8) and the hash table, or both packed tables (wd 0, eps 1e-15), both
+    betas (0.9, 0.99). Otherwise Adam over the MLPs, betas (0.9, 0.999),
+    eps 1e-8, as the JAX package's optax.adam."""
+    if args.i_embed != EMBED_HASH:
+        return Adam(state.net_parameters(), lr=make_lr_schedule(args.lrate, args.lrate_decay),
+                    betas=(0.9, 0.999), eps=1e-8)
     return RAdam(
         [
             {"params": state.net_parameters(), "eps": 1e-8, "weight_decay": 1e-6},
@@ -171,10 +197,14 @@ def make_optimizer(args, state: NGPState) -> RAdam:
 
 def make_loss_fn(args, render_cfg: RenderConfig, bbox: torch.Tensor,
                  model_cfg: ModelConfig, with_tv: bool = True, hwf=None):
-    """The training loss: image + coarse image + entropy sparsity (+ TV, the
-    packed TV under packed_layout). Under render_cfg.ndc the batch's rays
-    are warped to NDC with hwf = (H, W, focal) first; its viewdirs stay the
-    world directions (the caller takes them before the warp).
+    """The training loss: image + coarse image + entropy sparsity (+ TV
+    under the hash grid, the packed TV under packed_layout). With
+    --use_depth and a batch "target_depth", the L1 of depth_map (and
+    depth0) against it; with --use_gradient, a batch "target_grad" and a
+    render that returned grad_map (NeRFGradient), the MSE of grad_map
+    against it. Under render_cfg.ndc the batch's rays are warped to NDC with
+    hwf = (H, W, focal) first; its viewdirs stay the world directions (the
+    caller takes them before the warp).
 
     loss_fn(state, batch, tv_weight, draws=None, generator=None, occ_grid=None)
       -> (loss, (psnr, img_loss)); occ_grid culls the render.
@@ -182,6 +212,8 @@ def make_loss_fn(args, render_cfg: RenderConfig, bbox: torch.Tensor,
     if render_cfg.ndc and hwf is None:
         raise ValueError("make_loss_fn: render_cfg.ndc needs hwf = (H, W, focal)")
     sparse_w = args.sparse_loss_weight
+    with_tv = with_tv and args.i_embed == EMBED_HASH
+    use_depth, use_gradient = args.use_depth, args.use_gradient
 
     def loss_fn(state, batch, tv_weight, draws: Optional[TrainDraws] = None,
                 generator: Optional[torch.Generator] = None,
@@ -199,8 +231,15 @@ def make_loss_fn(args, render_cfg: RenderConfig, bbox: torch.Tensor,
         img_loss = img2mse(ret["rgb_map"], batch["target"])
         loss = img_loss
         psnr = mse2psnr(img_loss)
+        depth = batch.get("target_depth") if use_depth else None
+        if depth is not None:
+            loss = loss + torch.mean(torch.abs(ret["depth_map"] - depth))
+        if use_gradient and "target_grad" in batch and "grad_map" in ret:
+            loss = loss + img2mse(ret["grad_map"], batch["target_grad"])
         if "rgb0" in ret:
             loss = loss + img2mse(ret["rgb0"], batch["target"])
+            if depth is not None:
+                loss = loss + torch.mean(torch.abs(ret["depth0"] - depth))
         sparsity = ret["sparsity_loss"].sum()
         if "sparsity_loss0" in ret:
             sparsity = sparsity + ret["sparsity_loss0"].sum()
@@ -428,22 +467,50 @@ class Trainer:
             self.shuffle_pool(pool)
         return pool
 
-    def shuffle_pool(self, pool: torch.Tensor) -> None:
-        """Shuffle the pool's rows in place: one randperm on the Trainer's
-        generator, a gather into scratch and a copy back. Captured pool
-        blocks read the pool at its one address, so it is never rebound."""
-        perm = torch.randperm(pool.shape[0], generator=self.generator, device=self.device)
+    def build_column_pool(self, columns: Dict[str, np.ndarray]) -> torch.Tensor:
+        """(N, C) float32 rows of given ray columns, on the device, in their
+        order (no shuffle): rays_o, rays_d, target (each (N, 3)) and, when
+        given, target_depth (N,) and target_grad (N, 3), laid out as
+        POOL_COLUMNS; st3d's pool."""
+        names = [n for n, _ in POOL_COLUMNS if columns.get(n) is not None]
+        if names[:3] != ["rays_o", "rays_d", "target"] or set(columns) - dict(POOL_COLUMNS).keys():
+            raise ValueError(f"build_column_pool: columns {sorted(columns)}; it needs rays_o, "
+                             "rays_d and target, and takes target_depth and target_grad")
+        n = len(columns["rays_o"])
+        width = sum(w for c, w in POOL_COLUMNS if c in names)
+        pool = torch.empty((n, width), dtype=torch.float32, device=self.device)
+        at = 0
+        for name, w in POOL_COLUMNS:
+            if name in names:
+                col = torch.as_tensor(np.asarray(columns[name], np.float32))
+                pool[:, at:at + w] = col.reshape(n, w).to(self.device)
+                at += w
+        return pool
+
+    def shuffle_pool(self, pool: torch.Tensor, perm=None) -> None:
+        """Shuffle the pool's rows in place: by perm (N,) (a host
+        permutation, as st3d's loop draws them) or one randperm on the
+        Trainer's generator; a gather into scratch and a copy back.
+        Captured pool blocks read the pool at its one address, so it is
+        never rebound."""
+        if perm is None:
+            perm = torch.randperm(pool.shape[0], generator=self.generator, device=self.device)
+        else:
+            perm = torch.as_tensor(perm, dtype=torch.int64).to(self.device)
         pool.copy_(pool.index_select(0, perm))
 
     def _pool_batch(self, rows: torch.Tensor) -> Dict[str, torch.Tensor]:
         n = rows.shape[0]
-        return {
-            "rays_o": rows[:, 0],
-            "rays_d": rows[:, 1],
-            "target": rows[:, 2],
-            "near": torch.full((n,), self.near, dtype=torch.float32, device=self.device),
-            "far": torch.full((n,), self.far, dtype=torch.float32, device=self.device),
-        }
+        flat = rows.reshape(n, -1)
+        names = POOL_LAYOUTS[flat.shape[1]]
+        batch, at = {}, 0
+        for name, w in POOL_COLUMNS:
+            if name in names:
+                batch[name] = flat[:, at] if w == 1 else flat[:, at:at + w]
+                at += w
+        batch["near"] = torch.full((n,), self.near, dtype=torch.float32, device=self.device)
+        batch["far"] = torch.full((n,), self.far, dtype=torch.float32, device=self.device)
+        return batch
 
     def sample_pool(self, pool: torch.Tensor, i_batch: int, n_rand: int) -> Dict[str, torch.Tensor]:
         """Rows [i_batch, i_batch + n_rand) of the pool as a batch (fewer at
@@ -546,7 +613,8 @@ class Trainer:
         occ = self.render_cfg.occupancy
         remaining = n_steps
         while remaining > 0:
-            use_tv = self.global_step <= 1000 and args.tv_loss_weight > 0
+            use_tv = (self.global_step <= 1000 and args.tv_loss_weight > 0
+                      and args.i_embed == EMBED_HASH)
             k = remaining
             if use_tv:
                 tv_left = 1001 - self.global_step

@@ -26,18 +26,13 @@ from typing import Callable, Union
 import torch
 
 
-class RAdam(torch.optim.Optimizer):
-    def __init__(
-        self,
-        params,
-        lr: Union[float, Callable[[torch.Tensor], torch.Tensor]],
-        betas=(0.9, 0.999),
-        eps: float = 1e-8,
-        weight_decay: float = 0.0,
-        degenerated_to_sgd: bool = False,
-    ):
-        defaults = dict(betas=tuple(betas), eps=eps, weight_decay=weight_decay,
-                        degenerated_to_sgd=degenerated_to_sgd)
+class DeviceStepOptimizer(torch.optim.Optimizer):
+    """The state both optimizers keep on the parameters' device: per
+    parameter a float32 step count and the two moments; the schedule
+    lr(step) a callable or a number."""
+
+    def __init__(self, params, lr: Union[float, Callable[[torch.Tensor], torch.Tensor]],
+                 defaults: dict):
         super().__init__(params, defaults)
         self.lr_fn = lr if callable(lr) else (lambda step, _lr=lr: torch.full_like(step, _lr))
 
@@ -60,18 +55,37 @@ class RAdam(torch.optim.Optimizer):
         for p, st in self.state.items():
             st["step"] = torch.as_tensor(st["step"], dtype=torch.float32).to(p.device)
 
+    def _group_tensors(self, group: dict, closure):
+        """(params, states, grads) of a group; a missing grad is zeros."""
+        if closure is not None:
+            raise ValueError(f"{type(self).__name__}.step takes no closure")
+        params = group["params"]
+        states = [self._state(p) for p in params]
+        grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
+        return params, states, grads
+
+
+class RAdam(DeviceStepOptimizer):
+    def __init__(
+        self,
+        params,
+        lr: Union[float, Callable[[torch.Tensor], torch.Tensor]],
+        betas=(0.9, 0.999),
+        eps: float = 1e-8,
+        weight_decay: float = 0.0,
+        degenerated_to_sgd: bool = False,
+    ):
+        super().__init__(params, lr, dict(betas=tuple(betas), eps=eps, weight_decay=weight_decay,
+                                          degenerated_to_sgd=degenerated_to_sgd))
+
     @torch.no_grad()
     def step(self, closure=None):
-        if closure is not None:
-            raise ValueError("RAdam.step takes no closure")
         for group in self.param_groups:
-            params = group["params"]
-            if not params:
+            if not group["params"]:
                 continue
+            params, states, grads = self._group_tensors(group, closure)
             b1, b2 = group["betas"]
             eps, wd = group["eps"], group["weight_decay"]
-            states = [self._state(p) for p in params]
-            grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
             m = [st["exp_avg"] for st in states]
             v = [st["exp_avg_sq"] for st in states]
             # b1 * m + (1 - b1) * g and b2 * v + (1 - b2) * g * g, JAX's order

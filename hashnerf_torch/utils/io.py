@@ -146,6 +146,11 @@ def write_gif(path: str, frames: np.ndarray, fps: int = 10) -> None:
         fp.write(b"".join(out))
 
 
+def save_gif(path: str, frames: np.ndarray, fps: int = 10) -> None:
+    """An animated GIF of (N, H, W[, 3]) float frames in [0, 1]."""
+    write_gif(path, _rgb_frames(frames), fps=fps)
+
+
 def save_video(path: str, frames: np.ndarray, fps: int = 30) -> str:
     """An mp4 of the frames through the `ffmpeg` on PATH, else an animated
     GIF beside it (`path` with .gif, at most 24 fps). Returns the path

@@ -4,17 +4,21 @@ The port's stand-in for imageio's PNG plugin (the JAX package reads frames
 with `imageio.imread` in hashnerf_tpu/data/blender.py and writes them with
 `imageio.imwrite` in hashnerf_tpu/tools/make_blender_dataset.py).
 
-Read: 8-bit gray, gray + alpha, RGB and RGBA, not interlaced, any of the
-five row filters. A pixel's filter can use its left, upper and upper-left
-neighbours (Average and Paeth cannot be undone with a cumsum), so the
-filters are undone as a wavefront: all pixels on one anti-diagonal
+Read: 8- and 16-bit gray, gray + alpha, RGB and RGBA, not interlaced, any
+of the five row filters; 16-bit samples are big-endian and come back as
+uint16 (st3d's depth panoramas, which the JAX package reads with PIL). A
+pixel's filter can use its left, upper and upper-left neighbours (Average
+and Paeth cannot be undone with a cumsum), so the filters are undone as a
+wavefront: all pixels on one anti-diagonal
 r + c = d depend only on diagonals d - 1 and d - 2, and are decoded at once.
 The images are sheared first so that each diagonal is a contiguous slice;
-images of one size and pixel format are decoded together. Anything else
-(other bit depths, palettes, interlacing, a transparency chunk, a bad CRC)
-raises ValueError naming what it met.
+images of one size and pixel format are decoded together. The filters
+work on bytes, so a 16-bit pixel is undone as two byte channels. Anything
+else (other bit depths, palettes, interlacing, a transparency chunk, a bad
+CRC) raises ValueError naming what it met.
 
-Write: uint8 (H, W) gray, (H, W, 2), (H, W, 3) or (H, W, 4), filter 0.
+Write: uint8 or uint16 (H, W) gray, (H, W, 2), (H, W, 3) or (H, W, 4),
+filter 0.
 """
 from __future__ import annotations
 
@@ -53,8 +57,9 @@ def _chunks(data: bytes, path: str):
     raise ValueError(f"{path}: no IEND chunk")
 
 
-def _parse(path: str) -> Tuple[Tuple[int, int, int], np.ndarray]:
-    """((H, W, channels), filtered rows (H, 1 + W * channels) uint8)."""
+def _parse(path: str) -> Tuple[Tuple[int, int, int, int], np.ndarray]:
+    """((H, W, channels, bit depth), filtered rows (H, 1 + W * bytes a
+    pixel) uint8)."""
     with open(path, "rb") as f:
         data = f.read()
     header, idat = None, []
@@ -63,25 +68,26 @@ def _parse(path: str) -> Tuple[Tuple[int, int, int], np.ndarray]:
             W, H, depth, color, comp, filt, interlace = struct.unpack(">IIBBBBB", body)
             if color not in _CHANNELS:
                 raise ValueError(f"{path}: {_COLOR_NAMES.get(color, color)} PNGs are not read "
-                                 "(only 8-bit gray, gray+alpha, RGB and RGBA)")
-            if depth != 8:
-                raise ValueError(f"{path}: {depth}-bit samples are not read (only 8-bit)")
+                                 "(only gray, gray+alpha, RGB and RGBA)")
+            if depth not in (8, 16):
+                raise ValueError(f"{path}: {depth}-bit samples are not read (only 8 and 16)")
             if interlace != 0:
                 raise ValueError(f"{path}: interlaced (Adam7) PNGs are not read")
             if comp != 0 or filt != 0:
                 raise ValueError(f"{path}: unknown compression {comp} or filter method {filt}")
-            header = (H, W, _CHANNELS[color])
+            header = (H, W, _CHANNELS[color], depth)
         elif ctype == b"IDAT":
             idat.append(body)
         elif ctype == b"tRNS":
             raise ValueError(f"{path}: transparency (tRNS) chunks are not read")
     if header is None:
         raise ValueError(f"{path}: no IHDR chunk")
-    H, W, C = header
+    H, W, C, depth = header
+    Cb = C * depth // 8  # bytes a pixel
     raw = zlib.decompress(b"".join(idat))
-    if len(raw) != H * (1 + W * C):
-        raise ValueError(f"{path}: {len(raw)} bytes of image data, expected {H * (1 + W * C)}")
-    return header, np.frombuffer(raw, np.uint8).reshape(H, 1 + W * C)
+    if len(raw) != H * (1 + W * Cb):
+        raise ValueError(f"{path}: {len(raw)} bytes of image data, expected {H * (1 + W * Cb)}")
+    return header, np.frombuffer(raw, np.uint8).reshape(H, 1 + W * Cb)
 
 
 def _unfilter(rows: np.ndarray, W: int, C: int) -> np.ndarray:
@@ -122,21 +128,24 @@ def _shape_out(img: np.ndarray) -> np.ndarray:
 
 
 def read_pngs(paths: Sequence[str]) -> List[np.ndarray]:
-    """Decode PNG files into uint8 arrays shaped as imageio gives them:
-    (H, W) for gray, else (H, W, channels). Files of one size and pixel
-    format are decoded together."""
+    """Decode PNG files into uint8 (8-bit) or uint16 (16-bit) arrays shaped
+    as imageio gives them: (H, W) for gray, else (H, W, channels). Files of
+    one size and pixel format are decoded together."""
     parsed = [_parse(p) for p in paths]
-    groups: Dict[Tuple[int, int, int], List[int]] = {}
+    groups: Dict[Tuple[int, int, int, int], List[int]] = {}
     for i, (hdr, _) in enumerate(parsed):
         groups.setdefault(hdr, []).append(i)
     out: List[np.ndarray] = [None] * len(paths)  # type: ignore[list-item]
-    for (H, W, C), idx in groups.items():
+    for (H, W, C, depth), idx in groups.items():
         for s in range(0, len(idx), _BATCH):
             part = idx[s:s + _BATCH]
             try:
-                pix = _unfilter(np.stack([parsed[i][1] for i in part]), W, C)
+                pix = _unfilter(np.stack([parsed[i][1] for i in part]), W, C * depth // 8)
             except ValueError as e:
                 raise ValueError(f"{[paths[i] for i in part]}: {e}") from None
+            if depth == 16:  # big-endian byte pairs
+                pix = pix.reshape(len(part), H, W, C, 2).astype(np.uint16)
+                pix = (pix[..., 0] << 8) | pix[..., 1]
             for j, i in enumerate(part):
                 out[i] = _shape_out(pix[j])
     return out
@@ -151,17 +160,20 @@ def _chunk(ctype: bytes, body: bytes) -> bytes:
 
 
 def write_png(path: str, img: np.ndarray) -> None:
-    """Write img as an 8-bit PNG, every row with filter 0."""
+    """Write img as an 8-bit (uint8) or 16-bit (uint16) PNG, every row with
+    filter 0."""
     img = np.asarray(img)
-    if img.dtype != np.uint8:
-        raise ValueError(f"PNG writer takes uint8 images, got {img.dtype}")
+    if img.dtype not in (np.uint8, np.uint16):
+        raise ValueError(f"PNG writer takes uint8 or uint16 images, got {img.dtype}")
     if img.ndim == 2:
         img = img[..., None]
     if img.ndim != 3 or img.shape[-1] not in _COLOR_OF_CHANNELS:
         raise ValueError(f"PNG writer takes (H, W[, 1-4]) images, got {img.shape}")
     H, W, C = img.shape
-    rows = np.concatenate([np.zeros((H, 1), np.uint8), img.reshape(H, W * C)], axis=1)
-    ihdr = struct.pack(">IIBBBBB", W, H, 8, _COLOR_OF_CHANNELS[C], 0, 0, 0)
+    depth = 8 * img.dtype.itemsize
+    data = img.astype(">u2").view(np.uint8) if depth == 16 else img
+    rows = np.concatenate([np.zeros((H, 1), np.uint8), data.reshape(H, -1)], axis=1)
+    ihdr = struct.pack(">IIBBBBB", W, H, depth, _COLOR_OF_CHANNELS[C], 0, 0, 0)
     with open(path, "wb") as f:
         f.write(_SIGNATURE + _chunk(b"IHDR", ihdr) + _chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
                 + _chunk(b"IEND", b""))

@@ -145,13 +145,19 @@ def test_dataset_writer_matches_jax(tmp_path):
     np.testing.assert_array_equal(sc.images[:3], (frames["train"][..., :3] / 255.0).astype(np.float32))
 
 
-@pytest.mark.parametrize("dataset_type,row", [("scannet", "A6"), ("LINEMOD", "A6"), ("deepvoxels", "A6")])
+@pytest.mark.parametrize("dataset_type,row", [("scannet", "nerfstyle_scene0000_00"),
+                                              ("LINEMOD", "r_0"), ("deepvoxels", "intrinsics")])
 def test_load_scene_dispatch(blender_dir, dataset_type, row):
+    """Each dataset_type reaches its own loader (slice 9 ported scannet,
+    LINEMOD and deepvoxels), which looks for its own files in a blender
+    set and does not find them."""
     from hashnerf_torch.data import load_scene
     from hashnerf_torch.train.config import parse_args
 
     args = parse_args(["--dataset_type", "blender", "--half_res", "--white_bkgd", "--testskip", "1"])
     sc = load_scene("blender", blender_dir, args)
     assert sc.images.shape == (6, 16, 16, 3)
-    with pytest.raises(NotImplementedError, match=row):
+    with pytest.raises(FileNotFoundError, match=row):
         load_scene(dataset_type, blender_dir, args)
+    with pytest.raises(ValueError, match="Unknown dataset type"):
+        load_scene(dataset_type + "_x", blender_dir, args)

@@ -546,6 +546,143 @@ def test_try_restore_drops_the_graphs(cuda_device, tmp_path):
     assert t._graphs is not None and torch.isfinite(m1["loss"]) and torch.isfinite(m0["loss"])
 
 
+# --------------------------------------------------------------------------- #
+# The NeRF family and st3d's column pool (slice 9)
+# --------------------------------------------------------------------------- #
+
+ST3D_SMALL = dict(N_rand=64, N_samples=16, N_importance=16, lrate=5e-3, lrate_decay=10,
+                  use_viewdirs=True, perturb=1.0, raw_noise_std=1.0, dataset_type="st3d",
+                  use_depth=True, use_gradient=True, device="cuda")
+ST3D_SETTINGS = {
+    "omninerf": dict(ST3D_SMALL, i_embed=0, i_embed_views=0, multires=10, multires_views=4,
+                     netdepth=8, netwidth=64, netdepth_fine=8, netwidth_fine=64),
+    "st3d_hash": dict(ST3D_SMALL, finest_res=64, log2_hashmap_size=12),
+}
+
+
+def st3d_trainer(settings, n_rays=64 * 64):
+    """A Trainer on st3d's scene with a column pool of n_rays random rays
+    from around the origin (depth and gradient columns), on the card."""
+    from hashnerf_torch.data.st3d import st3d_scene
+    from hashnerf_torch.train.config import config_parser
+    from hashnerf_torch.train.driver import Trainer
+
+    args = config_parser().parse_args([])
+    for k, v in settings.items():
+        setattr(args, k, v)
+    t = Trainer(args, st3d_scene(512, 1024), device="cuda")
+    with torch.no_grad():
+        for p in t.state.table_parameters():
+            p.mul_(1e4)
+    rng = np.random.default_rng(0)
+    d = rng.normal(size=(n_rays, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    pool = t.build_column_pool({
+        "rays_o": rng.uniform(-0.1, 0.1, (n_rays, 3)).astype(np.float32), "rays_d": d,
+        "target": rng.uniform(0, 1, (n_rays, 3)).astype(np.float32),
+        "target_depth": rng.uniform(0.3, 1, n_rays).astype(np.float32),
+        "target_grad": rng.uniform(-1, 1, (n_rays, 3)).astype(np.float32)})
+    return t, pool
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gradient", [False, True], ids=["nerf", "nerf_gradient"])
+def test_nerf_family_on_card_matches_cpu(cuda_device, gradient):
+    """Positional NeRF / NeRFGradient 8 x 256 (OmniNeRF's widths) from one
+    state: raw on the card against the CPU at rtol 1e-4 / atol 1e-5; the
+    MLP gradients held as chip_smoke.py holds OmniNeRF's step: the card's
+    largest error against a float64 CPU pass (||g - g64|| / ||g64|| of a
+    tensor) at most ST3D_F32_ERR_FACTOR x the CPU float32 pass's own, plus
+    1e-6 (sums over 4,096 points in other orders, ReLUs that switch; TF32
+    is off)."""
+    import copy
+
+    import chip_smoke
+    from hashnerf_torch.models.factory import ModelConfig, NGPState, query_fn
+
+    cfg = ModelConfig(i_embed=0, i_embed_views=0, use_gradient=gradient, N_importance=8)
+    cpu = NGPState(cfg, torch.Generator().manual_seed(0))
+    f64 = copy.deepcopy(cpu).double()
+    card = NGPState(cfg, device=cuda_device)
+    card.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(1)
+    pts = torch.from_numpy(rng.uniform(-2, 2, (256, 16, 3)))
+    vd = torch.nn.functional.normalize(torch.from_numpy(rng.normal(size=(256, 3))), dim=-1)
+    bbox = torch.tensor([[-2.0] * 3, [2.0] * 3], dtype=torch.float64)
+    outs = {}
+    for name, st, dev, dt in (("cpu", cpu, "cpu", torch.float32), ("f64", f64, "cpu", torch.float64),
+                              ("card", card, cuda_device, torch.float32)):
+        raw = query_fn(st, pts.to(dev, dt), vd.to(dev, dt), bbox.to(dev, dt), fine=True)
+        raw.square().sum().backward()
+        outs[name] = (raw.detach().cpu(), [p.grad.cpu().double() for p in st.fine.parameters()])
+    assert outs["card"][0].shape == (256, 16, 7 if gradient else 4)
+    torch.testing.assert_close(outs["card"][0], outs["cpu"][0], rtol=1e-4, atol=1e-5)
+    err = {k: max(float((g - r).norm() / r.norm()) for g, r in zip(outs[k][1], outs["f64"][1]))
+           for k in ("card", "cpu")}
+    assert err["card"] <= chip_smoke.ST3D_F32_ERR_FACTOR * err["cpu"] + 1e-6, err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["omninerf", "st3d_hash"])
+def test_graphed_column_pool_blocks_equal_eager_steps(cuda_device, which):
+    """st3d's column pool (13 floats a row): 16 steps as one run_steps block
+    (captured, then replayed at the device offset) against 16 eager
+    sample_pool steps on the same rows, from one state, with depth and
+    gradient supervision, and Adam's (or RAdam's) step count on the device:
+    the last loss within 1e-4, at most 0.1% of the entries outside the row
+    gate; then a reshuffle in place and the same graph on the new rows."""
+    t, pool = st3d_trainer(ST3D_SETTINGS[which])
+    for k in range(4):
+        t.step(t.sample_pool(pool, k * 64, 64))
+    for shuffle in (False, True):
+        if shuffle:
+            t.shuffle_pool(pool, np.random.default_rng(1).permutation(pool.shape[0]))
+        snap = [x.detach().clone() for x in t.training_state()]
+        rng, start = t.generator.get_state(), t.global_step
+        for k in range(16):
+            me = t.step(t.sample_pool(pool, 1024 + k * 64, 64))
+        eager = [x.detach().clone() for x in t.training_state()]
+        with torch.no_grad():
+            for x, s_ in zip(t.training_state(), snap):
+                x.copy_(s_)
+        t.generator.set_state(rng)
+        t.global_step = start
+        m = t.run_steps(16, block_size=16, pool=pool, offset=1024)
+        assert abs(float(m["loss"]) - float(me["loss"])) <= 1e-4 * abs(float(me["loss"]))
+        assert outside_row_gate(t.training_state(), eager) <= 1e-3
+    assert sum(k[0] == "step" for k in t._graphs.graphs) == 1
+
+
+@pytest.mark.cuda
+def test_render_given_rays_on_card_matches_cpu(cuda_device):
+    """render(rays=...) of NeRFGradient, as eval_test_omninerf renders a
+    panorama: rgb and the composited gradient head (grad_map) on the card
+    against the CPU, each within jax_view_close's mean and largest error."""
+    import chip_smoke
+    from hashnerf_torch.models.factory import ModelConfig, NGPState, query_fn
+    from hashnerf_torch.ops.rays import equirect_directions
+    from hashnerf_torch.render.renderer import RenderConfig, render
+
+    cfg = ModelConfig(i_embed=0, i_embed_views=0, use_gradient=True, N_importance=32,
+                      netwidth=64, netwidth_fine=64)
+    cpu = NGPState(cfg, torch.Generator().manual_seed(0))
+    card = NGPState(cfg, device=cuda_device)
+    card.load_state_dict(cpu.state_dict())
+    d = torch.from_numpy(equirect_directions(32, 64).reshape(-1, 3))
+    o = torch.zeros_like(d)
+    rcfg = RenderConfig(N_samples=32, N_importance=32, perturb=False)
+    out = {}
+    for st, dev in ((cpu, "cpu"), (card, cuda_device)):
+        rgb, _, _, extras = render(st, query_fn, 32, 64, None, torch.tensor(
+            [[-2.0] * 3, [2.0] * 3], device=dev), rcfg, chunk=512, near=0.0, far=2.0, rays=(o, d))
+        out[dev if dev == "cpu" else "card"] = (rgb.cpu(), extras["grad_map"].cpu())
+    assert out["card"][0].shape == (32 * 64, 3) and out["card"][1].shape == (32 * 64, 3)
+    for i, what in enumerate(("rgb", "grad_map")):
+        ok, err = chip_smoke.jax_view_close(out["card"][i].numpy(), out["cpu"][i].numpy())
+        assert ok, (what, err)
+    assert float(out["cpu"][1].abs().mean()) > 1e-3  # a head that is not all zero
+
+
 @pytest.mark.cuda
 def test_failed_capture_raises_without_eager_fallback(cuda_device, monkeypatch):
     """A host read inside the step cannot be captured: run_steps raises,

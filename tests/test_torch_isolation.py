@@ -32,11 +32,39 @@ def _imported_roots(path):
             yield node.module.split(".")[0]
 
 
+# the modules of slice 9 (the NeRF family, st3d and three loaders): each is
+# walked by the import checks below
+SLICE9 = ["ops/positional.py", "train/adam.py", "data/st3d.py", "data/scannet.py",
+          "data/deepvoxels.py", "data/linemod.py", "tools/generate_equirect_data.py"]
+
+
 def test_port_files_exist():
     files = _port_files()
     assert len(files) > 20
     assert os.path.join(ROOT, "hashnerf_torch", "kernels", "segment_accum.py") in files
     assert os.path.join(ROOT, "hashnerf_torch", "ops", "packed_grid.py") in files
+    for rel in SLICE9:
+        assert os.path.join(ROOT, "hashnerf_torch", *rel.split("/")) in files, rel
+
+
+def test_slice9_modules_import_alone():
+    """Each module of slice 9, imported in a fresh interpreter on its own,
+    loads no jax and none of the JAX package (cv2 only when an mp3d set
+    asks for it)."""
+    mods = ["hashnerf_torch." + rel[:-3].replace("/", ".") for rel in SLICE9]
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}: importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{sorted(FORBIDDEN | {'cv2'})!r})\n"
+        "assert not bad, bad\n"
+        "print('OK')\n"
+    )
+    env = dict(os.environ, OMP_NUM_THREADS="2")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.startswith("OK")
 
 
 @pytest.mark.parametrize("path", _port_files(), ids=lambda p: os.path.relpath(p, ROOT))

@@ -108,25 +108,48 @@ def _ihdr_png(depth: int, color: int, interlace: int) -> bytes:
 
 
 @pytest.mark.parametrize("kind,what", [
-    ("16-bit", "16-bit"),
+    ("4-bit", "4-bit"),
     ("interlaced", "interlaced"),
     ("palette", "palette"),
-    ("pillow-16-bit", "16-bit"),
+    ("pillow-1-bit", "1-bit"),
     ("bad-crc", "CRC"),
     ("truncated", "truncated"),
 ])
 def test_reader_refuses_what_it_does_not_read(tmp_path, kind, what):
+    """Bit depths other than 8 and 16 (16 is read since st3d's depth
+    panoramas: test_reader_reads_16_bit), interlacing, palettes, bad CRCs
+    and truncated files raise, naming what they met."""
     path = str(tmp_path / "x.png")
     write_png(path, np.zeros((4, 4, 3), np.uint8))
     with open(path, "rb") as f:
         good = f.read()
-    if kind == "pillow-16-bit":
-        Image.fromarray(np.arange(64, dtype=np.uint16).reshape(8, 8) * 1000).save(path)
+    if kind == "pillow-1-bit":
+        Image.fromarray(np.arange(64).reshape(8, 8) % 3 == 0).save(path)
     else:
-        data = {"16-bit": _ihdr_png(16, 2, 0), "interlaced": _ihdr_png(8, 6, 1),
+        data = {"4-bit": _ihdr_png(4, 0, 0), "interlaced": _ihdr_png(8, 6, 1),
                 "palette": _ihdr_png(8, 3, 0), "bad-crc": good[:-5] + b"\x00" * 5,
                 "truncated": good[:45]}[kind]
         with open(path, "wb") as f:
             f.write(data)
     with pytest.raises(ValueError, match=what):
         read_png(path)
+
+
+@pytest.mark.parametrize("kind", ["pillow-gray", "zeros-rgb", "port-rgba"])
+def test_reader_reads_16_bit(tmp_path, kind):
+    """16-bit samples (big-endian) come back as uint16: PIL's 16-bit gray
+    with its own filters, a hand-made RGB file, the port's own RGBA file."""
+    path = str(tmp_path / "x.png")
+    if kind == "pillow-gray":
+        want = ((np.arange(64 * 48).reshape(48, 64) * 7919) % 65536).astype(np.uint16)
+        Image.fromarray(want).save(path)
+    elif kind == "zeros-rgb":
+        want = np.zeros((4, 4, 3), np.uint16)
+        with open(path, "wb") as f:
+            f.write(_ihdr_png(16, 2, 0))
+    else:
+        want = np.random.default_rng(6).integers(0, 65536, (9, 13, 4)).astype(np.uint16)
+        write_png(path, want)
+    got = read_png(path)
+    assert got.dtype == np.uint16
+    np.testing.assert_array_equal(got, want)

@@ -194,24 +194,46 @@ def test_trainer_steps_match_jax():
 # --------------------------------------------------------------------------- #
 
 @pytest.mark.parametrize("flags,row", [
-    (["--dataset_type", "deepvoxels"], "A6"),
-    (["--i_embed", "0"], "A1"),
-    (["--dataset_type", "st3d"], "A6"),
-    (["--use_depth"], "A6"),
     (["--num_devices", "2"], "A8"),
-    (["--i_embed_views", "0"], "A1"),
-    (["--dataset_type", "scannet"], "A6"),
+    (["--num_devices", "4", "--i_embed", "0"], "A8"),
+    (["--compute_dtype", "float64"], "A7.4"),
+    (["--dataset_type", "st3d", "--datadir", "data/mp3d/scene01", "--no_cv2"], "A6"),
 ])
-def test_unported_flags_raise_naming_their_row(flags, row):
+def test_unported_flags_raise_naming_their_row(flags, row, monkeypatch):
+    """What check_supported still refuses: several devices (A8), an MLP
+    type other than bfloat16 and float16 (A7.4), and an mp3d st3d set's EXR
+    depth where cv2 is not installed (A6; "--no_cv2" stands for that here)."""
+    from hashnerf_torch.data import st3d
     from hashnerf_torch.train.config import check_supported, parse_args
 
     base = ["--config", os.path.join(ROOT, "configs", "synthetic_smoke.txt")]
     check_supported(parse_args(base))
+    if "--no_cv2" in flags:
+        flags = [f for f in flags if f != "--no_cv2"]
+        monkeypatch.setattr(st3d, "cv2_or_none", lambda: None)
     args = parse_args(base + flags)
-    if flags[0] == "--dataset_type":
-        args.no_batching = True
     with pytest.raises(NotImplementedError, match=row):
         check_supported(args)
+
+
+@pytest.mark.parametrize("flags", [
+    ["--dataset_type", "deepvoxels"],
+    ["--i_embed", "0"],
+    ["--dataset_type", "st3d"],
+    ["--use_depth"],
+    ["--i_embed_views", "0"],
+    ["--dataset_type", "scannet"],
+    ["--dataset_type", "LINEMOD"],
+    ["--i_embed", "-1", "--i_embed_views", "-1", "--use_gradient"],
+])
+def test_slice9_flags_are_accepted(flags):
+    """The NeRF family (A1/A2), the scannet, deepvoxels, LINEMOD and st3d
+    loaders and st3d's depth and gradient supervision (A6) are ported:
+    check_supported takes them."""
+    from hashnerf_torch.train.config import check_supported, parse_args
+
+    check_supported(parse_args(["--config", os.path.join(ROOT, "configs", "synthetic_smoke.txt")]
+                               + flags))
 
 
 @pytest.mark.parametrize("flags", [
@@ -254,16 +276,17 @@ def test_steps_per_dispatch_and_presets_are_accepted(flags):
 
 
 def test_ray_batching_raises():
-    """Ray batching is ported (A6): check_supported takes it. It still
-    raises where the batched pool feeds a mode the port has not yet: st3d's
-    depth supervision (A6)."""
+    """Ray batching is ported (A6): check_supported takes it, and st3d's
+    pool with depth and gradient supervision (A6, slice 9) too; it still
+    raises with several devices (A8)."""
     from hashnerf_torch.train.config import check_supported, parse_args
 
     args = parse_args(["--dataset_type", "synthetic", "--i_video", "0"])
     assert not args.no_batching
     check_supported(args)
-    with pytest.raises(NotImplementedError, match="A6"):
-        check_supported(parse_args(["--dataset_type", "st3d", "--use_depth"]))
+    check_supported(parse_args(["--dataset_type", "st3d", "--use_depth", "--use_gradient"]))
+    with pytest.raises(NotImplementedError, match="A8"):
+        check_supported(parse_args(["--dataset_type", "st3d", "--num_devices", "2"]))
 
 
 def test_entry_points_need_a_gpu_unless_told_cpu():
