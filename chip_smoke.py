@@ -266,6 +266,12 @@ PATHS = {
                          "deepvoxels": (),
                          "LINEMOD": ("hash_encode_fwd", "hash_encode_bwd",
                                      "segment_accumulate_k5")}},
+    # Slice 10 (phase_multi): each rank's chair path (TV on: K5), ZeRO-1
+    # and table-sharded runs (TV off: no K5), under NCCL and over gloo.
+    "multi": {"phase": "multi", "keeps_tv": None, "keeps_no_tv": None,
+              "runs": {"path": ("hash_encode_fwd", "hash_encode_bwd", "segment_accumulate_k5"),
+                       "zero": ("hash_encode_fwd", "hash_encode_bwd"),
+                       "table": ("hash_encode_fwd", "hash_encode_bwd")}},
 }
 MAIN_PATHS = tuple(p for p, spec in PATHS.items() if "phase" not in spec)
 GRAPH_BLOCK = 16  # the flagship preset's --steps_per_dispatch
@@ -2081,9 +2087,10 @@ def render_on_rays(torch, state, rays, bbox, cfg, near: float, far: float, chunk
 
 
 def encode_check(torch, trainer, batch, path: str, ndc: bool = False):
-    """K2 and K6 at a pool path's shapes, on its own points: the coarse
-    (N_rand x N_samples) and fine (N_rand x (N_samples + N_importance))
-    sample points of one pool batch, warped to NDC where the path is
+    """K2 and K6 at a path's shapes, on its own points: the coarse (R x
+    N_samples) and fine (R x (N_samples + N_importance)) sample points of
+    the R rays of one batch (a pool's N_rand, or a data-parallel rank's
+    share of the global batch), warped to NDC where the path is
     (llff) and sampled as a training step samples them (a generator of its
     own), in the trainer's box (llff's NDC box has a z pad of 1e-4: a
     sample at t = 0 or 1 lies on a face), on the trained table, with a
@@ -2105,7 +2112,8 @@ def encode_check(torch, trainer, batch, path: str, ndc: bool = False):
         pts["fine" if fine else "coarse"] = p.reshape(-1, 3).contiguous()
         return query_fn(st, p, viewdirs, bbox, fine=fine)
 
-    gen = torch.Generator(device=DEV)
+    dev = trainer.device
+    gen = torch.Generator(device=dev)
     gen.manual_seed(1)
     o, d = batch["rays_o"], batch["rays_d"]
     if ndc:
@@ -2122,8 +2130,8 @@ def encode_check(torch, trainer, batch, path: str, ndc: bool = False):
     for name, n_samples in (("coarse", args.N_samples), ("fine", args.N_samples + args.N_importance)):
         xs = pts[name]
         n = xs.shape[0]
-        require(n == args.N_rand * n_samples, f"{path} {name} pass encodes {n} points")
-        gs = torch.randn((n, L * F), generator=gen, device=DEV)
+        require(n == o.shape[0] * n_samples, f"{path} {name} pass encodes {n} points")
+        gs = torch.randn((n, L * F), generator=gen, device=dev)
         ref = {
             "k2": hash_encode_fwd_plain(table, xs, bmin, bmax, res),
             "k2_abs_sum": blend_abs_sum(torch, table, xs, bmin, bmax, res),
@@ -2954,6 +2962,418 @@ def phase_loaders(torch, np, smi: str):
         shutil.rmtree(workdir, ignore_errors=True)
 
 
+# --------------------------------------------------------------------------- #
+# Phase: multi (slice 10, multi-device training)
+# --------------------------------------------------------------------------- #
+
+MULTI_ITERS = 40  # run_nerf.main's eager steps with TV
+MULTI_TIMED = 10  # eager steps timed without TV, from step 1001
+MULTI_GRAPH_START = 48  # the graphed window with TV, as the chair path's
+MULTI_VS_ONE_STEPS = 16  # steps held against the one-process Trainer (one rank)
+MULTI_TABLE_STEPS = 8
+MULTI_ZERO_BF16_STEPS = 16
+MULTI_GLOO_WORLD = 2  # ranks sharing the one card over gloo
+MULTI_LOSS_RTOL = 1e-4
+
+
+def _multi_counts():
+    from hashnerf_torch import kernels
+    from hashnerf_torch.parallel import mesh
+
+    return {**kernels.launch_counts(), **mesh.collective_counts()}
+
+
+def _multi_reset():
+    from hashnerf_torch import kernels
+    from hashnerf_torch.parallel import mesh
+
+    kernels.reset_launch_counts()
+    mesh.reset_collective_counts()
+
+
+def _multi_sync(torch, device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _multi_chair(device, flags, *extra):
+    return ["--config", os.path.join(ROOT, "configs", "chair.txt"), "--dataset_type", "synthetic",
+            "--device", "cuda" if device.type == "cuda" else "cpu", *extra, *flags]
+
+
+def multi_vs_one(torch, trainer, world: int, n_steps: int):
+    """The data-parallel trainer against a one-process Trainer that takes
+    its state, optimizer state and generator state: one step each (the
+    loss within MULTI_LOSS_RTOL; MLP gradients bit-equal over one rank,
+    else in the atomics' row gate as the tables'), then n_steps more each
+    from one snapshot, twice on each, held by the graph gate's rule: the
+    fewer entries outside the row gate of the two pairs at most the larger
+    of GATE_SPREAD_FACTOR x the spread within a trainer and the floor; the
+    last loss likewise)."""
+    import copy
+
+    from hashnerf_torch.train.driver import Trainer
+
+    args = copy.copy(trainer.args)
+    args.num_devices = 0  # its args name the world's ranks: one device here
+    one = Trainer(args, trainer.scene, device=trainer.device, seed=0)
+    with torch.no_grad():
+        for a, b in zip(one.state.parameters(), trainer.state.parameters()):
+            a.copy_(b)
+    one.optimizer.load_state_dict(copy.deepcopy(trainer.optimizer.state_dict()))
+    one.generator.set_state(trainer.generator.get_state())
+    one.global_step = trainer.global_step
+    l_dp = float(trainer.step(trainer.sample_batch(False))["loss"])
+    l_one = float(one.step(one.sample_batch(False))["loss"])
+    grads = lambda tr, of: [p.grad.detach() for p in of(tr)]  # noqa: E731
+    mlp_diff = sum(int((a != b).sum()) for a, b in zip(grads(trainer, GATE_GROUPS["mlp"]),
+                                                       grads(one, GATE_GROUPS["mlp"])))
+    mlp_out, _ = row_gate(grads(trainer, GATE_GROUPS["mlp"]), grads(one, GATE_GROUPS["mlp"]))
+    table_out, table_worst = row_gate(grads(trainer, GATE_GROUPS["tables"]),
+                                      grads(one, GATE_GROUPS["tables"]))
+    rec = {"one_step": {"loss": [l_dp, l_one], "mlp_grad_entries_differing": mlp_diff,
+                        "mlp_grad_outside_row_gate": mlp_out,
+                        "table_grad_outside_row_gate": table_out,
+                        "table_grad_max_abs_diff": table_worst}}
+    require(abs(l_dp - l_one) <= MULTI_LOSS_RTOL * abs(l_one) and table_out == 0 and mlp_out == 0
+            and (world > 1 or mlp_diff == 0),
+            f"the data-parallel step over {world} ranks is not the one-process step: {rec}")
+    if n_steps:
+        # n_steps from one snapshot (the data-parallel trainer's), twice on
+        # each trainer: the graph gate's rule (graphed_window), the two
+        # trainers in place of its two modes
+        snap = [t.detach().clone() for t in trainer.training_state()]
+        rng, start = trainer.generator.get_state(), trainer.global_step
+
+        def run(tr):
+            with torch.no_grad():
+                for t, v in zip(tr.training_state(), snap):
+                    t.copy_(v)
+            tr.generator.set_state(rng)
+            tr.global_step = start
+            for _ in range(n_steps):
+                m = tr.step(tr.sample_batch(False))
+            return ({g: [t.detach().clone() for t in GATE_GROUPS[g](tr)] for g in ("tables", "mlp")},
+                    float(m["loss"]))
+
+        (dp1, l_dp1), (one1, l_one1) = run(trainer), run(one)
+        (dp2, l_dp2), (one2, l_one2) = run(trainer), run(one)
+        rec["steps"] = {"n": n_steps, "last_loss": {"dp": [l_dp1, l_dp2], "one": [l_one1, l_one2]}}
+        for group in ("tables", "mlp"):
+            out = lambda a, b: row_gate(a[group], b[group])[0]  # noqa: E731
+            share = GATE_CROSS_MODE[group]
+            share = share["chair"] if isinstance(share, dict) else share
+            g = rec["steps"][group] = {
+                "dp_vs_one": [out(dp1, one1), out(dp2, one2)], "dp_vs_dp": out(dp2, dp1),
+                "one_vs_one": out(one2, one1),
+                "floor": math.ceil(GATE_FLOOR_MARGIN * share * sum(t.numel() for t in one1[group]))}
+            g["allowed"] = max(GATE_SPREAD_FACTOR * max(g["dp_vs_dp"], g["one_vs_one"], 1),
+                               g["floor"])
+            require(min(g["dp_vs_one"]) <= g["allowed"],
+                    f"{n_steps} data-parallel steps off the one-process ones ({group}): {rec}")
+        loss_tol = max(GATE_LOSS_FLOOR * abs(l_one1),
+                       10 * max(abs(l_dp2 - l_dp1), abs(l_one2 - l_one1)))
+        require(min(abs(l_dp1 - l_one1), abs(l_dp2 - l_one2)) <= loss_tol,
+                f"{n_steps} data-parallel steps: last loss off the one-process one: {rec}")
+    del one
+    return rec
+
+
+def multi_path(torch, np, rank, world, device, workdir, graphed, flags):
+    """The chair step at full width through run_nerf.main --num_devices
+    world (MULTI_ITERS eager steps with TV, a checkpoint and the test set
+    by rank 0), MULTI_TIMED eager steps without TV, the gradient
+    all-reduce alone, the graphed window (NCCL), K2 and K6 at the rank's
+    shapes (encode_check), then multi_vs_one."""
+    from hashnerf_torch import run_nerf
+    from hashnerf_torch.parallel.mesh import shard_batch
+    from hashnerf_torch.parallel.train_sharded import reduce_gradients
+
+    cuda = device.type == "cuda"
+    _multi_reset()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer = run_nerf.main(_multi_chair(device, flags, "--basedir", workdir, "--expname", "multi",
+                                         "--no_reload", "--N_iters", str(MULTI_ITERS),
+                                         "--i_print", "10", "--i_weights", str(MULTI_ITERS),
+                                         "--i_testset", str(MULTI_ITERS), "--i_video", "0",
+                                         "--num_devices", str(world)))
+    _multi_sync(torch, device)
+    loop_s = time.perf_counter() - t0
+    require(trainer.layout is not None and trainer.layout.world == world,
+            f"rank {rank}: run_nerf.main made no data-parallel trainer")
+    expdir = os.path.join(workdir, trainer.args.expname)
+    ckpts = sorted(f for f in os.listdir(expdir) if f.endswith(".ckpt"))
+    require(ckpts == ["{:06d}.ckpt".format(MULTI_ITERS)], f"rank {rank}: checkpoints {ckpts}")
+    require(os.path.isdir(os.path.join(expdir, "testset_{:06d}".format(MULTI_ITERS))),
+            f"rank {rank}: no test set written")
+    losses = [h[1] for h in trainer.history]
+    require(len(losses) == MULTI_ITERS // 10 and all(np.isfinite(losses)),
+            f"rank {rank}: losses {losses}")
+    c_loop = _multi_counts()
+
+    trainer.global_step = 1001
+    ts = []
+    for _ in range(MULTI_TIMED):
+        _multi_sync(torch, device)
+        t0 = time.perf_counter()
+        m = trainer.step(trainer.sample_batch(False))
+        float(m["loss"])
+        ts.append(time.perf_counter() - t0)
+    c_eager = _multi_counts()
+    params = list(trainer.state.parameters())
+    grad_bytes = sum(p.grad.numel() * p.grad.element_size() for p in params if p.grad is not None)
+    group = trainer.layout.data_group
+    if cuda:
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        reduce_gradients(params, group)
+        e0.record()
+        for _ in range(10):
+            reduce_gradients(params, group)
+        e1.record()
+        e1.synchronize()
+        ar_ms = e0.elapsed_time(e1) / 10
+    else:
+        t0 = time.perf_counter()
+        for _ in range(10):
+            reduce_gradients(params, group)
+        ar_ms = (time.perf_counter() - t0) * 100
+    rec = {"loop_s": loop_s, "losses": losses, "step_ms_eager": [t * 1e3 for t in ts],
+           "train_rays_per_s_eager": trainer.args.N_rand / statistics.median(ts),
+           "grad_all_reduce_ms": ar_ms, "grad_all_reduce_bytes": grad_bytes,
+           "grad_all_reduce_how": "CUDA events over 10" if cuda else "host clock over 10",
+           "launches_loop": c_loop,
+           "launches_per_step_eager": {k: (c_eager[k] - c_loop[k]) / MULTI_TIMED for k in c_loop}}
+    if graphed:
+        c0 = _multi_counts()
+        g = graphed_window(torch, trainer, "chair", MULTI_GRAPH_START, "tv", False)
+        c1 = _multi_counts()
+        # two more blocks (the first captures, its warm-up step eager): the
+        # second's replays must run the captured all-reduce as often as an
+        # eager step calls it
+        trainer.run_steps(GRAPH_BLOCK, block_size=GRAPH_BLOCK)
+        c1b = _multi_counts()
+        trainer.run_steps(GRAPH_BLOCK, block_size=GRAPH_BLOCK)
+        c2 = _multi_counts()
+        g["collectives_per_graphed_step"] = {k: (c2[k] - c1b[k]) / GRAPH_BLOCK
+                                             for k in ("all_reduce", "all_gather", "reduce_scatter")}
+        # blocks without TV, timed only (the gate ran on the TV window)
+        trainer.global_step = GRAPH_NO_TV_START
+        trainer.run_steps(GRAPH_BLOCK, block_size=GRAPH_BLOCK)  # captures
+        ts_g = []
+        for _ in range(GRAPH_TIMED_BLOCKS["no_tv"]):
+            _multi_sync(torch, device)
+            t0 = time.perf_counter()
+            float(trainer.run_steps(GRAPH_BLOCK, block_size=GRAPH_BLOCK)["loss"])
+            ts_g.append(time.perf_counter() - t0)
+        rec["step_ms_graphed_no_tv"] = statistics.median(ts_g) / GRAPH_BLOCK * 1e3
+        rec["train_rays_per_s_graphed_no_tv"] = (trainer.args.N_rand * GRAPH_BLOCK
+                                                 / statistics.median(ts_g))
+        rec["graphed"] = g
+        rec["train_rays_per_s_graphed_tv"] = g["train_rays_per_s_graphed"]
+        per = g["launches_per_step"]
+        eager_ar = rec["launches_per_step_eager"]["all_reduce"]
+        require(per["hash_encode_fwd"] > 0 and per["hash_encode_bwd"] > 0
+                and per["segment_accumulate_k5"] > 0 and c1["all_reduce"] > c0["all_reduce"]
+                and g["collectives_per_graphed_step"]["all_reduce"] == eager_ar,
+                f"rank {rank}: the graphed window launched {per}, "
+                f"{g['collectives_per_graphed_step']} collectives a replayed step")
+    if cuda:
+        rec["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    rec["launches"] = _multi_counts()
+    require(rec["launches"]["all_reduce"] > 0, f"rank {rank}: no all-reduce was called")
+    if cuda:
+        # K2 and K6 against their plain versions at this rank's shapes (its
+        # rows of one global batch), after the counts were read; one rank
+        # at a time, as ranks may share a card
+        batch = shard_batch(trainer.layout, trainer.sample_batch(False))
+        for r in range(world):
+            if r == rank:
+                rec["encode"] = encode_check(
+                    torch, trainer, batch, f"multi_{torch.distributed.get_backend()}_rank{rank}")
+            torch.distributed.barrier()
+    rec["vs_one_process"] = multi_vs_one(torch, trainer, world, MULTI_VS_ONE_STEPS if world == 1 else 0)
+    return rec
+
+
+def multi_zero(torch, np, rank, world, device, flags):
+    """ZeRO-1 at the chair's widths on one fixed batch, deterministic
+    rendering, no TV: one step with a float32 wire against the one-device
+    step from the same state (loss; the rank's chunk of every gradient,
+    MLPs bit-equal over one rank), timed; then MULTI_ZERO_BF16_STEPS with
+    the bf16 wire, whose loss must fall."""
+    from hashnerf_torch.data.synthetic import make_synthetic_scene
+    from hashnerf_torch.parallel.mesh import make_mesh
+    from hashnerf_torch.parallel.train_sharded import (
+        _chunk, init_dp_zero, make_dp_zero_train_step, rank_generator, zero_params,
+    )
+    from hashnerf_torch.train.config import parse_args
+    from hashnerf_torch.train.driver import Trainer, make_loss_fn
+
+    args = parse_args(_multi_chair(device, flags, "--perturb", "0", "--raw_noise_std", "0",
+                                   "--tv-loss-weight", "0"))
+    scene = make_synthetic_scene(H=128, W=128, n_train=8, n_test=2)
+    t = Trainer(args, scene, device=device, seed=0)
+    batch = t.sample_image(0, args.N_rand, False)
+    layout = make_mesh(world)
+    loss_fn = make_loss_fn(args, t.render_cfg, t.bbox, t.model_cfg, with_tv=False, hwf=scene.hwf)
+    snap = [p.detach().clone() for p in t.state.parameters()]
+
+    def restore():
+        with torch.no_grad():
+            for p, s in zip(t.state.parameters(), snap):
+                p.copy_(s)
+
+    gen = rank_generator(0, layout, device)
+    _multi_reset()
+    master, opt = init_dp_zero(layout, t.state, args)
+    step = make_dp_zero_train_step(layout, loss_fn, t.state, torch.float32, torch.float32)
+    lz = float(step(master, opt, batch, 0.0, gen)["loss"])
+    zgrads = [c.grad.clone() for c in master]
+    c_fp32 = _multi_counts()
+    restore()
+    l1 = float(t.step(batch)["loss"])
+    n, r = layout.n_data, layout.data_index
+    params = zero_params(t.state)
+    g1 = [_chunk(p.grad, n)[r] for p in params]
+    n_net = len(t.state.net_parameters())
+    mlp_diff = sum(int((a != b).sum()) for a, b in zip(zgrads[:n_net], g1[:n_net]))
+    F = t.model_cfg.hash_grid.n_features_per_level
+    rows = lambda gs: [g.reshape(-1, F) for g in gs]  # noqa: E731
+    mlp_out, _ = row_gate(zgrads[:n_net], g1[:n_net])
+    table_out, table_worst = row_gate(rows(zgrads[n_net:]), rows(g1[n_net:]))
+    rec = {"fp32": {"loss": [lz, l1], "mlp_grad_entries_differing": mlp_diff,
+                    "mlp_grad_outside_row_gate": mlp_out, "table_grad_outside_row_gate": table_out,
+                    "table_grad_max_abs_diff": table_worst,
+                    "moment_floats_per_rank": sum(st["exp_avg"].numel() for st in opt.state.values()),
+                    "param_floats": sum(p.numel() for p in params)}, "bf16": {}}
+    require(abs(lz - l1) <= MULTI_LOSS_RTOL * abs(l1) and mlp_out == 0 and table_out == 0
+            and (world > 1 or mlp_diff == 0),
+            f"ZeRO-1 (float32 wire) over {world} ranks is not the one-device step: {rec}")
+    for wire, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        # bytes a rank moves a step: the all-gather's output and the
+        # reduce-scatter's input, at the wire's width
+        rec[wire]["wire_bytes_per_rank"] = 2 * sum(
+            _chunk(p, n).numel() * dtype.itemsize for p in params)
+    if device.type == "cuda":
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        for _ in range(5):
+            step(master, opt, batch, 0.0, gen)
+        e1.record()
+        e1.synchronize()
+        rec["fp32"]["step_ms"] = e0.elapsed_time(e1) / 5
+    restore()
+    _multi_reset()
+    master, opt = init_dp_zero(layout, t.state, args)
+    step = make_dp_zero_train_step(layout, loss_fn, t.state)
+    losses = []
+    for _ in range(MULTI_ZERO_BF16_STEPS):
+        _multi_sync(torch, device)
+        t0 = time.perf_counter()
+        losses.append(float(step(master, opt, batch, 0.0, gen)["loss"]))
+        rec["bf16"].setdefault("step_ms", []).append((time.perf_counter() - t0) * 1e3)
+    rec["bf16"]["losses"] = losses
+    require(all(np.isfinite(losses)) and losses[-1] < losses[0],
+            f"ZeRO-1 (bf16 wire): the loss did not fall over {len(losses)} steps: {losses}")
+    rec["launches"] = _multi_counts()
+    rec["launches_fp32_step"] = c_fp32
+    return rec
+
+
+def multi_table(torch, np, rank, world, device, flags):
+    """The table-sharded trainer on a (1, world) layout (each rank world's
+    share of the levels): its first step's loss against the one-device
+    trainer's from the same seed, MULTI_TABLE_STEPS steps; on the card K2
+    and K6 on this rank's levels at the step's points, held to their plain
+    versions (encode_check; its launches are not counted)."""
+    from hashnerf_torch.data.synthetic import make_synthetic_scene
+    from hashnerf_torch.parallel.table_sharded import make_table_mesh, make_table_sharded_trainer
+    from hashnerf_torch.train.config import parse_args
+    from hashnerf_torch.train.driver import Trainer
+
+    args = parse_args(_multi_chair(device, flags, "--tv-loss-weight", "0"))
+    scene = make_synthetic_scene(H=128, W=128, n_train=8, n_test=2)
+    layout = make_table_mesh(1, world)
+    ts = make_table_sharded_trainer(layout, args, scene, device=device, seed=0)
+    one = Trainer(args, scene, device=device, seed=0)
+    l_one = float(one.step(one.sample_batch(False))["loss"])
+    del one
+    _multi_reset()
+    losses = [float(ts.step(ts.sample_batch(False))["loss"]) for _ in range(MULTI_TABLE_STEPS)]
+    rec = {"levels": list(ts.state.resolutions.shape), "losses": losses, "one_device_loss": l_one,
+           "launches": _multi_counts()}
+    require(abs(losses[0] - l_one) <= MULTI_LOSS_RTOL * abs(l_one) and all(np.isfinite(losses)),
+            f"table-sharded (1, {world}) first step off the one-device one: {rec}")
+    if device.type == "cuda":
+        rec["encode"] = encode_check(torch, ts, ts.sample_batch(False), f"multi_table_rank{rank}")
+    return rec
+
+
+def multi_rank(rank, world, device, workdir, graphed, flags=()):
+    """What each rank of the multi phase runs: the chair path, ZeRO-1 and
+    the table-sharded trainer, each with its own launch counts."""
+    import numpy as np
+    import torch
+
+    out = {"rank": rank, "world": world, "device": str(device),
+           "backend": torch.distributed.get_backend()}
+    for name, fn in (("path", lambda: multi_path(torch, np, rank, world, device,
+                                                  os.path.join(workdir, "path"), graphed, flags)),
+                     ("zero", lambda: multi_zero(torch, np, rank, world, device, flags)),
+                     ("table", lambda: multi_table(torch, np, rank, world, device, flags))):
+        t0 = time.perf_counter()
+        out[name] = fn()
+        out[name]["seconds"] = time.perf_counter() - t0
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def phase_multi(torch, np, smi: str):
+    """Multi-device training on the card (phase_multi, slice 10): the ranks
+    of multi_rank under NCCL, one a card (W = the cards present), then
+    MULTI_GLOO_WORLD ranks sharing card 0 over gloo (gloo takes CUDA
+    tensors for every collective the port calls: all-reduce, all-gather,
+    reduce-scatter, broadcast, barrier). Every rank's launches of each run
+    are gated by PATHS["multi"], and every rank holds K2 and K6 to their
+    plain versions at its own shapes (multi_path, multi_table)."""
+    from hashnerf_torch.parallel.mesh import launch
+
+    W = torch.cuda.device_count()
+    t_phase = time.perf_counter()
+    workdir = tempfile.mkdtemp(prefix="hashnerf_torch_multi_")
+    try:
+        runs = {}
+        for name, world, backend, graphed in (("nccl", W, "nccl", True),
+                                              ("gloo", MULTI_GLOO_WORLD, "gloo", False)):
+            t0 = time.perf_counter()
+            res = launch(multi_rank, world, "cuda", (os.path.join(workdir, name), graphed),
+                         backend=backend)
+            runs[name] = {"world": world, "seconds": time.perf_counter() - t0, "ranks": res}
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    launches = {name: 0 for name in KERNEL_INFO}
+    for name, run in runs.items():
+        for r in run["ranks"]:
+            for part, want in PATHS["multi"]["runs"].items():
+                got = r[part]["launches"]
+                for k in KERNEL_INFO:
+                    require((got[k] > 0) == (k in want),
+                            f"multi {name} rank {r['rank']} {part}: {k} launched {got[k]} times")
+                    launches[k] += got[k]
+            # encode_check ran at the rank's shapes (it raises on a disagreement)
+            require("encode" in r["path"], f"multi {name} rank {r['rank']}: K2/K6 not checked")
+    rec = {"phase": "multi", "card": smi, "nccl_world": W, "gloo_world": MULTI_GLOO_WORLD,
+           "cpu_only_modes": [], "phase_s": time.perf_counter() - t_phase, "runs": runs,
+           "launches": launches,
+           "encode_points": {name: [{p: r["path"]["encode"][p]["N"] for p in ("coarse", "fine")}
+                                    for r in run["ranks"]] for name, run in runs.items()}}
+    emit(rec)
+    return rec
+
+
 def phase_bench(torch):
     """The line of `python -m hashnerf_torch.bench`, for the flagship and
     for BENCH_PARITY=1 (the chair step), run in this process."""
@@ -3015,6 +3435,8 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     loaders = phase_loaders(torch, np, dev["smi"])
     torch.cuda.empty_cache()
+    multi = phase_multi(torch, np, dev["smi"])
+    torch.cuda.empty_cache()
     benches = phase_bench(torch)
 
     fine = packed["shapes"]["fine_slabs"]
@@ -3031,6 +3453,7 @@ def main(argv=None) -> int:
         by_path["llff"] = llff["launches"][name]
         by_path["st3d"] = st3d["launches"][name]
         by_path["loaders"] = loaders["launches"][name]
+        by_path["multi"] = multi["launches"][name]
         lines.append({
             "name": name, "route": "cuda", **info,
             "launches": sum(by_path.values()), "launches_by_path": by_path,
@@ -3045,7 +3468,8 @@ def main(argv=None) -> int:
             json.dump({"device": dev, "kernels": kern, "k4_hot_row": k4_hot, "k5_hot_rows": k5_hot,
                        "packed_kernels": packed, "occupancy": occupancy, "culled_k5": culled_k5,
                        "packed_encode": packed_enc, "main_paths": paths, "blender": blender,
-                       "llff": llff, "st3d": st3d, "loaders": loaders, "bench": benches,
+                       "llff": llff, "st3d": st3d, "loaders": loaders, "multi": multi,
+                       "bench": benches,
                        "seconds": time.perf_counter() - t_start}, f, indent=1)
     print(f"chip_smoke seconds: {time.perf_counter() - t_start:.1f} [{dev['smi']}]", flush=True)
     print(f"card: {dev['smi']}", flush=True)

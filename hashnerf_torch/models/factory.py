@@ -160,6 +160,14 @@ class NGPState(nn.Module):
         nets = [self.coarse] + ([self.fine] if self.fine is not None else [])
         return [p for n in nets for p in n.parameters()]
 
+    def encode_hash(self, x: torch.Tensor, bbox: torch.Tensor):
+        """The per-corner table's encode of points x (N, 3): (features
+        (N, L*F), keep (N,)); K2 forward and K6 backward on the card. The
+        level-sharded state (parallel/table_sharded.py) encodes its own
+        levels and gathers the rest."""
+        return hash_encode(self.hash_table, x, bbox[0].contiguous(), bbox[1].contiguous(),
+                           self.resolutions)
+
 
 def query_fn(state: NGPState, pts, viewdirs, bbox, fine: bool = False) -> torch.Tensor:
     """Encode points (+ view directions), run the MLP, zero sigma outside
@@ -179,9 +187,7 @@ def query_fn(state: NGPState, pts, viewdirs, bbox, fine: bool = False) -> torch.
     elif cfg.packed_layout:
         embedded, keep = packed_encode(state.hash_table, flat, bbox[0], bbox[1], state.packed_cfg)
     else:
-        embedded, keep = hash_encode(
-            state.hash_table, flat, bbox[0].contiguous(), bbox[1].contiguous(), state.resolutions
-        )
+        embedded, keep = state.encode_hash(flat, bbox)
     if cfg.use_viewdirs and viewdirs is not None:
         dirs = viewdirs[:, None, :].expand(R, S, 3).reshape(-1, 3)
         if cfg.i_embed_views == EMBED_SH:

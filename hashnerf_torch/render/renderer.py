@@ -85,6 +85,49 @@ class RenderDraws(NamedTuple):
     noise1: Optional[torch.Tensor] = None
 
 
+def draw_render(cfg: RenderConfig, R: int, generator: Optional[torch.Generator], device,
+                culled: bool = False, dtype=torch.float32) -> RenderDraws:
+    """Every draw render_rays(cfg) takes from `generator` for R rays, in its
+    order and at its shapes (culled: with an occupancy grid given). The one
+    routine for them: render_rays draws here when it is given no draws,
+    and a data-parallel rank draws the whole batch's and keeps its own rows
+    (shard_draws), so that every rank's numbers are those of the
+    one-process step. Global culling's shapes follow the kept count, which
+    only the whole batch knows: it raises NotImplementedError (render_rays
+    draws those as it goes; data parallelism over them is ROADMAP A8.4)."""
+    occ = cfg.occupancy if culled else None
+    if occ is not None and not occ.per_ray:
+        raise NotImplementedError("hashnerf_torch: global occupancy culling under data "
+                                  "parallelism is not ported yet (ROADMAP A8.4)")
+
+    def samples(S: int, fine: bool) -> int:
+        if occ is None:
+            return S
+        coarse = occ.keep_fraction_coarse
+        return keep_per_ray(S, coarse if not fine and coarse is not None else occ.keep_fraction)
+
+    def draw(fn, shape):
+        return fn(shape, generator=generator, device=device, dtype=dtype)
+
+    noise = cfg.raw_noise_std > 0.0
+    t_strat = draw(torch.rand, (R, cfg.N_samples)) if cfg.perturb else None
+    noise0 = draw(torch.randn, (R, samples(cfg.N_samples, False))) if noise else None
+    u_pdf = u_sorted = noise1 = None
+    if cfg.N_importance > 0:
+        if cfg.perturb and cfg.fast_merge and occ is None:
+            u_sorted = sorted_uniform((R, cfg.N_importance), generator, device=device, dtype=dtype)
+        elif cfg.perturb:
+            u_pdf = draw(torch.rand, (R, cfg.N_importance))
+        if noise:
+            noise1 = draw(torch.randn, (R, samples(cfg.N_samples + cfg.N_importance, True)))
+    return RenderDraws(t_strat, noise0, u_pdf, u_sorted, noise1)
+
+
+def shard_draws(draws: RenderDraws, start: int, stop: int) -> RenderDraws:
+    """Rows [start, stop) of every draw."""
+    return RenderDraws(*(None if d is None else d[start:stop] for d in draws))
+
+
 def keep_k(n: int, kf: float) -> int:
     """Global budget: int(n * kf) rounded up to a multiple of 128, at most n."""
     return min(n, -(-int(n * kf) // 128) * 128)
@@ -112,15 +155,19 @@ def render_rays(
     """Core per-batch ray march. rays_o/rays_d (R, 3); near/far (R,) or
     scalars; bbox (2, 3). Coarse-pass outputs are keyed rgb0/depth0/acc0/
     sparsity_loss0 when hierarchical sampling is on. With cfg.occupancy and
-    occ_grid both set, each pass is culled to its keep budget."""
-    draws = draws or RenderDraws()
+    occ_grid both set, each pass is culled to its keep budget. Without
+    draws, render_rays takes them from `generator` at once (draw_render),
+    in the rays' dtype; global culling draws as it goes."""
     R = rays_o.shape[0]
+    occ = cfg.occupancy if occ_grid is not None else None
+    if (draws is None or all(d is None for d in draws)) and (occ is None or occ.per_ray):
+        draws = draw_render(cfg, R, generator, rays_o.device, occ is not None, rays_o.dtype)
+    draws = draws or RenderDraws()
     near = torch.as_tensor(near, dtype=rays_o.dtype, device=rays_o.device).expand(R)
     far = torch.as_tensor(far, dtype=rays_o.dtype, device=rays_o.device).expand(R)
     if cfg.aabb_clip:
         near, far = ray_aabb_near_far(rays_o, rays_d, bbox, near, far)
 
-    occ = cfg.occupancy if occ_grid is not None else None
     per_ray = occ is not None and occ.per_ray
 
     def keep_fraction(fine: bool) -> float:

@@ -10,6 +10,16 @@ package's) and render the test set (--render_test) or the demo path into
 `renderonly_{test|path}_{step:06d}/`, figures and a video. `--dataset_type
 st3d` runs the panorama loop instead (`main_st3d`, `eval_test_omninerf`).
 Runs on CUDA unless --device names another device.
+
+With --num_devices N > 1 it trains data-parallel on N ranks: it spawns them
+itself (NCCL, a card each, on CUDA; gloo with --device cpu), or, started
+by torchrun (WORLD_SIZE, RANK, LOCAL_RANK, MASTER_ADDR set), it is one of
+them:
+
+    torchrun --nproc_per_node N -m hashnerf_torch.run_nerf --config ... --num_devices N
+
+Rank 0 alone writes logs, checkpoints, test sets and videos; --render_only
+runs on rank 0 alone.
 """
 from __future__ import annotations
 
@@ -18,21 +28,68 @@ import os
 import numpy as np
 
 
+def _rank_main(rank: int, world: int, device, argv):
+    """One spawned rank: main(argv) in it; returns what the parent gets
+    back of its Trainer."""
+    trainer = main(argv)
+    return {"rank": rank, "global_step": trainer.global_step, "history": trainer.history,
+            "restored_from": trainer.restored_from}
+
+
+def _distributed(args):
+    """(go, layout): bring up this rank's process group when the
+    environment names a world (torchrun, or a spawned rank), and its 1-D
+    data layout over --num_devices ranks (by default the world's size; one
+    rank too). --render_only runs in one process (rank 0 under torchrun):
+    go is False on another rank, which has nothing to do."""
+    from hashnerf_torch.parallel.mesh import dist_env, initialize_distributed, make_mesh
+
+    if args.render_only:
+        args.num_devices = 0
+        return _rank0(), None
+    if not dist_env():
+        return True, None
+    args.device = str(initialize_distributed(args.device))
+    args.num_devices = args.num_devices or int(os.environ["WORLD_SIZE"])
+    return True, make_mesh(args.num_devices)
+
+
+def _rank0() -> bool:
+    return int(os.environ.get("RANK", "0")) == 0
+
+
 def main(argv=None):
+    """Returns the Trainer; with --num_devices N > 1 and no world in the
+    environment, the N ranks' {rank, global_step, history, restored_from}
+    (each rank's Trainer stays in its process); on a rank other than 0 of
+    a --render_only run under torchrun, None."""
     from hashnerf_torch.data import load_scene
+    from hashnerf_torch.parallel.mesh import dist_env, launch
     from hashnerf_torch.train.config import check_supported, create_expname, parse_args
     from hashnerf_torch.train.driver import Trainer, train_loop
     from hashnerf_torch.utils.io import dump_args, save_video
 
     args = parse_args(argv)
     check_supported(args)
+    n = args.num_devices or 0
+    if n > 1 and not args.render_only and not dist_env():
+        from hashnerf_torch import resolve_device
+        from hashnerf_torch.train.driver import check_num_devices
+
+        device = resolve_device(args.device)
+        check_num_devices(n, args.N_rand, device.type == "cuda")
+        return launch(_rank_main, n, device, (argv,))
+    go, layout = _distributed(args)
+    if not go:
+        return None
     if args.dataset_type == "st3d":
-        return main_st3d(args)
+        return main_st3d(args, layout)
     scene = load_scene(args.dataset_type, args.datadir, args)
     args.expname = create_expname(args)
     savepath = os.path.join(args.basedir, args.expname)
     os.makedirs(savepath, exist_ok=True)
-    dump_args(savepath, vars(args), args.config)
+    if _rank0():
+        dump_args(savepath, vars(args), args.config)
 
     if args.render_only:
         trainer = Trainer(args, scene, device=args.device)
@@ -54,10 +111,10 @@ def main(argv=None):
         print("Done rendering", testsavedir)
         return trainer
 
-    return train_loop(args, scene, device=args.device)
+    return train_loop(args, scene, device=args.device, layout=layout)
 
 
-def main_st3d(args):
+def main_st3d(args, layout=None):
     """Panorama training (run_nerf.py's main_st3d): the loader's train rays
     as a ray pool on the device, shuffled by np.random.default_rng(0)'s
     permutations as the JAX loop shuffles them, near 0, far 2, the bbox
@@ -65,8 +122,11 @@ def main_st3d(args):
     i_print, i_weights, i_testset and the pool's end, where the pool is
     reshuffled in place; with --steps_per_dispatch K > 1 a span runs as
     run_steps blocks of K (CUDA graphs on the card), else one step at a
-    time. Returns the Trainer."""
+    time. Under data parallelism (layout) rank 0 alone writes. Returns the
+    Trainer."""
     import time
+
+    import torch.distributed
 
     from hashnerf_torch.data.st3d import load_st3d_data, st3d_scene
     from hashnerf_torch.train.config import create_expname
@@ -79,9 +139,10 @@ def main_st3d(args):
     args.expname = create_expname(args)
     savepath = os.path.join(args.basedir, args.expname)
     os.makedirs(savepath, exist_ok=True)
-    dump_args(savepath, vars(args), args.config)
+    if _rank0():
+        dump_args(savepath, vars(args), args.config)
 
-    trainer = Trainer(args, st3d_scene(H, W, near, far), device=args.device)
+    trainer = Trainer(args, st3d_scene(H, W, near, far), device=args.device, layout=layout)
     if not args.no_reload:
         trainer.try_restore(savepath, args.ft_path)
     pool = trainer.build_column_pool({
@@ -122,16 +183,20 @@ def main_st3d(args):
         if i % args.i_weights == 0:
             trainer.save(os.path.join(savepath, "{:06d}.ckpt".format(i)))
         if args.i_testset > 0 and i % args.i_testset == 0:
-            eval_test_omninerf(trainer, rays_test, H, W,
-                               os.path.join(savepath, "testset_{:06d}".format(i)))
+            if trainer.is_main:
+                eval_test_omninerf(trainer, rays_test, H, W,
+                                   os.path.join(savepath, "testset_{:06d}".format(i)))
+            if trainer.layout is not None:
+                torch.distributed.barrier()
         if i % args.i_print == 0:
             loss_v, psnr_v = float(metrics["loss"]), float(metrics["psnr"])
-            print(f"[TRAIN] Iter: {i} Loss: {loss_v}  PSNR: {psnr_v}")
             trainer.history.append((i, loss_v, psnr_v))
             loss_list.append(loss_v)
             psnr_list.append(psnr_v)
             time_list.append(time.time() - time0)
-            save_loss_history(savepath, loss_list, psnr_list, time_list)
+            if trainer.is_main:
+                print(f"[TRAIN] Iter: {i} Loss: {loss_v}  PSNR: {psnr_v}")
+                save_loss_history(savepath, loss_list, psnr_list, time_list)
         i += 1
     return trainer
 

@@ -38,7 +38,19 @@ def _layout(state) -> str:
     return LAYOUTS[None if state.hash_table is None else state.cfg.packed_layout]
 
 
-def save_checkpoint(path: str, global_step: int, state, optimizer) -> None:
+# Where each parameter of a multi-device run lived (`placement`):
+# replicated on every rank, split into 1/N flat chunks over the data axis
+# (ZeRO-1), or its levels split over the model axis (the table-sharded
+# trainer). The file holds every parameter whole either way, so any layout
+# restores it (parallel/checkpoint.py).
+PLACEMENTS = ("replicated", "data", "model")
+
+
+def save_checkpoint(path: str, global_step: int, state, optimizer,
+                    placement: Optional[dict] = None) -> None:
+    """Write {global_step, layout, state, opt_state} to path (through a
+    temporary file); placement, {parameter name: one of PLACEMENTS}, is
+    recorded for a multi-device run."""
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     payload = {
         "global_step": int(global_step),
@@ -46,6 +58,11 @@ def save_checkpoint(path: str, global_step: int, state, optimizer) -> None:
         "state": state.state_dict(),
         "opt_state": optimizer.state_dict(),
     }
+    if placement is not None:
+        bad = set(placement.values()) - set(PLACEMENTS)
+        if bad:
+            raise ValueError(f"unknown placements {sorted(bad)} (want {PLACEMENTS})")
+        payload["placement"] = dict(placement)
     tmp = path + ".tmp"
     torch.save(payload, tmp)
     os.replace(tmp, path)
@@ -70,6 +87,74 @@ def load_checkpoint(path: str, state, optimizer) -> int:
     state.load_state_dict(payload["state"])
     optimizer.load_state_dict(payload["opt_state"])
     return int(payload["global_step"])
+
+
+def _chunk_of(t: torch.Tensor, n: int, r: int) -> torch.Tensor:
+    flat = t.reshape(-1)
+    c = -(-flat.numel() // n)
+    return torch.nn.functional.pad(flat, (0, n * c - flat.numel()))[r * c:(r + 1) * c]
+
+
+@torch.no_grad()
+def gather_placed(layout, pairs) -> None:
+    """Fill each whole (template) tensor from its live part on this rank's
+    layout: pairs of (whole, live, placement). Every rank calls it (the
+    gathers are collectives)."""
+    from hashnerf_torch.parallel.mesh import all_gather
+
+    for whole, live, kind in pairs:
+        if kind == "replicated":
+            whole.copy_(live)
+            continue
+        n, group = ((layout.n_data, layout.data_group) if kind == "data"
+                    else (layout.n_model, layout.model_group))
+        if n == 1:
+            parts = live
+        else:
+            parts = torch.empty((n * live.shape[0],) + tuple(live.shape[1:]), dtype=live.dtype,
+                                device=live.device)
+            all_gather(parts, live.contiguous(), group)
+        if kind == "data":
+            whole.copy_(parts.reshape(-1)[:whole.numel()].view(whole.shape))
+        else:
+            whole.copy_(parts)
+
+
+@torch.no_grad()
+def place_loaded(layout, pairs) -> None:
+    """The inverse: each live tensor takes its part of the whole one."""
+    for whole, live, kind in pairs:
+        if kind == "replicated":
+            live.copy_(whole)
+        elif kind == "data":
+            live.copy_(_chunk_of(whole, layout.n_data, layout.data_index))
+        else:
+            per = live.shape[0]
+            live.copy_(whole[layout.model_index * per:(layout.model_index + 1) * per])
+
+
+def save_sharded(path: str, global_step: int, layout, state, optimizer, pairs_of,
+                 placement: dict) -> None:
+    """A sharded run's checkpoint: its live parts gathered into the whole
+    `state` and `optimizer` (gather_placed of pairs_of(state, optimizer)),
+    written by rank 0 with their placement; every rank calls it and
+    returns once the file is there."""
+    import torch.distributed as dist
+
+    gather_placed(layout, pairs_of(state, optimizer))
+    if layout.rank == 0:
+        save_checkpoint(path, global_step, state, optimizer, placement=placement)
+    dist.barrier()
+
+
+def restore_sharded(path: str, layout, state, optimizer, pairs_of) -> int:
+    """Load a checkpoint of either format (written by any layout, or by one
+    process) into the whole `state` and `optimizer`, and place it onto this
+    rank's live parts (pairs_of(state, optimizer), taken after the load:
+    loading replaces the optimizer's state tensors); returns global_step."""
+    step = load_checkpoint(path, state, optimizer)
+    place_loaded(layout, pairs_of(state, optimizer))
+    return step
 
 
 class _BuiltinsOnly(pickle.Unpickler):
@@ -171,11 +256,11 @@ def load_jax_checkpoint(path: str, state, optimizer) -> int:
     return int(payload["global_step"])
 
 
-def latest_checkpoint(savedir: str, ft_path: Optional[str] = None) -> Optional[str]:
+def latest_checkpoint(savedir: Optional[str], ft_path: Optional[str] = None) -> Optional[str]:
     """The pinned ft_path, else the last `.ckpt` in savedir, else None."""
     if ft_path is not None and ft_path != "None":
         return ft_path
-    if not os.path.isdir(savedir):
+    if savedir is None or not os.path.isdir(savedir):
         return None
     ckpts = sorted(f for f in os.listdir(savedir) if f.endswith(".ckpt"))
     return os.path.join(savedir, ckpts[-1]) if ckpts else None

@@ -191,9 +191,10 @@ def config_parser() -> argparse.ArgumentParser:
                         "rank-merge with the stratified z's instead of "
                         "sorting the concatenation")
     parser.add_argument("--num_devices", type=int, default=0,
-                        help="N>1: shard rays over an N-device data-parallel "
-                        "mesh (params replicated, grads all-reduced over "
-                        "ICI); 0/1 = single device")
+                        help="N>1: data parallelism over N ranks (rays split, "
+                        "params replicated, grads all-reduced; NCCL on the "
+                        "cards, gloo with --device cpu); run_nerf spawns the "
+                        "ranks unless torchrun started them; 0/1 = one device")
     parser.add_argument("--aabb_clip", action="store_true",
                         help="tighten per-ray [near,far] to the bbox "
                         "intersection before sampling (all samples land "
@@ -237,8 +238,11 @@ def check_supported(args) -> None:
 
     if args.compute_dtype not in (None, "bfloat16", "float16"):
         no(f"--compute_dtype {args.compute_dtype} (only bfloat16 and float16)", "A7.4")
-    if (args.num_devices or 0) > 1:
-        no(f"--num_devices {args.num_devices}", "A8")
+    if (args.num_devices or 0) > 1 and args.use_occupancy and not args.occ_per_ray:
+        # the kept count of a global cull varies with the batch, and so
+        # would each rank's share of it (per-ray culling shards as it is)
+        no(f"global occupancy culling (--use_occupancy without --occ_per_ray) under "
+           f"--num_devices {args.num_devices}", "A8.4")
     if args.dataset_type == "st3d":
         from hashnerf_torch.data.st3d import cv2_or_none, needs_exr
 

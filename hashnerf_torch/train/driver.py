@@ -36,12 +36,15 @@ from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from hashnerf_torch import resolve_device
 from hashnerf_torch.data.scene import Scene
 from hashnerf_torch.models.factory import EMBED_HASH, ModelConfig, NGPState, query_fn
 from hashnerf_torch.ops.hash_encoding import HashGridConfig
 from hashnerf_torch.ops.rays import get_ndc_rays, get_rays, get_rays_at
+from hashnerf_torch.parallel.mesh import make_mesh, replicate
+from hashnerf_torch.parallel.train_sharded import sharded_step
 from hashnerf_torch.render.occupancy import (
     OccupancyConfig, OccUpdateDraws, init_occupancy_grid, update_occupancy_grid,
 )
@@ -164,6 +167,37 @@ def render_config_from_args(args, ndc: bool = False, lindisp: bool = False) -> R
     )
 
 
+def check_num_devices(n: int, n_rand: int, nccl: bool) -> None:
+    """The JAX Trainer's checks of --num_devices n (ValueError): N_rand must
+    split over n, and n NCCL ranks need n cards."""
+    if n_rand % n:
+        raise ValueError(f"--N_rand {n_rand} must be divisible by --num_devices {n}")
+    if nccl and n > torch.cuda.device_count():
+        raise ValueError(f"--num_devices {n} > available devices {torch.cuda.device_count()}")
+
+
+def data_parallel_layout(args, device: torch.device, layout=None):
+    """The data-parallel layout a Trainer of args runs in, or None (one
+    device: --num_devices 0 or 1). A caller that brought up the world
+    (run_nerf, under torchrun or its own spawn) passes its layout, which
+    may span one rank; else --num_devices N > 1 makes a 1-D data layout
+    over a process group of N ranks. Raises ValueError: check_num_devices,
+    and N > 1 without a process group of N ranks."""
+    n = layout.n_data if layout is not None else args.num_devices or 0
+    if n <= 1 and layout is None:
+        return None
+    check_num_devices(n, args.N_rand, device.type == "cuda" and (
+        not dist.is_initialized() or dist.get_backend() == "nccl"))
+    if layout is not None:
+        return layout
+    if not dist.is_initialized() or dist.get_world_size() != n:
+        world = dist.get_world_size() if dist.is_initialized() else 1
+        raise ValueError(f"--num_devices {n} needs a process group of {n} ranks, this process "
+                         f"is in one of {world}: run it through hashnerf_torch.run_nerf (which "
+                         "spawns the ranks) or torchrun")
+    return make_mesh(n)
+
+
 def make_lr_schedule(lrate: float, lrate_decay: int):
     """lr(t) = lrate * 0.1^(t / (decay*1000)), a float32 tensor computed as
     the JAX schedule computes it (a float32 power); t a tensor (RAdam's step
@@ -177,18 +211,21 @@ def make_lr_schedule(lrate: float, lrate_decay: int):
     return sched
 
 
-def make_optimizer(args, state: NGPState):
+def make_optimizer(args, state: Optional[NGPState] = None, params=None):
     """Under the hash grid, RAdam with two groups: the MLPs (wd 1e-6, eps
     1e-8) and the hash table, or both packed tables (wd 0, eps 1e-15), both
     betas (0.9, 0.99). Otherwise Adam over the MLPs, betas (0.9, 0.999),
-    eps 1e-8, as the JAX package's optax.adam."""
+    eps 1e-8, as the JAX package's optax.adam. params = (net, table) lists
+    of tensors in the state's place: ZeRO-1's master chunks of them."""
+    net, table = params if params is not None else (state.net_parameters(),
+                                                    state.table_parameters())
     if args.i_embed != EMBED_HASH:
-        return Adam(state.net_parameters(), lr=make_lr_schedule(args.lrate, args.lrate_decay),
+        return Adam(net, lr=make_lr_schedule(args.lrate, args.lrate_decay),
                     betas=(0.9, 0.999), eps=1e-8)
     return RAdam(
         [
-            {"params": state.net_parameters(), "eps": 1e-8, "weight_decay": 1e-6},
-            {"params": state.table_parameters(), "eps": 1e-15, "weight_decay": 0.0},
+            {"params": net, "eps": 1e-8, "weight_decay": 1e-6},
+            {"params": table, "eps": 1e-15, "weight_decay": 0.0},
         ],
         lr=make_lr_schedule(args.lrate, args.lrate_decay),
         betas=(0.9, 0.99),
@@ -206,8 +243,14 @@ def make_loss_fn(args, render_cfg: RenderConfig, bbox: torch.Tensor,
     hwf = (H, W, focal) first; its viewdirs stay the world directions (the
     caller takes them before the warp).
 
-    loss_fn(state, batch, tv_weight, draws=None, generator=None, occ_grid=None)
-      -> (loss, (psnr, img_loss)); occ_grid culls the render.
+    loss_fn(state, batch, tv_weight, draws=None, generator=None, occ_grid=None,
+            ray_share=None) -> (loss, (psnr, img_loss)); occ_grid culls the
+    render. A data-parallel rank passes ray_share, its share of the whole
+    batch's rays: each mean over its rays (image, depth, gradient) is
+    weighted by it, so that the ranks' losses (and gradients) sum to the
+    one-device ones; per-ray sums (sparsity) stay as they are, and the
+    caller divides tv_weight by the ranks. img_loss is then the weighted
+    one too, and psnr that of the rank's rays alone.
     """
     if render_cfg.ndc and hwf is None:
         raise ValueError("make_loss_fn: render_cfg.ndc needs hwf = (H, W, focal)")
@@ -217,8 +260,12 @@ def make_loss_fn(args, render_cfg: RenderConfig, bbox: torch.Tensor,
 
     def loss_fn(state, batch, tv_weight, draws: Optional[TrainDraws] = None,
                 generator: Optional[torch.Generator] = None,
-                occ_grid: Optional[torch.Tensor] = None):
+                occ_grid: Optional[torch.Tensor] = None, ray_share: Optional[float] = None):
         draws = draws or TrainDraws()
+
+        def mean(x):
+            return x if ray_share is None else x * ray_share
+
         rays_o, rays_d = batch["rays_o"], batch["rays_d"]
         if render_cfg.ndc:
             H, W, focal = int(hwf[0]), int(hwf[1]), float(hwf[2])
@@ -229,17 +276,18 @@ def make_loss_fn(args, render_cfg: RenderConfig, bbox: torch.Tensor,
             draws=draws.render, generator=generator, occ_grid=occ_grid,
         )
         img_loss = img2mse(ret["rgb_map"], batch["target"])
-        loss = img_loss
         psnr = mse2psnr(img_loss)
+        img_loss = mean(img_loss)
+        loss = img_loss
         depth = batch.get("target_depth") if use_depth else None
         if depth is not None:
-            loss = loss + torch.mean(torch.abs(ret["depth_map"] - depth))
+            loss = loss + mean(torch.mean(torch.abs(ret["depth_map"] - depth)))
         if use_gradient and "target_grad" in batch and "grad_map" in ret:
-            loss = loss + img2mse(ret["grad_map"], batch["target_grad"])
+            loss = loss + mean(img2mse(ret["grad_map"], batch["target_grad"]))
         if "rgb0" in ret:
-            loss = loss + img2mse(ret["rgb0"], batch["target"])
+            loss = loss + mean(img2mse(ret["rgb0"], batch["target"]))
             if depth is not None:
-                loss = loss + torch.mean(torch.abs(ret["depth0"] - depth))
+                loss = loss + mean(torch.mean(torch.abs(ret["depth0"] - depth)))
         sparsity = ret["sparsity_loss"].sum()
         if "sparsity_loss0" in ret:
             sparsity = sparsity + ret["sparsity_loss0"].sum()
@@ -263,12 +311,24 @@ def make_loss_fn(args, render_cfg: RenderConfig, bbox: torch.Tensor,
 
 
 class Trainer:
-    """Owns the model state, the optimizer and the train step."""
+    """Owns the model state, the optimizer and the train step.
 
-    def __init__(self, args, scene: Scene, device=None, seed: int = 0):
+    Given a layout (parallel/mesh.py; run_nerf passes one when it spawned
+    the ranks or torchrun started them), or with --num_devices N > 1 inside
+    a process group of N ranks, the Trainer is one rank of a data-parallel
+    run, as the JAX package's
+    GSPMD step over a ("data",) mesh: parameters and optimizer state
+    replicated, each rank's step on its rows of every global batch, the
+    gradients and metrics summed over the ranks. Every rank draws the
+    global batch and every random number of the global step from one
+    generator in lockstep, and keeps its rows, so that N ranks compute the
+    one-process run's step, up to summation order."""
+
+    def __init__(self, args, scene: Scene, device=None, seed: int = 0, layout=None):
         self.args = args
         self.scene = scene
         self.device = resolve_device(device if device is not None else args.device)
+        self.layout = data_parallel_layout(args, self.device, layout)
         self.model_cfg = model_config_from_args(args)
         # a forward-facing scene renders in NDC, where lindisp has no say
         self.render_cfg = render_config_from_args(
@@ -276,6 +336,8 @@ class Trainer:
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
         self.state = NGPState(self.model_cfg, self.generator, self.device)
+        if self.layout is not None:
+            replicate(list(self.state.parameters()))
         self.optimizer = make_optimizer(args, self.state)
         self.global_step = 0
         self.history = []  # (iter, loss, psnr) at every i_print
@@ -306,6 +368,7 @@ class Trainer:
         self.last_occ_keep = None
         # on a GPU, the CUDA graphs that run_steps' blocks replay
         self._graphs: Optional[GraphCache] = None
+        self.restored_from: Optional[str] = None
 
     def _keep_at(self, step: int) -> Tuple[float, Optional[int]]:
         """(the fine keep fraction at `step`, the next schedule step after
@@ -362,11 +425,16 @@ class Trainer:
     def _train_one(self, batch: Dict[str, torch.Tensor], tv_w: float, keep: Optional[float],
                    occ_grid: Optional[torch.Tensor], draws: Optional[TrainDraws] = None):
         """The step body that step() and run_steps' blocks share: forward,
-        backward and RAdam on one batch. Returns detached metrics."""
+        backward and RAdam on one batch. Returns detached metrics. Under
+        data parallelism the batch and draws are the global step's
+        (parallel/train_sharded.py::sharded_step)."""
         loss_fn = self._loss_fn(tv_w > 0, keep)
         if "viewdirs" not in batch and self.render_cfg.use_viewdirs:
             d = batch["rays_d"]
             batch = dict(batch, viewdirs=d / torch.linalg.norm(d, dim=-1, keepdim=True))
+        if self.layout is not None:
+            return sharded_step(self.layout, loss_fn, self._render_cfg_for(keep), self.state,
+                                self.optimizer, batch, tv_w, draws, self.generator, occ_grid)
         self.optimizer.zero_grad(set_to_none=True)
         loss, (psnr, img_loss) = loss_fn(self.state, batch, tv_w, draws, self.generator,
                                          occ_grid=occ_grid)
@@ -568,6 +636,9 @@ class Trainer:
 
             return block
 
+        if self.layout is not None and dist.get_backend() != "nccl":
+            raise RuntimeError(f"run_steps: {dist.get_backend()} collectives cannot be captured "
+                               "in a CUDA graph; graphed blocks on the card need NCCL")
         if self._graphs is None:
             self._graphs = GraphCache(self.generator, self.training_state())
         source = () if pool is None else ("pool", pool.data_ptr(), pool.shape[0])
@@ -726,22 +797,38 @@ class Trainer:
             savedir=savedir, render_factor=render_factor, occ_grid=self.eval_occ_grid,
         )
 
+    @property
+    def is_main(self) -> bool:
+        """Whether this process does the run's I/O: the one process, or
+        rank 0 of a data-parallel run."""
+        return self.layout is None or self.layout.rank == 0
+
     def save(self, path: str) -> None:
-        save_checkpoint(path, self.global_step, self.state, self.optimizer)
+        """Write a checkpoint (under data parallelism rank 0 writes the
+        replicated state, and every rank waits until it has)."""
+        if self.is_main:
+            placement = None if self.layout is None else {
+                k: "replicated" for k in self.state.state_dict()}
+            save_checkpoint(path, self.global_step, self.state, self.optimizer,
+                            placement=placement)
+        if self.layout is not None:
+            dist.barrier()
 
     def try_restore(self, savedir: str, ft_path: Optional[str] = None) -> bool:
         path = latest_checkpoint(savedir, ft_path)
         if path is None:
             return False
-        print(f"Reloading from {path}")
+        if self.is_main:
+            print(f"Reloading from {path}")
         self.global_step = load_checkpoint(path, self.state, self.optimizer)
+        self.restored_from = path
         # RAdam's state tensors were replaced: the graphs hold the old ones
         self._graphs = None
         return True
 
 
 def train_loop(args, scene: Scene, n_iters: Optional[int] = None, log_fn=print,
-               device=None) -> Trainer:
+               device=None, layout=None) -> Trainer:
     """The training loop with periodic print, checkpoint, spiral video and
     test-set figures; returns the Trainer. With ray batching (the default;
     off with --no_batching) each step takes the next N_rand rows of a ray
@@ -749,9 +836,13 @@ def train_loop(args, scene: Scene, n_iters: Optional[int] = None, log_fn=print,
     N_rand pixels of one training image. With --steps_per_dispatch K > 1 the
     steps between two events (print, checkpoint, video, test set, the
     precrop boundary, the pool's end) run as run_steps blocks of K, as the JAX loop's scanned spans run them; else one step at
-    a time, its image picked on the host."""
+    a time, its image picked on the host. Under data parallelism every rank
+    runs the loop; rank 0 alone writes checkpoints, logs, videos and test
+    sets, and the others wait for it at each checkpoint and render."""
     check_supported(args)
-    trainer = Trainer(args, scene, device=device)
+    trainer = Trainer(args, scene, device=device, layout=layout)
+    if not trainer.is_main:
+        log_fn = lambda *a, **k: None  # noqa: E731
     savepath = os.path.join(args.basedir, args.expname)
     os.makedirs(savepath, exist_ok=True)
     if not args.no_reload:
@@ -808,20 +899,24 @@ def train_loop(args, scene: Scene, n_iters: Optional[int] = None, log_fn=print,
             trainer.save(os.path.join(savepath, "{:06d}.ckpt".format(i)))
             log_fn(f"Saved checkpoints at {savepath}")
 
-        if args.i_video > 0 and i % args.i_video == 0 and len(scene.render_poses) > 0:
+        video = args.i_video > 0 and i % args.i_video == 0 and len(scene.render_poses) > 0
+        if video and trainer.is_main:
             rgbs, depths, _ = trainer.render_test_path(scene.render_poses)
             moviebase = os.path.join(savepath, "{}_spiral_{:06d}_".format(args.expname, i))
             save_video(moviebase + "rgb.mp4", rgbs)
             save_video(moviebase + "disp.mp4", depths / max(np.max(depths), 1e-8))
             log_fn(f"Saved video {moviebase}")
 
-        if args.i_testset > 0 and i % args.i_testset == 0 and len(scene.i_test) > 0:
+        testset = args.i_testset > 0 and i % args.i_testset == 0 and len(scene.i_test) > 0
+        if testset and trainer.is_main:
             testsavedir = os.path.join(savepath, "testset_{:06d}".format(i))
             _, _, psnrs = trainer.render_test_path(
                 scene.poses[scene.i_test], gt_imgs=scene.images[scene.i_test],
                 savedir=testsavedir,
             )
             log_fn(f"Saved test set to {testsavedir} (PSNR {np.mean(psnrs):.3f})")
+        if (video or testset) and trainer.layout is not None:
+            dist.barrier()
 
         if i % args.i_print == 0:
             loss_v, psnr_v = float(metrics["loss"]), float(metrics["psnr"])
@@ -830,6 +925,7 @@ def train_loop(args, scene: Scene, n_iters: Optional[int] = None, log_fn=print,
             loss_list.append(loss_v)
             psnr_list.append(psnr_v)
             time_list.append(time.time() - time0)
-            save_loss_history(savepath, loss_list, psnr_list, time_list)
+            if trainer.is_main:
+                save_loss_history(savepath, loss_list, psnr_list, time_list)
         i += 1
     return trainer

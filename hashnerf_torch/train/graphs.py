@@ -23,7 +23,9 @@ block reads its step's outputs before it replays anything else.
 
 Launch counts: the kernel wrappers count in Python, which a capture runs
 once and a replay never. A capture notes each wrapper's count, takes it off
-again (a capture launches nothing), and every replay adds it.
+again (a capture launches nothing), and every replay adds it. The
+collectives of a data-parallel step (parallel/mesh.py: NCCL's, which a
+graph captures) are counted the same way.
 """
 from __future__ import annotations
 
@@ -32,6 +34,16 @@ from typing import Callable, Dict, List, Optional
 import torch
 
 from hashnerf_torch import kernels
+from hashnerf_torch.parallel import mesh
+
+
+def _counts() -> Dict[str, int]:
+    return {**kernels.launch_counts(), **mesh.collective_counts()}
+
+
+def _add(counts: Dict[str, int], times: int = 1) -> None:
+    kernels.add_launches({k: n for k, n in counts.items() if k in kernels.KERNELS}, times)
+    mesh.add_collectives({k: n for k, n in counts.items() if k in mesh.COLLECTIVES}, times)
 
 
 class CapturedGraph:
@@ -55,15 +67,15 @@ class CapturedGraph:
 
             self.graph = torch.cuda.CUDAGraph()
             self.graph.register_generator_state(generator)
-            before = kernels.launch_counts()
+            before = _counts()
             with torch.cuda.graph(self.graph, pool=pool):
                 self.outputs = fn() or {}
         finally:
             # a capture launches nothing, whether it worked or raised
-            after = kernels.launch_counts()
+            after = _counts()
             self.launches = {} if before is None else {
                 k: after[k] - before[k] for k in after if after[k] != before[k]}
-            kernels.add_launches(self.launches, -1)
+            _add(self.launches, -1)
             with torch.no_grad():
                 for t, s in zip(state, saved):
                     t.copy_(s)
@@ -71,7 +83,7 @@ class CapturedGraph:
 
     def replay(self) -> None:
         self.graph.replay()
-        kernels.add_launches(self.launches)
+        _add(self.launches)
 
 
 class GraphCache:

@@ -705,3 +705,55 @@ def test_failed_capture_raises_without_eager_fallback(cuda_device, monkeypatch):
     assert t.global_step == 1
     assert all(torch.equal(x, y) for x, y in zip(t.training_state(), before))
     assert torch.equal(t.generator.get_state(), rng)
+
+
+# --------------------------------------------------------------------------- #
+# Multi-device training (slice 10)
+# --------------------------------------------------------------------------- #
+
+@pytest.mark.cuda
+def test_nccl_world1_dp_step_equals_trainer_step(cuda_device):
+    """One NCCL rank (--num_devices 1 in a process group of one, as
+    chip_smoke.py's multi phase runs it on a one-card machine): each of 8
+    steps from the one-process Trainer's seed, against Trainer.step on the
+    same card: the same loss, MLP gradients bit-equal (the all-reduce over
+    one rank copies), table gradients within the atomics' row gate."""
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import torch_parallel_ranks as ranks
+    from hashnerf_torch.parallel.mesh import launch
+
+    res = launch(ranks.card_dp_rank, 1, "cuda")[0]
+    assert res["backend"] == "nccl" and res["all_reduce_calls"] >= 8
+    for step in res["steps"]:
+        assert step["loss_rel_diff"] <= 1e-6, step
+        assert step["mlp_grad_entries_differing"] == 0, step
+        assert step["table_grad_in_row_gate"], step
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("levels", [(0, 4), (4, 8), (6, 8)])
+def test_level_shard_encode_on_card_matches_plain(cuda_device, levels):
+    """K2 and K6 on one model rank's levels of a table (the level-sharded
+    table's encode: its levels and their slice of the resolutions)."""
+    table, x, probe, bmin, bmax, cfg = encode_inputs(7, 8, 12, 16, 512, 4001, -1.6, 1.6)
+    dev = cuda_device
+    lo, hi = levels
+    local = torch.from_numpy(table[lo:hi]).to(dev).contiguous()
+    res = cfg.resolutions_tensor(dev)[lo:hi].contiguous()
+    args = [torch.from_numpy(a).to(dev) for a in (x, bmin, bmax)] + [res]
+    g = torch.from_numpy(probe.reshape(len(x), 8, -1)[:, lo:hi].reshape(len(x), -1)).to(dev)
+    g = g.contiguous()
+    f, k = he.hash_encode_fwd(local, *args)
+    fp, kp = he.hash_encode_fwd_plain(local, *args)
+    assert f.shape == (len(x), (hi - lo) * local.shape[2]) and torch.equal(k, kp)
+    torch.testing.assert_close(f, fp, rtol=1e-5, atol=1e-7)
+    T = local.shape[1]
+    got = he.hash_encode_bwd(*args, g, T)
+    torch.cuda.synchronize()
+    plain = he.hash_encode_bwd_plain(*args, g, T)
+    abs_sum = he.hash_encode_bwd_plain(*args, g.abs(), T)
+    assert got.shape == local.shape
+    assert bool(((got - plain).abs() <= 2e-5 * abs_sum + 1e-6).all())

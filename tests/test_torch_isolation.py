@@ -36,6 +36,9 @@ def _imported_roots(path):
 # walked by the import checks below
 SLICE9 = ["ops/positional.py", "train/adam.py", "data/st3d.py", "data/scannet.py",
           "data/deepvoxels.py", "data/linemod.py", "tools/generate_equirect_data.py"]
+# the modules of slice 10 (multi-device training)
+SLICE10 = ["parallel/__init__.py", "parallel/mesh.py", "parallel/train_sharded.py",
+           "parallel/table_sharded.py", "parallel/dryrun.py", "tools/multihost_smoke.py"]
 
 
 def test_port_files_exist():
@@ -43,7 +46,7 @@ def test_port_files_exist():
     assert len(files) > 20
     assert os.path.join(ROOT, "hashnerf_torch", "kernels", "segment_accum.py") in files
     assert os.path.join(ROOT, "hashnerf_torch", "ops", "packed_grid.py") in files
-    for rel in SLICE9:
+    for rel in SLICE9 + SLICE10:
         assert os.path.join(ROOT, "hashnerf_torch", *rel.split("/")) in files, rel
 
 
@@ -58,6 +61,28 @@ def test_slice9_modules_import_alone():
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{sorted(FORBIDDEN | {'cv2'})!r})\n"
         "assert not bad, bad\n"
+        "print('OK')\n"
+    )
+    env = dict(os.environ, OMP_NUM_THREADS="2")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.startswith("OK")
+
+
+def test_slice10_modules_import_alone():
+    """Each module of slice 10, imported in a fresh interpreter on its own,
+    loads no jax and none of the JAX package, and starts no process group."""
+    mods = ["hashnerf_torch." + rel[:-3].replace("/", ".").replace(".__init__", "")
+            for rel in SLICE10]
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}: importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{sorted(FORBIDDEN)!r})\n"
+        "assert not bad, bad\n"
+        "import torch.distributed as dist\n"
+        "assert not dist.is_initialized()\n"
         "print('OK')\n"
     )
     env = dict(os.environ, OMP_NUM_THREADS="2")

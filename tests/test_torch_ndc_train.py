@@ -221,11 +221,15 @@ def test_llff_and_batching_are_accepted():
     (["--dataset_type", "deepvoxels"], None),
     (["--dataset_type", "LINEMOD"], None),
     (["--dataset_type", "st3d"], None),
-    (["--num_devices", "2"], "A8"),
+    (["--num_devices", "2", "--use_occupancy"], "A8.4"),
+    (["--num_devices", "2"], None),
+    (["--num_devices", "2", "--use_occupancy", "--occ_per_ray"], None),
 ])
 def test_still_unported_with_batching_raise(flags, row):
     """With fern's ray batching, the loaders of slice 9 are taken (row
-    None); several devices still raise (A8)."""
+    None), and several devices (A8, slice 10) with the pool, per-ray
+    culling too; several devices with global culling still raise
+    (A8.4)."""
     from hashnerf_torch.train.config import check_supported, parse_args
 
     args = parse_args(["--config", FERN] + flags)

@@ -194,13 +194,14 @@ def test_trainer_steps_match_jax():
 # --------------------------------------------------------------------------- #
 
 @pytest.mark.parametrize("flags,row", [
-    (["--num_devices", "2"], "A8"),
-    (["--num_devices", "4", "--i_embed", "0"], "A8"),
+    (["--num_devices", "2", "--use_occupancy"], "A8.4"),
+    (["--num_devices", "4", "--preset", "tpu-fast"], "A8.4"),
     (["--compute_dtype", "float64"], "A7.4"),
     (["--dataset_type", "st3d", "--datadir", "data/mp3d/scene01", "--no_cv2"], "A6"),
 ])
 def test_unported_flags_raise_naming_their_row(flags, row, monkeypatch):
-    """What check_supported still refuses: several devices (A8), an MLP
+    """What check_supported still refuses: several devices with global
+    occupancy culling (A8.4; the tpu-fast preset culls globally), an MLP
     type other than bfloat16 and float16 (A7.4), and an mp3d st3d set's EXR
     depth where cv2 is not installed (A6; "--no_cv2" stands for that here)."""
     from hashnerf_torch.data import st3d
@@ -277,16 +278,36 @@ def test_steps_per_dispatch_and_presets_are_accepted(flags):
 
 def test_ray_batching_raises():
     """Ray batching is ported (A6): check_supported takes it, and st3d's
-    pool with depth and gradient supervision (A6, slice 9) too; it still
-    raises with several devices (A8)."""
+    pool with depth and gradient supervision (A6, slice 9) too, on several
+    devices as well (A8, slice 10); with global occupancy culling several
+    devices still raise (A8.4)."""
     from hashnerf_torch.train.config import check_supported, parse_args
 
     args = parse_args(["--dataset_type", "synthetic", "--i_video", "0"])
     assert not args.no_batching
     check_supported(args)
     check_supported(parse_args(["--dataset_type", "st3d", "--use_depth", "--use_gradient"]))
-    with pytest.raises(NotImplementedError, match="A8"):
-        check_supported(parse_args(["--dataset_type", "st3d", "--num_devices", "2"]))
+    check_supported(parse_args(["--dataset_type", "st3d", "--num_devices", "2"]))
+    with pytest.raises(NotImplementedError, match="A8.4"):
+        check_supported(parse_args(["--dataset_type", "st3d", "--num_devices", "2",
+                                    "--use_occupancy"]))
+
+
+@pytest.mark.parametrize("flags", [
+    [],
+    ["--n_levels", "4", "--n_features_per_level", "8", "--packed_layout", "--share_fine",
+     "--compute_dtype", "bfloat16", "--aabb_clip"],
+    ["--preset", "tpu-fast", "--occ_per_ray"],
+    ["--dataset_type", "st3d", "--use_depth", "--use_gradient"],
+    ["--config", os.path.join(ROOT, "configs", "fern.txt")],
+])
+def test_num_devices_is_accepted(flags):
+    """Several devices (A8, slice 10) on the chair step, the packed layout,
+    the per-ray culled flagship and st3d's and llff's ray pools."""
+    from hashnerf_torch.train.config import check_supported, parse_args
+
+    check_supported(parse_args(["--config", os.path.join(ROOT, "configs", "chair.txt"),
+                                "--num_devices", "2"] + flags))
 
 
 def test_entry_points_need_a_gpu_unless_told_cpu():
