@@ -127,7 +127,17 @@ Imports hashnerf_torch (never jax or hashnerf_tpu) and, on one CUDA card:
     run_nerf.main with one test view (phase_loaders, LOADERS);
     PATHS["st3d"] and PATHS["loaders"] name the kernels each run must
     launch, and every other kernel must show 0 launches there;
- 8. bench: the line of `python -m hashnerf_torch.bench` for the flagship
+    after the loaders, the chair at --compute_dtype float32 for a few steps
+    (chair_float32_run: K2, K6 and K5 for TV, finite falling losses);
+ 8. multi (phase_multi): W NCCL ranks, one a card (1 on a one-card
+    machine), then MULTI_GLOO_WORLD gloo ranks sharing card 0; each rank
+    runs the chair through run_nerf.main --num_devices W (graphed under
+    NCCL), ZeRO-1, the table-sharded trainer and the tpu-fast flagship
+    with global culling (multi_flagship: eager windows at the schedule's
+    budgets, the graph gate under NCCL, one step against the one-process
+    flagship, the culling's collectives timed, K5 on the rank's share of
+    the kept blocks); PATHS["multi"] names each run's kernels;
+    bench: the line of `python -m hashnerf_torch.bench` for the flagship
     and for BENCH_PARITY=1;
  9. prints one line {"kernels": [...]} with each kernel's launches on the
     main paths, the blender, llff, st3d and loaders phases (graph replays
@@ -265,13 +275,19 @@ PATHS = {
                 "runs": {"scannet": ("hash_encode_fwd", "hash_encode_bwd", "segment_accumulate_k5"),
                          "deepvoxels": (),
                          "LINEMOD": ("hash_encode_fwd", "hash_encode_bwd",
-                                     "segment_accumulate_k5")}},
+                                     "segment_accumulate_k5"),
+                         # slice 11: the chair's MLPs at --compute_dtype float32
+                         "chair_float32": ("hash_encode_fwd", "hash_encode_bwd",
+                                           "segment_accumulate_k5")}},
     # Slice 10 (phase_multi): each rank's chair path (TV on: K5), ZeRO-1
     # and table-sharded runs (TV off: no K5), under NCCL and over gloo.
+    # Slice 11: the flagship (tpu-fast, global culling: K5 alone) on each
+    # rank, its kept blocks shared over the ranks.
     "multi": {"phase": "multi", "keeps_tv": None, "keeps_no_tv": None,
               "runs": {"path": ("hash_encode_fwd", "hash_encode_bwd", "segment_accumulate_k5"),
                        "zero": ("hash_encode_fwd", "hash_encode_bwd"),
-                       "table": ("hash_encode_fwd", "hash_encode_bwd")}},
+                       "table": ("hash_encode_fwd", "hash_encode_bwd"),
+                       "flagship": ("segment_accumulate_k5",)}},
 }
 MAIN_PATHS = tuple(p for p, spec in PATHS.items() if "phase" not in spec)
 GRAPH_BLOCK = 16  # the flagship preset's --steps_per_dispatch
@@ -1192,27 +1208,24 @@ def phase_occupancy(torch, np):
     return rec, kept_pts
 
 
-def phase_culled_k5(torch, np, kept_pts):
-    """K5 at the flagship's culled shapes: the packed rows of the points the
-    fine cull kept, {keep fraction: points}: 24,576 at 0.125 (the coarse
-    pass keeps as many at 0.375), 98,304 at 0.5; beside its plain version
-    and index_add_."""
+def k5_at_kept_points(torch, kept, pcfg, bmin, bmax, phase: str):
+    """K5 on the packed rows of kept points, {(slab shape name, voxel shape
+    name): points (N, 3)}: the fine slabs (27F floats) and the dense voxel
+    rows (8F) those points touch, with seeded values; each held against
+    its plain version by the row gate and timed (CUDA events, L2 flushed)
+    beside it, index_add_ and its bound."""
     from hashnerf_torch.kernels import segment_accum as sa
     from hashnerf_torch.ops.packed_grid import packed_geometry
 
-    pcfg = packed_config()
-    bmin = torch.full((3,), -1.6, device=DEV)
-    bmax = torch.full((3,), 1.6, device=DEV)
     gen = torch.Generator(device=DEV)
     gen.manual_seed(8)
+    F = pcfg.n_features_per_level
     shapes = {}
-    for keep, pts in kept_pts.items():
+    for (slab_name, voxel_name), pts in kept.items():
         geo = packed_geometry(pts.contiguous(), bmin, bmax, pcfg)
-        tag = "" if keep == FLAGSHIP_KEEP[0] else f"_keep_{keep}"
-        shapes["culled_slabs" + tag] = (geo.fine_rows.reshape(-1), 27 * PACKED_F,
-                                        len(pcfg.fine_resolutions) * pcfg.n_block_rows)
-        shapes["culled_dense_voxels" + tag] = (geo.dense_rows.reshape(-1), 8 * PACKED_F,
-                                               pcfg.packed_offsets[-1])
+        shapes[slab_name] = (geo.fine_rows.reshape(-1), 27 * F,
+                             len(pcfg.fine_resolutions) * pcfg.n_block_rows)
+        shapes[voxel_name] = (geo.dense_rows.reshape(-1), 8 * F, pcfg.packed_offsets[-1])
     out = {}
     for name, (idx, F, T) in shapes.items():
         M = idx.numel()
@@ -1234,8 +1247,21 @@ def phase_culled_k5(torch, np, kept_pts):
                 0, idx64, vals)),
             "bound_ms": b[0], "bound_by": b[1],
         }
-        emit({"phase": "culled_k5", "shape": name, **out[name]})
+        emit({"phase": phase, "shape": name, **out[name]})
     return out
+
+
+def phase_culled_k5(torch, np, kept_pts):
+    """K5 at the flagship's culled shapes: the packed rows of the points the
+    fine cull kept, {keep fraction: points}: 24,576 at 0.125 (the coarse
+    pass keeps as many at 0.375), 98,304 at 0.5; beside its plain version
+    and index_add_."""
+    kept = {}
+    for keep, pts in kept_pts.items():
+        tag = "" if keep == FLAGSHIP_KEEP[0] else f"_keep_{keep}"
+        kept[("culled_slabs" + tag, "culled_dense_voxels" + tag)] = pts
+    return k5_at_kept_points(torch, kept, packed_config(), torch.full((3,), -1.6, device=DEV),
+                             torch.full((3,), 1.6, device=DEV), "culled_k5")
 
 
 def phase_packed_encode(torch, np, kept_pts):
@@ -2891,6 +2917,38 @@ def loader_set(np, kind: str, root: str):
     return (H, W), 4
 
 
+CHAIR_F32_ITERS = 16
+
+
+def chair_float32_run(torch, np, logs: str):
+    """The chair at --compute_dtype float32 (ROADMAP A7.4: the float32
+    product, TF32 off) on the procedural scene through run_nerf.main:
+    CHAIR_F32_ITERS eager steps with TV; finite losses that fall, the
+    kernels PATHS["loaders"]["runs"]["chair_float32"] names and no other."""
+    from hashnerf_torch import kernels
+    from hashnerf_torch.run_nerf import main as run_nerf
+
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    trainer = run_nerf(["--config", os.path.join(ROOT, "configs", "chair.txt"), "--dataset_type",
+                        "synthetic", "--compute_dtype", "float32", "--device", DEV,
+                        "--basedir", logs, "--N_iters", str(CHAIR_F32_ITERS), "--i_print", "4",
+                        "--i_weights", str(CHAIR_F32_ITERS), "--i_testset", "0", "--i_video", "0"])
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    losses = [h[1] for h in trainer.history]
+    want = PATHS["loaders"]["runs"]["chair_float32"]
+    bad = {k: v for k, v in counts.items() if (v > 0) != (k in want)}
+    require(trainer.model_cfg.compute_dtype == "float32" and trainer.state.coarse._dtype is None
+            and all(np.isfinite(losses)) and losses[-1] < losses[0] and not bad,
+            f"chair at --compute_dtype float32: losses {losses}, launches {counts}")
+    rec = {"run_s": time.perf_counter() - t0, "losses": losses, "launches": counts}
+    emit({"phase": "loaders", "loader": "chair_float32", **rec})
+    del trainer
+    torch.cuda.empty_cache()
+    return rec
+
+
 def phase_loaders(torch, np, smi: str):
     """Each new loader (LOADERS) on the card: write its set, train through
     run_nerf.main for LOADER_ITERS steps with the test set's view at the
@@ -2950,9 +3008,12 @@ def phase_loaders(torch, np, smi: str):
             emit({"phase": "loaders", "loader": kind, "card": smi, **runs[kind]})
             del trainer
             torch.cuda.empty_cache()
+        runs["chair_float32"] = chair_float32_run(torch, np, os.path.join(workdir, "f32"))
         phase_s = time.perf_counter() - t_phase
         shown = []
         for kind, r in runs.items():
+            if kind == "chair_float32":
+                continue
             shown += [(f"{kind} rays/s", r["train_rays_per_s_eager"]), (f"{kind} view s", r["view_s"])]
         shown.append(("phase_s", phase_s))
         print("loaders: " + "; ".join(f"{k} {v:.6g} [{smi}]" for k, v in shown), flush=True)
@@ -2974,6 +3035,10 @@ MULTI_TABLE_STEPS = 8
 MULTI_ZERO_BF16_STEPS = 16
 MULTI_GLOO_WORLD = 2  # ranks sharing the one card over gloo
 MULTI_LOSS_RTOL = 1e-4
+# The flagship run (slice 11): its eager windows culled at the schedule's
+# budgets, with TV from the warmup's end and without from its last step
+MULTI_FLAGSHIP_TV = (PATHS["flagship"]["tv_start"], 5)  # (start, steps)
+MULTI_FLAGSHIP_NO_TV = (PATHS["flagship"]["no_tv_start"], 10)
 
 
 def _multi_counts():
@@ -3001,11 +3066,15 @@ def _multi_chair(device, flags, *extra):
             "--device", "cuda" if device.type == "cuda" else "cpu", *extra, *flags]
 
 
-def multi_vs_one(torch, trainer, world: int, n_steps: int):
+def multi_vs_one(torch, trainer, world: int, n_steps: int, bf16_mlp: bool = False):
     """The data-parallel trainer against a one-process Trainer that takes
-    its state, optimizer state and generator state: one step each (the
-    loss within MULTI_LOSS_RTOL; MLP gradients bit-equal over one rank,
-    else in the atomics' row gate as the tables'), then n_steps more each
+    its state, optimizer state, occupancy grid and generator state: one
+    step each (the loss within MULTI_LOSS_RTOL; MLP gradients bit-equal
+    over one rank, else in the atomics' row gate as the tables'; with
+    bf16_mlp, over several ranks the MLP gradients are only recorded: bf16
+    operands turn a last-bit difference of a float32 raw into 2^-9 of it,
+    so the bf16 flagship is held by its loss and its float32 table
+    gradients), then n_steps more each
     from one snapshot, twice on each, held by the graph gate's rule: the
     fewer entries outside the row gate of the two pairs at most the larger
     of GATE_SPREAD_FACTOR x the spread within a trainer and the floor; the
@@ -3023,6 +3092,9 @@ def multi_vs_one(torch, trainer, world: int, n_steps: int):
     one.optimizer.load_state_dict(copy.deepcopy(trainer.optimizer.state_dict()))
     one.generator.set_state(trainer.generator.get_state())
     one.global_step = trainer.global_step
+    if trainer.occ_grid is not None:
+        one.occ_grid.copy_(trainer.occ_grid)
+        one._occ_ready = trainer._occ_ready
     l_dp = float(trainer.step(trainer.sample_batch(False))["loss"])
     l_one = float(one.step(one.sample_batch(False))["loss"])
     grads = lambda tr, of: [p.grad.detach() for p in of(tr)]  # noqa: E731
@@ -3034,9 +3106,11 @@ def multi_vs_one(torch, trainer, world: int, n_steps: int):
     rec = {"one_step": {"loss": [l_dp, l_one], "mlp_grad_entries_differing": mlp_diff,
                         "mlp_grad_outside_row_gate": mlp_out,
                         "table_grad_outside_row_gate": table_out,
-                        "table_grad_max_abs_diff": table_worst}}
-    require(abs(l_dp - l_one) <= MULTI_LOSS_RTOL * abs(l_one) and table_out == 0 and mlp_out == 0
-            and (world > 1 or mlp_diff == 0),
+                        "table_grad_max_abs_diff": table_worst,
+                        "keeps": [trainer.last_occ_keep, one.last_occ_keep]}}
+    mlp_ok = mlp_diff == 0 if world == 1 else (bf16_mlp or mlp_out == 0)
+    require(abs(l_dp - l_one) <= MULTI_LOSS_RTOL * abs(l_one) and table_out == 0 and mlp_ok
+            and trainer.last_occ_keep == one.last_occ_keep,
             f"the data-parallel step over {world} ranks is not the one-process step: {rec}")
     if n_steps:
         # n_steps from one snapshot (the data-parallel trainer's), twice on
@@ -3311,9 +3385,195 @@ def multi_table(torch, np, rank, world, device, flags):
     return rec
 
 
+def _culled_window(torch, trainer, start: int, n: int, want_keep, what: str):
+    """n eager steps from global_step start, host-clock timed; each must
+    cull at want_keep (last_occ_keep)."""
+    trainer.global_step = start
+    ts, keeps = [], []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        float(trainer.step(trainer.sample_batch(False))["loss"])
+        ts.append(time.perf_counter() - t0)
+        keeps.append(trainer.last_occ_keep)
+    require(all(k == want_keep for k in keeps), f"{what}: keeps {keeps}, not {want_keep}")
+    return {"start": start, "step_ms": [t * 1e3 for t in ts], "keeps": keeps,
+            "train_rays_per_s": trainer.args.N_rand / statistics.median(ts)}
+
+
+def share_k5(torch, trainer, rank, world, tag: str):
+    """K5 on this rank's share of one global batch's kept blocks: the
+    points its query takes in a culled render at FLAGSHIP_KEEP (every rank
+    draws the batch and the render's numbers alike, takes the one cut and
+    gathers the others' raws), coarse and fine, held to its plain version
+    (k5_at_kept_points), one rank at a time (ranks may share a card)."""
+    import torch.distributed as dist
+
+    from hashnerf_torch.models.factory import query_fn
+    from hashnerf_torch.render.renderer import keep_k, render_rays
+
+    pts = {}
+
+    def capture(st, p, viewdirs, bbox, fine=False):
+        pts["fine" if fine else "coarse"] = p.reshape(-1, 3).detach().clone()
+        return query_fn(st, p, viewdirs, bbox, fine=fine)
+
+    gen = torch.Generator(device=trainer.device)
+    gen.manual_seed(1)
+    batch = trainer.sample_batch(False)
+    d = batch["rays_d"]
+    cfg = trainer._render_cfg_for(FLAGSHIP_KEEP[0])
+    with torch.no_grad():
+        render_rays(trainer.state, capture, batch["rays_o"], d,
+                    d / torch.linalg.norm(d, dim=-1, keepdim=True), batch["near"], batch["far"],
+                    trainer.bbox, cfg, generator=gen, occ_grid=trainer.occ_grid,
+                    layout=trainer.layout)
+    R, B, args = d.shape[0], cfg.occupancy.block, trainer.args
+    for name, n, kf in (("coarse", R * args.N_samples, FLAGSHIP_KEEP[1]),
+                        ("fine", R * (args.N_samples + args.N_importance), FLAGSHIP_KEEP[0])):
+        blocks = keep_k(n, kf) // B
+        require(pts[name].shape[0] == B * -(-blocks // world),
+                f"rank {rank}: its {name} share is {pts[name].shape[0]} points of {blocks} blocks")
+    out = None
+    for r in range(world):
+        if r == rank:
+            state = trainer.state
+            out = k5_at_kept_points(
+                torch, {(f"{tag}_rank{rank}_{p}_slabs", f"{tag}_rank{rank}_{p}_dense_voxels"): pts[p]
+                        for p in ("coarse", "fine")},
+                state.packed_cfg, trainer.bbox[0].contiguous(), trainer.bbox[1].contiguous(),
+                "multi_share_k5")
+            out["points"] = {p: int(pts[p].shape[0]) for p in pts}
+        dist.barrier()
+    return out
+
+
+def culling_collectives_ms(torch, trainer, world: int):
+    """The culling's all-gather and reduce-scatter alone at a pass's shapes
+    (the raws of FLAGSHIP_KEEP's kept blocks, 8 samples x 4 floats a
+    block, in shares of ceil(blocks / world)), 10 of each timed by CUDA
+    events (NCCL) or the host clock (gloo)."""
+    from hashnerf_torch.parallel.mesh import all_gather, reduce_scatter
+
+    from hashnerf_torch.render.renderer import keep_k
+
+    args, group = trainer.args, trainer.layout.data_group
+    per = -(-(keep_k(args.N_rand * args.N_samples, FLAGSHIP_KEEP[1]) // 8) // world)
+    share = torch.randn((per, 8, 4), device=trainer.device)
+    whole = torch.empty((per * world, 8, 4), device=trainer.device)
+    cuda = trainer.device.type == "cuda"
+    out = {"share_blocks": per, "gathered_bytes": whole.numel() * 4,
+           "how": "CUDA events over 10" if cuda else "host clock over 10"}
+    for name, fn in (("all_gather_ms", lambda: all_gather(whole, share, group)),
+                     ("reduce_scatter_ms", lambda: reduce_scatter(share, whole, group))):
+        fn()
+        if cuda:
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            for _ in range(10):
+                fn()
+            e1.record()
+            e1.synchronize()
+            out[name] = e0.elapsed_time(e1) / 10
+        else:
+            t0 = time.perf_counter()
+            for _ in range(10):
+                fn()
+            out[name] = (time.perf_counter() - t0) * 100
+    return out
+
+
+def multi_flagship(torch, np, rank, world, device, workdir, graphed, flags):
+    """The tpu-fast flagship at full width (configs/chair.txt with
+    FLAGSHIP_FLAGS: packed tables, bf16 MLP operands, block-8 global
+    culling; 1024 rays of 64 + 128 samples) through run_nerf.main
+    --num_devices world: MULTI_ITERS eager steps with TV (the grid updates
+    at 16 and 32 fill the grid), a checkpoint and the test set; then eager
+    windows moved as the one-process flagship path's, each step culled at
+    the schedule's budget (MULTI_FLAGSHIP_TV at 0.5 / 0.375,
+    MULTI_FLAGSHIP_NO_TV at 0.125 / 0.375); under NCCL the graphed window
+    with TV from 256 held to the graph gate (graphed_window) and blocks
+    without TV from 1024 timed, with their collectives a replayed step;
+    the culling's collectives alone; K5 on this rank's share of a global
+    batch's kept blocks (share_k5); then one step against the one-process
+    flagship (multi_vs_one)."""
+    from hashnerf_torch import run_nerf
+
+    cuda = device.type == "cuda"
+    _multi_reset()
+    t0 = time.perf_counter()
+    trainer = run_nerf.main(_multi_chair(device, [*FLAGSHIP_FLAGS, *flags], "--basedir", workdir,
+                                         "--expname", "flagship", "--no_reload",
+                                         "--N_iters", str(MULTI_ITERS), "--i_print", "10",
+                                         "--i_weights", str(MULTI_ITERS),
+                                         "--i_testset", str(MULTI_ITERS), "--i_video", "0",
+                                         "--num_devices", str(world)))
+    _multi_sync(torch, device)
+    loop_s = time.perf_counter() - t0
+    require(trainer.layout is not None and trainer.layout.world == world and trainer._occ_ready,
+            f"rank {rank}: no data-parallel flagship trainer with a ready grid")
+    expdir = os.path.join(workdir, trainer.args.expname)
+    require(os.path.exists(os.path.join(expdir, "{:06d}.ckpt".format(MULTI_ITERS))),
+            f"rank {rank}: no flagship checkpoint")
+    losses = [h[1] for h in trainer.history]
+    require(all(np.isfinite(losses)), f"rank {rank}: flagship losses {losses}")
+    c_loop = _multi_counts()
+    windows = {
+        "tv": _culled_window(torch, trainer, *MULTI_FLAGSHIP_TV, PATHS["flagship"]["keeps_tv"],
+                             f"rank {rank} flagship, TV"),
+        "no_tv": _culled_window(torch, trainer, *MULTI_FLAGSHIP_NO_TV, FLAGSHIP_KEEP,
+                                f"rank {rank} flagship, no TV")}
+    c_eager = _multi_counts()
+    n_eager = MULTI_FLAGSHIP_TV[1] + MULTI_FLAGSHIP_NO_TV[1]
+    rec = {"loop_s": loop_s, "losses": losses, "eager": windows,
+           "train_rays_per_s_eager_tv": windows["tv"]["train_rays_per_s"],
+           "train_rays_per_s_eager_no_tv": windows["no_tv"]["train_rays_per_s"],
+           "launches_loop": c_loop,
+           "launches_per_step_eager": {k: (c_eager[k] - c_loop[k]) / n_eager for k in c_loop}}
+    eager_per = rec["launches_per_step_eager"]
+    require(eager_per["all_gather"] == eager_per["reduce_scatter"] == 2,
+            f"rank {rank}: the culled eager steps ran {eager_per} collectives a step")
+    if graphed:
+        g = graphed_window(torch, trainer, "flagship", PATHS["flagship"]["graph_tv_start"], "tv",
+                           False)
+        trainer.global_step = GRAPH_NO_TV_START
+        trainer.run_steps(GRAPH_BLOCK, block_size=GRAPH_BLOCK)  # captures
+        c1 = _multi_counts()
+        ts_g, keeps = [], []
+        for _ in range(GRAPH_TIMED_BLOCKS["no_tv"]):
+            _multi_sync(torch, device)
+            t0 = time.perf_counter()
+            float(trainer.run_steps(GRAPH_BLOCK, block_size=GRAPH_BLOCK)["loss"])
+            ts_g.append(time.perf_counter() - t0)
+            keeps.append(trainer.last_occ_keep)
+        c2 = _multi_counts()
+        n_g = GRAPH_BLOCK * len(ts_g)
+        per = {k: (c2[k] - c1[k]) / n_g for k in c1}
+        require(all(k == FLAGSHIP_KEEP for k in keeps),
+                f"rank {rank}: graphed flagship blocks at keeps {keeps}")
+        require(per["segment_accumulate_k5"] > 0
+                and all(per[k] == eager_per[k] for k in ("all_reduce", "all_gather",
+                                                         "reduce_scatter")),
+                f"rank {rank}: a replayed flagship step launched {per}, an eager one {eager_per}")
+        rec["graphed"] = g
+        rec["train_rays_per_s_graphed_tv"] = g["train_rays_per_s_graphed"]
+        rec["step_ms_graphed_no_tv"] = statistics.median(ts_g) / GRAPH_BLOCK * 1e3
+        rec["train_rays_per_s_graphed_no_tv"] = (trainer.args.N_rand * GRAPH_BLOCK
+                                                 / statistics.median(ts_g))
+        rec["launches_per_graphed_step_no_tv"] = per
+    rec["launches"] = _multi_counts()
+    rec["culling_collectives"] = culling_collectives_ms(torch, trainer, world)
+    if cuda:
+        rec["share_k5"] = share_k5(torch, trainer, rank, world,
+                                   f"multi_{torch.distributed.get_backend()}")
+        rec["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    rec["vs_one_process"] = multi_vs_one(torch, trainer, world, 0, bf16_mlp=True)
+    return rec
+
+
 def multi_rank(rank, world, device, workdir, graphed, flags=()):
-    """What each rank of the multi phase runs: the chair path, ZeRO-1 and
-    the table-sharded trainer, each with its own launch counts."""
+    """What each rank of the multi phase runs: the chair path, ZeRO-1, the
+    table-sharded trainer and the flagship, each with its own launch
+    counts."""
     import numpy as np
     import torch
 
@@ -3322,7 +3582,10 @@ def multi_rank(rank, world, device, workdir, graphed, flags=()):
     for name, fn in (("path", lambda: multi_path(torch, np, rank, world, device,
                                                   os.path.join(workdir, "path"), graphed, flags)),
                      ("zero", lambda: multi_zero(torch, np, rank, world, device, flags)),
-                     ("table", lambda: multi_table(torch, np, rank, world, device, flags))):
+                     ("table", lambda: multi_table(torch, np, rank, world, device, flags)),
+                     ("flagship", lambda: multi_flagship(torch, np, rank, world, device,
+                                                         os.path.join(workdir, "flagship"),
+                                                         graphed, flags))):
         t0 = time.perf_counter()
         out[name] = fn()
         out[name]["seconds"] = time.perf_counter() - t0
@@ -3338,7 +3601,8 @@ def phase_multi(torch, np, smi: str):
     tensors for every collective the port calls: all-reduce, all-gather,
     reduce-scatter, broadcast, barrier). Every rank's launches of each run
     are gated by PATHS["multi"], and every rank holds K2 and K6 to their
-    plain versions at its own shapes (multi_path, multi_table)."""
+    plain versions at its own shapes (multi_path, multi_table) and K5 at
+    its share of the flagship's kept blocks (multi_flagship, slice 11)."""
     from hashnerf_torch.parallel.mesh import launch
 
     W = torch.cuda.device_count()
@@ -3363,13 +3627,17 @@ def phase_multi(torch, np, smi: str):
                     require((got[k] > 0) == (k in want),
                             f"multi {name} rank {r['rank']} {part}: {k} launched {got[k]} times")
                     launches[k] += got[k]
-            # encode_check ran at the rank's shapes (it raises on a disagreement)
-            require("encode" in r["path"], f"multi {name} rank {r['rank']}: K2/K6 not checked")
+            # encode_check and share_k5 ran at the rank's shapes (each raises
+            # on a disagreement)
+            require("encode" in r["path"] and "share_k5" in r["flagship"],
+                    f"multi {name} rank {r['rank']}: K2/K6 or K5 not checked")
     rec = {"phase": "multi", "card": smi, "nccl_world": W, "gloo_world": MULTI_GLOO_WORLD,
            "cpu_only_modes": [], "phase_s": time.perf_counter() - t_phase, "runs": runs,
            "launches": launches,
            "encode_points": {name: [{p: r["path"]["encode"][p]["N"] for p in ("coarse", "fine")}
-                                    for r in run["ranks"]] for name, run in runs.items()}}
+                                    for r in run["ranks"]] for name, run in runs.items()},
+           "share_k5_points": {name: [r["flagship"]["share_k5"]["points"] for r in run["ranks"]]
+                               for name, run in runs.items()}}
     emit(rec)
     return rec
 

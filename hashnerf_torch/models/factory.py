@@ -51,7 +51,7 @@ class ModelConfig:
     # one net for both render passes: the state has no fine net
     share_fine: bool = False
     hash_grid: HashGridConfig = dataclasses.field(default_factory=HashGridConfig)
-    compute_dtype: Optional[str] = None  # None (float32), "bfloat16" or "float16" MLPs
+    compute_dtype: Optional[str] = None  # None (float32) or a name compute_dtype_of takes
     # corner-packed table layout (ops/packed_grid.py)
     packed_layout: bool = False
     log2_blocks: int = -1  # packed fine rows per level; -1 = log2_hashmap_size - 3

@@ -16,9 +16,11 @@ convert.py). Weights and biases are drawn from U(-1/sqrt(fan_in),
 torch.Generator. The products are plain float32 `F.linear`s, as JAX runs
 them outside any Pallas kernel.
 
-compute_dtype "bfloat16" or "float16" follows the JAX package's compute
-mode: the input and the weight of each layer are rounded to that type and
-multiplied with a float32 product, whose output is not rounded. The port
+compute_dtype "bfloat16" or "float16" (or a float8 type) follows the JAX
+package's compute mode: the input and the weight of each layer are rounded
+to that type and multiplied with a float32 product, whose output is not
+rounded; "float32" and "float64" run the float32 product
+(compute_dtype_of). The port
 writes that as a float32 `linear` of the rounded values (a product of two
 bf16 or two f16 values is exact in float32); autograd's casts then round
 the gradients of x and w to the compute type as JAX's transpose of the dot
@@ -45,7 +47,7 @@ class NeRFSmallConfig:
     hidden_dim_color: int = 64
     input_ch: int = 32
     input_ch_views: int = 16
-    compute_dtype: Optional[str] = None  # None (float32), "bfloat16" or "float16"
+    compute_dtype: Optional[str] = None  # None (float32) or a name compute_dtype_of takes
 
 
 def _linear(fan_in: int, fan_out: int, generator, device, bias: bool = False) -> nn.Linear:
@@ -58,10 +60,38 @@ def _linear(fan_in: int, fan_out: int, generator, device, bias: bool = False) ->
     return lin
 
 
-def _compute_dtype(name: Optional[str], what: str):
-    if name not in (None, "bfloat16", "float16"):
-        raise NotImplementedError(f"{what}: compute_dtype {name!r} is not ported (ROADMAP A7.4)")
-    return None if name is None else getattr(torch, name)
+# The floating types jnp.dtype names beyond numpy's (ml_dtypes'), with the
+# torch type whose rounding is theirs (None: torch has no such type).
+_ML_FLOATS = {name: getattr(torch, name, None) for name in (
+    "bfloat16", "float8_e4m3fn", "float8_e5m2", "float8_e4m3fnuz", "float8_e5m2fnuz",
+    "float8_e4m3b11fnuz", "float8_e3m4", "float8_e4m3", "float8_e8m0fnu", "float4_e2m1fn")}
+
+
+def compute_dtype_of(name: Optional[str], what: str = "compute_dtype"):
+    """The torch type an MLP's operands are rounded to under compute_dtype
+    `name`, or None for the plain float32 product. Takes every floating
+    type name jnp.dtype takes: float32 and its aliases ("f4", "single",
+    ...) run the float32 product, as JAX's DEFAULT-precision float32 dot
+    computes it off the TPU (on the card TF32 is off, hashnerf_torch/
+    __init__.py); float64 ("double", "f8", ...) runs in float32 too, as
+    JAX runs it without x64; float16 ("half", ...), bfloat16 and the
+    float8 types torch has round the operands. A name numpy cannot parse
+    raises TypeError (as jnp.dtype does), float128 TypeError (as JAX's
+    astype does); a type that is not floating, or that torch cannot
+    represent, raises ValueError."""
+    if name is None:
+        return None
+    if name in _ML_FLOATS:
+        if _ML_FLOATS[name] is None:
+            raise ValueError(f"{what} {name!r}: torch has no {name} type to round to")
+        return _ML_FLOATS[name]
+    d = np.dtype(name)
+    if d.kind != "f":
+        raise ValueError(f"{what} {name!r}: {d} is not a floating type")
+    if d.itemsize > 8:
+        raise TypeError(f"{what} {name!r}: JAX only supports number, bool, and string dtypes, "
+                        f"got dtype {d}")
+    return torch.float16 if d.itemsize == 2 else None
 
 
 def _apply(layer: nn.Linear, h: torch.Tensor, dtype) -> torch.Tensor:
@@ -93,7 +123,7 @@ class NeRFSmall(nn.Module):
             color.append(_linear(in_dim, out_dim, generator, device))
         self.sigma_net = nn.ModuleList(sigma)
         self.color_net = nn.ModuleList(color)
-        self._dtype = _compute_dtype(cfg.compute_dtype, "NeRFSmall")
+        self._dtype = compute_dtype_of(cfg.compute_dtype, "NeRFSmall: compute_dtype")
 
     def _layer(self, layer: nn.Linear, h: torch.Tensor) -> torch.Tensor:
         return _apply(layer, h, self._dtype)
@@ -126,7 +156,7 @@ class NeRFConfig:
     output_ch: int = 4
     skips: Sequence[int] = (4,)
     use_viewdirs: bool = False
-    compute_dtype: Optional[str] = None  # None (float32), "bfloat16" or "float16"
+    compute_dtype: Optional[str] = None  # None (float32) or a name compute_dtype_of takes
 
 
 class NeRF(nn.Module):
@@ -149,7 +179,7 @@ class NeRF(nn.Module):
             self.rgb_linear = lin(W // 2, 3)
         else:
             self.output_linear = lin(W, cfg.output_ch)
-        self._dtype = _compute_dtype(cfg.compute_dtype, type(self).__name__)
+        self._dtype = compute_dtype_of(cfg.compute_dtype, f"{type(self).__name__}: compute_dtype")
 
     def _heads(self, h: torch.Tensor) -> list:
         """The outputs of the viewdir branch's last hidden layer h."""

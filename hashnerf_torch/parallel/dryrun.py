@@ -1,11 +1,14 @@
-"""The three multi-device modes on N ranks, at a tiny size: a dry run.
+"""The multi-device modes on N ranks, at a tiny size: a dry run.
 
 Counterpart of __graft_entry__.py::dryrun_multichip:
   1. data parallelism on the per-ray culled flagship (packed tables, bf16
      MLPs, aabb_clip, per-ray culling: every per-ray op is local to a
      rank's rays, so only the gradients cross);
-  2. the level-sharded table on a (2, N/2) layout (N >= 4 and even);
-  3. ZeRO-1 with a bf16 wire, its loss held against the one-device step
+  2. data parallelism on the global-culled flagship (the tpu-fast
+     preset's block-8 culling: one cut over the whole batch, each rank
+     querying its share of the kept blocks), as JAX's DP flagship mode;
+  3. the level-sharded table on a (2, N/2) layout (N >= 4 and even);
+  4. ZeRO-1 with a bf16 wire, its loss held against the one-device step
      within 5% (the forward sees the bf16-rounded parameters).
 
     python -m hashnerf_torch.parallel.dryrun [N] [--device cpu|cuda]
@@ -25,6 +28,10 @@ FLAGSHIP = ["--n_levels", "4", "--n_features_per_level", "8", "--packed_layout",
             "--log2_blocks", "9", "--share_fine", "--compute_dtype", "bfloat16", "--aabb_clip",
             "--use_occupancy", "--occ_per_ray", "--occ_keep_fraction", "0.25",
             "--occ_keep_coarse", "0.5", "--occ_warmup", "0", "--occ_update_every", "1"]
+# the tpu-fast preset's culling (block 8, adaptive updates) in place of the
+# per-ray culling, at these sizes
+GLOBAL = [f for f in FLAGSHIP if f != "--occ_per_ray"] + ["--occ_block", "8",
+                                                          "--occ_adaptive_update"]
 
 
 def _rank(rank: int, world: int, device):
@@ -52,7 +59,13 @@ def _rank(rank: int, world: int, device):
         m = t.step(t.sample_batch(False))
     out["dp_per_ray"] = {"loss": float(m["loss"]), "keeps": t.last_occ_keep}
 
-    # 2. the level-sharded table on (2, N/2)
+    # 2. data parallelism on the global-culled flagship, likewise
+    t = Trainer(args_of(*GLOBAL, "--num_devices", str(world)), scene, device=device)
+    for _ in range(2):
+        m = t.step(t.sample_batch(False))
+    out["dp_global"] = {"loss": float(m["loss"]), "keeps": t.last_occ_keep}
+
+    # 3. the level-sharded table on (2, N/2)
     if world >= 4 and world % 2 == 0:
         layout = make_table_mesh(2, world // 2)
         ts = make_table_sharded_trainer(layout, args_of("--n_levels", "8"), scene, device=device,
@@ -60,7 +73,7 @@ def _rank(rank: int, world: int, device):
         m = ts.step(ts.sample_batch(False))
         out["table_sharded"] = {"loss": float(m["loss"]), "layout": [2, world // 2]}
 
-    # 3. ZeRO-1, bf16 wire, deterministic rendering, against one device
+    # 4. ZeRO-1, bf16 wire, deterministic rendering, against one device
     args = args_of("--perturb", "0", "--raw_noise_std", "0", "--tv-loss-weight", "0")
     t = Trainer(args, scene, device=device)
     batch = t.sample_image(int(scene.i_train[0]), args.N_rand, False)
@@ -82,7 +95,7 @@ def _rank(rank: int, world: int, device):
 
 
 def dryrun_multichip(n_devices: int, device="cpu"):
-    """Run the three modes on n_devices ranks (gloo on the CPU, NCCL on as
+    """Run the modes on n_devices ranks (gloo on the CPU, NCCL on as
     many cards); returns rank 0's {mode: {loss, ...}} and prints a line a
     mode."""
     from hashnerf_torch.parallel.mesh import launch

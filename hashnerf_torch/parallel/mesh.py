@@ -13,7 +13,8 @@ one-process `--num_devices` needs no launcher); a run that `torchrun`
 started reads its rank and world from the environment instead
 (`initialize_distributed`). Collectives that a training step runs go
 through the counting wrappers below (`all_reduce`, `all_gather`,
-`reduce_scatter`): like the kernel wrappers, each keeps a count of its
+`reduce_scatter`, and `gather_shares`, an all-gather whose backward is a
+reduce-scatter): like the kernel wrappers, each keeps a count of its
 calls, which a CUDA graph's replays add to (train/graphs.py).
 """
 from __future__ import annotations
@@ -199,6 +200,33 @@ def reduce_scatter(out: torch.Tensor, t: torch.Tensor, group=None) -> None:
     """out = this rank's chunk of the group's SUM of t (n * len(out), ...)."""
     dist.reduce_scatter_tensor(out, t, group=group)
     reduce_scatter.calls += 1
+
+
+class _GatherShares(torch.autograd.Function):
+    """Forward: the group's shares, concatenated in rank order (all_gather).
+    Backward: every rank's cotangent of the whole, SUMMED, and this rank's
+    share of it (reduce_scatter), since a share feeds every rank's loss."""
+
+    @staticmethod
+    def forward(ctx, t: torch.Tensor, group, n: int) -> torch.Tensor:
+        ctx.group, ctx.n = group, n
+        out = t.new_empty((n * t.shape[0], *t.shape[1:]))
+        all_gather(out, t.contiguous(), group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        share = g.new_empty((g.shape[0] // ctx.n, *g.shape[1:]))
+        reduce_scatter(share, g.contiguous(), ctx.group)
+        return share, None, None
+
+
+def gather_shares(t: torch.Tensor, layout: Layout) -> torch.Tensor:
+    """The data group's equal shares t (k, ...) as one (n_data * k, ...)
+    tensor, in data-rank order; its gradient is the SUM of every rank's
+    gradient of the whole, taken at this rank's share. Global culling's
+    kept raws (render/occupancy.py::query_with_culling)."""
+    return _GatherShares.apply(t, layout.data_group, layout.n_data)
 
 
 COLLECTIVES = {"all_reduce": all_reduce, "all_gather": all_gather,

@@ -13,7 +13,13 @@ what it must over the layout's data group:
   mean over its rays by its share of them and TV (a term of the table
   alone) by 1/N, so the ranks' losses sum to the one-device loss; the
   gradients and the metrics are then all-reduced (SUM), and every rank
-  runs the same optimizer step on the same replicated parameters.
+  runs the same optimizer step on the same replicated parameters. Under
+  global occupancy culling (JAX's one stable argsort over the whole
+  batch's block scores) every rank renders the whole batch: it takes the
+  one cut, queries its contiguous share of the kept blocks, all-gathers
+  the others' raws (whose backward reduce-scatters the summed cotangents
+  into each share) and composites every ray, and takes the loss on its
+  own rows.
 * ZeRO-1 (`chunk_params`, `init_dp_zero`, `make_dp_zero_train_step`): each
   parameter is padded and split into N flat float32 master chunks, a rank
   holding one, and the optimizer's moments exist only as those chunks. A
@@ -72,11 +78,20 @@ def sharded_step(layout: Layout, loss_fn: Callable, render_cfg: RenderConfig, st
     if all(d is None for d in rd):
         rd = draw_render(render_cfg, R, generator, batch["rays_o"].device, occ_grid is not None,
                          batch["rays_o"].dtype)
-    rows = {k: v[start:stop] for k, v in batch.items()}
     optimizer.zero_grad(set_to_none=True)
-    loss, (_, img_loss) = loss_fn(state, rows, tv_weight / layout.n_data,
-                                  draws._replace(render=shard_draws(rd, start, stop)),
-                                  generator, occ_grid=occ_grid, ray_share=(stop - start) / R)
+    occ = render_cfg.occupancy
+    if occ_grid is not None and occ is not None and not occ.per_ray:
+        # global culling: the whole batch and its draws; one cut, each
+        # rank's share of the kept points, every ray composited, the loss
+        # on this rank's rows
+        loss, (_, img_loss) = loss_fn(state, batch, tv_weight / layout.n_data,
+                                      draws._replace(render=rd), generator, occ_grid=occ_grid,
+                                      ray_share=(stop - start) / R, layout=layout)
+    else:
+        rows = {k: v[start:stop] for k, v in batch.items()}
+        loss, (_, img_loss) = loss_fn(state, rows, tv_weight / layout.n_data,
+                                      draws._replace(render=shard_draws(rd, start, stop)),
+                                      generator, occ_grid=occ_grid, ray_share=(stop - start) / R)
     loss.backward()
     reduce_gradients(state.parameters(), layout.data_group)
     optimizer.step()
@@ -90,7 +105,9 @@ def make_sharded_train_step(layout: Layout, loss_fn: Callable, optimizer,
                             render_cfg: RenderConfig):
     """step(state, batch, tv_weight, draws=None, generator=None,
     occ_grid=None) -> metrics: sharded_step with these fixed. Per-ray
-    culling (occ_grid) shards with no collective of its own."""
+    culling (occ_grid) shards with no collective of its own; global
+    culling gathers each pass's kept raws from the ranks' shares
+    (parallel/mesh.py::gather_shares)."""
     def step(state, batch, tv_weight, draws=None, generator=None, occ_grid=None):
         return sharded_step(layout, loss_fn, render_cfg, state, optimizer,
                             with_viewdirs(batch, render_cfg.use_viewdirs), tv_weight, draws,

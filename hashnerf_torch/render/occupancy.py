@@ -270,17 +270,39 @@ def cull_points_cumsum(scores: torch.Tensor, keep_k: int, n_edges: int = 512):
     return order[:keep_k], order, dest
 
 
+def _query_kept(query, kept_idx: torch.Tensor, layout) -> torch.Tensor:
+    """query(idx) -> raws of the kept items idx, for every item of kept_idx
+    (k,). Under a data-parallel layout each rank queries its contiguous
+    share of ceil(k / n) items (padded with item 0, whose extra raws are
+    dropped) and the shares are gathered back in rank order; the gather's
+    backward sums every rank's cotangent into each share
+    (parallel/mesh.py::gather_shares)."""
+    if layout is None or layout.data_group is None:
+        return query(kept_idx)
+    from hashnerf_torch.parallel.mesh import gather_shares
+
+    k, n = kept_idx.shape[0], layout.n_data
+    per = -(-k // n)
+    if per * n != k:
+        kept_idx = torch.cat([kept_idx, kept_idx.new_zeros(per * n - k)])
+    mine = kept_idx[layout.data_index * per:(layout.data_index + 1) * per]
+    return gather_shares(query(mine), layout)[:k]
+
+
 def query_with_culling(query_fn, state, pts: torch.Tensor, viewdirs: Optional[torch.Tensor],
                        bbox: torch.Tensor, grid: torch.Tensor, cfg: OccupancyConfig,
                        keep_k: int, fine: bool = False,
-                       scores: Optional[torch.Tensor] = None) -> torch.Tensor:
+                       scores: Optional[torch.Tensor] = None, layout=None) -> torch.Tensor:
     """query_fn on the keep_k best-scoring of pts (Rr, S, 3) only; the rest
     get raw = 0. Returns (Rr, S, C).
 
     With cfg.block = B > 1 (S and keep_k multiples of B), runs of B
     consecutive samples of a ray are scored by their maximum and kept or
     culled together. `scores` (Rr*S,) skips the grid lookup when the caller
-    has them."""
+    has them. Given a data-parallel layout (parallel/mesh.py), pts are the
+    whole batch's on every rank: every rank takes the one cut, queries its
+    share of the kept blocks (or points) and gathers the others' raws, so
+    that every rank returns the one-process raws (_query_kept)."""
     Rr, S = pts.shape[0], pts.shape[1]
     flat = pts.reshape(-1, 3)
     n = flat.shape[0]
@@ -294,26 +316,30 @@ def query_with_culling(query_fn, state, pts: torch.Tensor, viewdirs: Optional[to
         nb, kb = n // B, keep_k // B
         bscores = scores.reshape(nb, B).amax(dim=-1)
         kept_idx, order, inv_perm = cull_points(bscores, kb, mode=cfg.partition)
-        pts_kept = flat.reshape(nb, B, 3)[kept_idx]  # (kb, B, 3)
-        dirs_kept = None
-        if viewdirs is not None:
-            # a block never straddles two rays
-            dirs_kept = viewdirs[kept_idx // (S // B)]  # (kb, 3)
-        raw_kept = query_fn(state, pts_kept, dirs_kept, bbox, fine=fine)
+
+        def query(idx):
+            dirs = None
+            if viewdirs is not None:
+                # a block never straddles two rays
+                dirs = viewdirs[idx // (S // B)]  # (k, 3)
+            return query_fn(state, flat.reshape(nb, B, 3)[idx], dirs, bbox, fine=fine)
+
+        raw_kept = _query_kept(query, kept_idx, layout)  # (kb, B, C)
         C = raw_kept.shape[-1]
         raw_perm = torch.cat([raw_kept.reshape(kb, B * C),
                               raw_kept.new_zeros((nb - kb, B * C))], dim=0)
         return permute_rows(raw_perm, inv_perm, order).reshape(Rr, S, C)
 
     kept_idx, order, inv_perm = cull_points(scores, keep_k, mode=cfg.partition)
-    if viewdirs is not None:
-        # per-point directions: each kept point is a ray of one sample
-        pts_kept = flat[kept_idx][:, None, :]  # (K, 1, 3)
-        dirs_kept = viewdirs[kept_idx // S]  # (K, 3)
-    else:
-        pts_kept = flat[kept_idx][None]  # (1, K, 3)
-        dirs_kept = None
-    raw_kept = query_fn(state, pts_kept, dirs_kept, bbox, fine=fine).reshape(keep_k, -1)
+
+    def query(idx):
+        if viewdirs is not None:
+            # per-point directions: each kept point is a ray of one sample
+            return query_fn(state, flat[idx][:, None, :], viewdirs[idx // S], bbox,
+                            fine=fine).reshape(idx.shape[0], -1)
+        return query_fn(state, flat[idx][None], None, bbox, fine=fine).reshape(idx.shape[0], -1)
+
+    raw_kept = _query_kept(query, kept_idx, layout)
     C = raw_kept.shape[-1]
     # row j of raw_perm belongs to point order[j]; point i sits at inv_perm[i]
     raw_perm = torch.cat([raw_kept, raw_kept.new_zeros((n - keep_k, C))], dim=0)

@@ -31,6 +31,7 @@ from hashnerf_torch.render.occupancy import (
     OccupancyConfig, cull_per_ray, dilate_grid, occupancy_scores, occupancy_scores_strided,
     query_with_culling,
 )
+from hashnerf_torch.utils.debug import check_finite, debug_enabled
 from hashnerf_torch.utils.io import save_psnr_pickle, save_render_figures
 
 
@@ -92,16 +93,14 @@ def draw_render(cfg: RenderConfig, R: int, generator: Optional[torch.Generator],
     routine for them: render_rays draws here when it is given no draws,
     and a data-parallel rank draws the whole batch's and keeps its own rows
     (shard_draws), so that every rank's numbers are those of the
-    one-process step. Global culling's shapes follow the kept count, which
-    only the whole batch knows: it raises NotImplementedError (render_rays
-    draws those as it goes; data parallelism over them is ROADMAP A8.4)."""
+    one-process step. Global culling composites every pass on its full z
+    grid (culled samples read raw 0), so its sigma noise has the full
+    sample counts; per-ray culling composites each ray's kept samples."""
     occ = cfg.occupancy if culled else None
-    if occ is not None and not occ.per_ray:
-        raise NotImplementedError("hashnerf_torch: global occupancy culling under data "
-                                  "parallelism is not ported yet (ROADMAP A8.4)")
+    per_ray = occ is not None and occ.per_ray
 
     def samples(S: int, fine: bool) -> int:
-        if occ is None:
+        if not per_ray:
             return S
         coarse = occ.keep_fraction_coarse
         return keep_per_ray(S, coarse if not fine and coarse is not None else occ.keep_fraction)
@@ -151,18 +150,21 @@ def render_rays(
     draws: Optional[RenderDraws] = None,
     generator: Optional[torch.Generator] = None,
     occ_grid: Optional[torch.Tensor] = None,
+    layout=None,
 ) -> Dict[str, torch.Tensor]:
     """Core per-batch ray march. rays_o/rays_d (R, 3); near/far (R,) or
     scalars; bbox (2, 3). Coarse-pass outputs are keyed rgb0/depth0/acc0/
     sparsity_loss0 when hierarchical sampling is on. With cfg.occupancy and
     occ_grid both set, each pass is culled to its keep budget. Without
     draws, render_rays takes them from `generator` at once (draw_render),
-    in the rays' dtype; global culling draws as it goes."""
+    in the rays' dtype. `layout` (a data-parallel rank's, parallel/mesh.py)
+    splits a global cull's kept points over its data ranks: the rays are
+    the whole batch's, and every rank returns every ray's outputs
+    (render/occupancy.py::query_with_culling)."""
     R = rays_o.shape[0]
     occ = cfg.occupancy if occ_grid is not None else None
-    if (draws is None or all(d is None for d in draws)) and (occ is None or occ.per_ray):
+    if draws is None or all(d is None for d in draws):
         draws = draw_render(cfg, R, generator, rays_o.device, occ is not None, rays_o.dtype)
-    draws = draws or RenderDraws()
     near = torch.as_tensor(near, dtype=rays_o.dtype, device=rays_o.device).expand(R)
     far = torch.as_tensor(far, dtype=rays_o.dtype, device=rays_o.device).expand(R)
     if cfg.aabb_clip:
@@ -199,7 +201,7 @@ def render_rays(
                 n = pts.shape[0] * pts.shape[1]
                 raw = query_with_culling(query_fn, state, pts, viewdirs, bbox, occ_grid, occ,
                                          keep_k(n, keep_fraction(fine)), fine=fine,
-                                         scores=scores)
+                                         scores=scores, layout=layout)
             out = raw2outputs(raw, z_vals, rays_d, cfg.raw_noise_std, cfg.white_bkgd,
                               noise=noise, generator=generator)
             return out, out.weights, raw
@@ -352,6 +354,8 @@ def render(
             for k, v in ret.items():
                 parts.setdefault(k, []).append(v)
     out = {k: torch.cat(v, 0)[:N].reshape(sh[:-1] + v[0].shape[1:]) for k, v in parts.items()}
+    if debug_enabled():
+        check_finite(out, where="render:")
     extract = ("rgb_map", "depth_map", "acc_map")
     extras = {k: v for k, v in out.items() if k not in extract}
     return out["rgb_map"], out["depth_map"], out["acc_map"], extras

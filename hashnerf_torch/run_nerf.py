@@ -33,7 +33,7 @@ def _rank_main(rank: int, world: int, device, argv):
     back of its Trainer."""
     trainer = main(argv)
     return {"rank": rank, "global_step": trainer.global_step, "history": trainer.history,
-            "restored_from": trainer.restored_from}
+            "restored_from": trainer.restored_from, "last_occ_keep": trainer.last_occ_keep}
 
 
 def _distributed(args):
@@ -60,7 +60,8 @@ def _rank0() -> bool:
 
 def main(argv=None):
     """Returns the Trainer; with --num_devices N > 1 and no world in the
-    environment, the N ranks' {rank, global_step, history, restored_from}
+    environment, the N ranks' {rank, global_step, history, restored_from,
+    last_occ_keep}
     (each rank's Trainer stays in its process); on a rank other than 0 of
     a --render_only run under torchrun, None."""
     from hashnerf_torch.data import load_scene

@@ -2,7 +2,8 @@
 
 Counterpart of hashnerf_tpu/tools/bench_scaling.py::measure. Each world size
 runs as that many ranks (parallel/mesh.py::launch: NCCL with a card a rank
-on CUDA, gloo on the CPU); each rank's Trainer takes its rows of one fixed
+on CUDA, gloo on the CPU); each rank's Trainer (timing_args: the JAX
+tool's shapes and learning rate) takes its rows of one fixed
 global batch of n_rand rays for a warm-up step and n_iters timed steps
 (host clock, closed by a synchronize on the card). On the CPU the ranks
 share the host's cores: those rates say nothing of a device. The JAX
@@ -15,12 +16,29 @@ from __future__ import annotations
 
 import argparse
 import json
-import os
 import time
 
 import torch
 
-ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+def timing_args(n_rand: int, world: int = 0, n_samples: int = 16, n_importance: int = 32):
+    """The arguments of measure's Trainer, as the JAX tool's
+    _tiny_timing_args builds them (hashnerf_tpu/tools/bench_scaling.py:99):
+    the parser's defaults (lrate 5e-4), N_rand, finest_res 128,
+    log2_hashmap_size 15, use_viewdirs and white_bkgd, with the sample
+    counts measure passes; no TV, as the JAX loss there has none."""
+    from hashnerf_torch.train.config import config_parser
+
+    args = config_parser().parse_args(["--num_devices", str(world)])
+    args.N_rand = n_rand
+    args.N_samples = n_samples
+    args.N_importance = n_importance
+    args.finest_res = 128
+    args.log2_hashmap_size = 15
+    args.use_viewdirs = True
+    args.white_bkgd = True
+    args.tv_loss_weight = 0.0
+    return args
 
 
 def _rank(rank: int, world: int, device, n_rand: int, n_iters: int, n_samples: int,
@@ -29,13 +47,9 @@ def _rank(rank: int, world: int, device, n_rand: int, n_iters: int, n_samples: i
 
     from hashnerf_torch.data.synthetic import make_synthetic_scene
     from hashnerf_torch.parallel.mesh import make_mesh
-    from hashnerf_torch.train.config import parse_args
     from hashnerf_torch.train.driver import Trainer
 
-    args = parse_args(["--config", os.path.join(ROOT, "configs", "synthetic_smoke.txt"),
-                       "--N_rand", str(n_rand), "--N_samples", str(n_samples),
-                       "--N_importance", str(n_importance), "--num_devices", str(world),
-                       "--tv-loss-weight", "0"])
+    args = timing_args(n_rand, world, n_samples, n_importance)
     # a layout at every world, one rank too: each step runs its all-reduce
     t = Trainer(args, make_synthetic_scene(H=64, W=64, n_train=4, n_test=1), device=device,
                 layout=make_mesh(world))

@@ -119,7 +119,9 @@ def config_parser() -> argparse.ArgumentParser:
                         help="features per level F; L=8/F=4 keeps the 32-dim "
                         "encoding but halves the gather count (TPU fast mode)")
     parser.add_argument("--compute_dtype", type=str, default=None,
-                        help="bfloat16 for MXU-friendly MLP compute")
+                        help="MLP operand type: bfloat16 (or float16, a float8 "
+                        "type) rounds the operands of float32 products; float32 "
+                        "and float64 run the float32 product")
     parser.add_argument("--use_occupancy", action="store_true",
                         help="Instant-NGP-style occupancy-grid sample culling")
     parser.add_argument("--occ_resolution", type=int, default=128)
@@ -236,13 +238,6 @@ def check_supported(args) -> None:
             f"hashnerf_torch: {what} is not ported yet (ROADMAP {row})"
         )
 
-    if args.compute_dtype not in (None, "bfloat16", "float16"):
-        no(f"--compute_dtype {args.compute_dtype} (only bfloat16 and float16)", "A7.4")
-    if (args.num_devices or 0) > 1 and args.use_occupancy and not args.occ_per_ray:
-        # the kept count of a global cull varies with the batch, and so
-        # would each rank's share of it (per-ray culling shards as it is)
-        no(f"global occupancy culling (--use_occupancy without --occ_per_ray) under "
-           f"--num_devices {args.num_devices}", "A8.4")
     if args.dataset_type == "st3d":
         from hashnerf_torch.data.st3d import cv2_or_none, needs_exr
 

@@ -43,7 +43,7 @@ from hashnerf_torch.data.scene import Scene
 from hashnerf_torch.models.factory import EMBED_HASH, ModelConfig, NGPState, query_fn
 from hashnerf_torch.ops.hash_encoding import HashGridConfig
 from hashnerf_torch.ops.rays import get_ndc_rays, get_rays, get_rays_at
-from hashnerf_torch.parallel.mesh import make_mesh, replicate
+from hashnerf_torch.parallel.mesh import make_mesh, replicate, row_range
 from hashnerf_torch.parallel.train_sharded import sharded_step
 from hashnerf_torch.render.occupancy import (
     OccupancyConfig, OccUpdateDraws, init_occupancy_grid, update_occupancy_grid,
@@ -244,13 +244,17 @@ def make_loss_fn(args, render_cfg: RenderConfig, bbox: torch.Tensor,
     caller takes them before the warp).
 
     loss_fn(state, batch, tv_weight, draws=None, generator=None, occ_grid=None,
-            ray_share=None) -> (loss, (psnr, img_loss)); occ_grid culls the
-    render. A data-parallel rank passes ray_share, its share of the whole
-    batch's rays: each mean over its rays (image, depth, gradient) is
-    weighted by it, so that the ranks' losses (and gradients) sum to the
+            ray_share=None, layout=None) -> (loss, (psnr, img_loss)); occ_grid
+    culls the render. A data-parallel rank passes ray_share, its share of
+    the whole batch's rays: each mean over its rays (image, depth, gradient)
+    is weighted by it, so that the ranks' losses (and gradients) sum to the
     one-device ones; per-ray sums (sparsity) stay as they are, and the
     caller divides tv_weight by the ranks. img_loss is then the weighted
-    one too, and psnr that of the rank's rays alone.
+    one too, and psnr that of the rank's rays alone. Under global culling
+    the rank passes its layout too, with the whole batch (and its draws):
+    the render splits the cull's kept points over the ranks and composites
+    every ray (the fine pass samples every ray's coarse weights), and the
+    loss takes the rank's own rows (parallel/mesh.py::row_range).
     """
     if render_cfg.ndc and hwf is None:
         raise ValueError("make_loss_fn: render_cfg.ndc needs hwf = (H, W, focal)")
@@ -260,7 +264,8 @@ def make_loss_fn(args, render_cfg: RenderConfig, bbox: torch.Tensor,
 
     def loss_fn(state, batch, tv_weight, draws: Optional[TrainDraws] = None,
                 generator: Optional[torch.Generator] = None,
-                occ_grid: Optional[torch.Tensor] = None, ray_share: Optional[float] = None):
+                occ_grid: Optional[torch.Tensor] = None, ray_share: Optional[float] = None,
+                layout=None):
         draws = draws or TrainDraws()
 
         def mean(x):
@@ -273,8 +278,12 @@ def make_loss_fn(args, render_cfg: RenderConfig, bbox: torch.Tensor,
         ret = render_rays(
             state, query_fn, rays_o, rays_d, batch.get("viewdirs"),
             batch["near"], batch["far"], bbox, render_cfg,
-            draws=draws.render, generator=generator, occ_grid=occ_grid,
+            draws=draws.render, generator=generator, occ_grid=occ_grid, layout=layout,
         )
+        if layout is not None:
+            start, stop = row_range(layout, rays_o.shape[0])
+            ret = {k: v[start:stop] for k, v in ret.items()}
+            batch = {k: v[start:stop] for k, v in batch.items()}
         img_loss = img2mse(ret["rgb_map"], batch["target"])
         psnr = mse2psnr(img_loss)
         img_loss = mean(img_loss)

@@ -734,6 +734,28 @@ def test_nccl_world1_dp_step_equals_trainer_step(cuda_device):
 
 
 @pytest.mark.cuda
+def test_nccl_world1_graphed_global_culled_block_equals_eager(cuda_device):
+    """One NCCL rank with the flagship's global culling (slice 11;
+    GRAPH_FLAGSHIP: bf16 MLP operands, block 8, the schedule at 0.125 from
+    step 8): a captured 16-step block, whose replays run the culling's
+    all-gather and reduce-scatter, leaves the state of its 16 eager steps
+    within the atomics' row gate, at the same budgets, and a replayed step
+    runs the collectives of an eager one (2 of each: coarse and fine)."""
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import torch_parallel_ranks as ranks
+    from hashnerf_torch.parallel.mesh import launch
+
+    res = launch(ranks.card_graphed_global_rank, 1, "cuda", (GRAPH_FLAGSHIP,))[0]
+    assert res["backend"] == "nccl" and res["keeps"] == [(0.125, 0.375)] * 3, res
+    assert res["in_row_gate"] and all(np.isfinite(res["losses"])), res
+    per = res["per_replayed_step"]
+    assert per["all_gather"] == per["reduce_scatter"] == 2 and per["all_reduce"] >= 1, res
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("levels", [(0, 4), (4, 8), (6, 8)])
 def test_level_shard_encode_on_card_matches_plain(cuda_device, levels):
     """K2 and K6 on one model rank's levels of a table (the level-sharded

@@ -228,13 +228,13 @@ def test_llff_and_batching_are_accepted():
 def test_still_unported_with_batching_raise(flags, row):
     """With fern's ray batching, the loaders of slice 9 are taken (row
     None), and several devices (A8, slice 10) with the pool, per-ray
-    culling too; several devices with global culling still raise
-    (A8.4)."""
+    culling too, and global culling (A8.4, ported in slice 11: a row
+    since ported is taken)."""
     from hashnerf_torch.train.config import check_supported, parse_args
 
     args = parse_args(["--config", FERN] + flags)
     assert not args.no_batching
-    if row is None:
+    if row is None or row == "A8.4":
         check_supported(args)
         return
     with pytest.raises(NotImplementedError, match=row):

@@ -258,7 +258,8 @@ def test_num_devices_checks():
     """As the JAX Trainer: N_rand not divisible by N, and more NCCL ranks
     than cards, raise ValueError; so does N > 1 outside a process group of
     N ranks, and run_nerf's spawn checks N_rand before it starts a rank.
-    Global culling under N > 1 is refused (A8.4), per-ray culling is not."""
+    Global culling under N > 1 is taken (A8.4, slice 11), per-ray culling
+    too."""
     from hashnerf_torch import run_nerf
     from hashnerf_torch.train.config import check_supported
     from hashnerf_torch.train.driver import Trainer, data_parallel_layout
@@ -272,8 +273,8 @@ def test_num_devices_checks():
             data_parallel_layout(ranks.small_args(world=2), torch.device("cuda"))
     with pytest.raises(ValueError, match="divisible"):
         run_nerf.main(["--config", ranks.SMOKE, "--device", "cpu", "--num_devices", "3"])
-    with pytest.raises(NotImplementedError, match="A8.4"):
-        check_supported(ranks.small_args(["--use_occupancy"], world=2))
+    check_supported(ranks.small_args(["--use_occupancy"], world=2))
+    check_supported(ranks.small_args(ranks.TPU_FAST, world=2))
     check_supported(ranks.small_args(ranks.PER_RAY, world=2))
     # one device: no layout, no process group needed; --num_devices 1 is
     # --num_devices 0, and a layout its caller gives is taken as it is
@@ -285,15 +286,28 @@ def test_num_devices_checks():
 
 
 def test_global_culling_draws_raise():
-    """draw_render refuses global culling's draws (their shapes follow the
-    kept count), naming A8.4."""
+    """draw_render gives global culling's draws (it refused them before
+    slice 11): a global cull composites every pass on its full z grid, so
+    its noise has the full sample counts, drawn in render_rays' order
+    (jitter, coarse noise, importance uniforms, fine noise); per-ray
+    culling's noise has each ray's budget."""
     from hashnerf_torch.render.renderer import draw_render
     from hashnerf_torch.train.driver import render_config_from_args
 
     cfg = render_config_from_args(ranks.small_args(["--use_occupancy"]))
-    with pytest.raises(NotImplementedError, match="A8.4"):
-        draw_render(cfg, 8, None, "cpu", culled=True)
-    draw_render(cfg, 8, None, "cpu", culled=False)
+    S, Si = cfg.N_samples, cfg.N_importance
+    g = torch.Generator().manual_seed(5)
+    d = draw_render(cfg, 8, g, "cpu", culled=True)
+    g.manual_seed(5)
+    want = [torch.rand((8, S), generator=g), torch.randn((8, S), generator=g),
+            torch.rand((8, Si), generator=g), torch.randn((8, S + Si), generator=g)]
+    for got, w in zip((d.t_strat, d.noise0, d.u_pdf, d.noise1), want):
+        assert torch.equal(got, w)
+    assert d.u_sorted is None
+    assert draw_render(cfg, 8, g, "cpu", culled=False).noise1.shape == (8, S + Si)
+    per_ray = render_config_from_args(ranks.small_args(ranks.PER_RAY))
+    d = draw_render(per_ray, 8, g, "cpu", culled=True)
+    assert d.noise0.shape == (8, 8) and d.noise1.shape == (8, 8)  # keeps 0.5 of 8, 0.25 of 16
 
 
 # --------------------------------------------------------------------------- #
@@ -503,8 +517,9 @@ def test_dryrun_multichip_4():
         res = dryrun_multichip(4, "cpu")
     finally:
         torch.set_num_threads(2)
-    assert set(res) == {"dp_per_ray", "table_sharded", "zero_bf16"}
+    assert set(res) == {"dp_per_ray", "dp_global", "table_sharded", "zero_bf16"}
     assert all(np.isfinite(r["loss"]) for r in res.values())
+    assert res["dp_global"]["keeps"] == (0.25, 0.5)  # the second step culls globally
     assert res["table_sharded"]["layout"] == [2, 2]
 
 

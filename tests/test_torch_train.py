@@ -193,6 +193,11 @@ def test_trainer_steps_match_jax():
 # Flags, device, checkpoint and the CLI
 # --------------------------------------------------------------------------- #
 
+# rows check_supported refused until they were ported (A8.4 and A7.4 in
+# slice 11)
+PORTED_ROWS = ("A8.4", "A7.4")
+
+
 @pytest.mark.parametrize("flags,row", [
     (["--num_devices", "2", "--use_occupancy"], "A8.4"),
     (["--num_devices", "4", "--preset", "tpu-fast"], "A8.4"),
@@ -200,10 +205,12 @@ def test_trainer_steps_match_jax():
     (["--dataset_type", "st3d", "--datadir", "data/mp3d/scene01", "--no_cv2"], "A6"),
 ])
 def test_unported_flags_raise_naming_their_row(flags, row, monkeypatch):
-    """What check_supported still refuses: several devices with global
-    occupancy culling (A8.4; the tpu-fast preset culls globally), an MLP
-    type other than bfloat16 and float16 (A7.4), and an mp3d st3d set's EXR
-    depth where cv2 is not installed (A6; "--no_cv2" stands for that here)."""
+    """What check_supported refused, by the ROADMAP row that was to port
+    it: rows since ported (PORTED_ROWS) are taken now, several devices with
+    global occupancy culling (A8.4, the tpu-fast preset's too) and an MLP
+    type of float64 (A7.4, run in float32 as JAX runs it without x64);
+    an mp3d st3d set's EXR depth where cv2 is not installed still raises
+    (A6; "--no_cv2" stands for that here)."""
     from hashnerf_torch.data import st3d
     from hashnerf_torch.train.config import check_supported, parse_args
 
@@ -213,6 +220,9 @@ def test_unported_flags_raise_naming_their_row(flags, row, monkeypatch):
         flags = [f for f in flags if f != "--no_cv2"]
         monkeypatch.setattr(st3d, "cv2_or_none", lambda: None)
     args = parse_args(base + flags)
+    if row in PORTED_ROWS:
+        check_supported(args)
+        return
     with pytest.raises(NotImplementedError, match=row):
         check_supported(args)
 
@@ -279,8 +289,8 @@ def test_steps_per_dispatch_and_presets_are_accepted(flags):
 def test_ray_batching_raises():
     """Ray batching is ported (A6): check_supported takes it, and st3d's
     pool with depth and gradient supervision (A6, slice 9) too, on several
-    devices as well (A8, slice 10); with global occupancy culling several
-    devices still raise (A8.4)."""
+    devices as well (A8, slice 10), with global occupancy culling too
+    (A8.4, slice 11)."""
     from hashnerf_torch.train.config import check_supported, parse_args
 
     args = parse_args(["--dataset_type", "synthetic", "--i_video", "0"])
@@ -288,9 +298,8 @@ def test_ray_batching_raises():
     check_supported(args)
     check_supported(parse_args(["--dataset_type", "st3d", "--use_depth", "--use_gradient"]))
     check_supported(parse_args(["--dataset_type", "st3d", "--num_devices", "2"]))
-    with pytest.raises(NotImplementedError, match="A8.4"):
-        check_supported(parse_args(["--dataset_type", "st3d", "--num_devices", "2",
-                                    "--use_occupancy"]))
+    check_supported(parse_args(["--dataset_type", "st3d", "--num_devices", "2",
+                                "--use_occupancy"]))
 
 
 @pytest.mark.parametrize("flags", [

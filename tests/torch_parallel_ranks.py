@@ -20,6 +20,15 @@ SMALL = ["--N_rand", "64", "--N_samples", "8", "--N_importance", "8", "--raw_noi
 # gradient supervision (st3d's column pool)
 OMNI = ["--i_embed", "0", "--i_embed_views", "0", "--use_depth", "--use_gradient", "--netdepth",
         "2", "--netwidth", "32"]
+# the flagship's global culling (block 8, adaptive updates, a keep
+# schedule) in float32 at these widths: warmup 2 steps, an update every 2;
+# per point (block 1); and the tpu-fast preset itself (bf16 MLP operands)
+GLOBAL_POINT = ["--n_levels", "4", "--n_features_per_level", "8", "--packed_layout",
+                "--share_fine", "--aabb_clip", "--use_occupancy", "--occ_keep_fraction", "0.25",
+                "--occ_keep_coarse", "0.5", "--occ_keep_schedule", "0:0.5,4:0.25",
+                "--occ_adaptive_update", "--occ_warmup", "2", "--occ_update_every", "2"]
+GLOBAL = GLOBAL_POINT + ["--occ_block", "8"]
+TPU_FAST = ["--preset", "tpu-fast", "--occ_warmup", "2", "--occ_update_every", "2"]
 PER_RAY = ["--n_levels", "4", "--n_features_per_level", "8", "--packed_layout", "--share_fine",
            "--compute_dtype", "bfloat16", "--aabb_clip", "--use_occupancy", "--occ_per_ray",
            "--occ_keep_fraction", "0.25", "--occ_keep_coarse", "0.5", "--occ_warmup", "2",
@@ -48,10 +57,11 @@ def jax_scene():
     return make_synthetic_scene(H=24, W=24, n_train=3, n_test=1)
 
 
-def dp_jax_run(rank, world, device, settings, jax_state, batch, jax_grads):
+def dp_jax_run(rank, world, device, settings, jax_state, batch, jax_grads, occ_grid=None):
     """One step of make_sharded_train_step (world 1: in this process) from
     the JAX state (numpy
-    (table, coarse, fine)) on the global batch, without TV. Returns the
+    (table, coarse, fine)) on the global batch, without TV, culled by
+    occ_grid (numpy) when given. Returns the
     metrics, each parameter's summed gradient beside JAX's (in the port's
     layout) and the state after the step."""
     from hashnerf_torch.convert import jax_pairs, load_jax_state
@@ -67,7 +77,8 @@ def dp_jax_run(rank, world, device, settings, jax_state, batch, jax_grads):
     load_jax_state(t.state, *jax_state)
     loss_fn = make_loss_fn(args, t.render_cfg, t.bbox, t.model_cfg, with_tv=False, hwf=sc.hwf)
     step = make_sharded_train_step(layout, loss_fn, t.optimizer, t.render_cfg)
-    m = step(t.state, {k: torch.from_numpy(v) for k, v in batch.items()}, 0.0)
+    grid = None if occ_grid is None else torch.from_numpy(occ_grid)
+    m = step(t.state, {k: torch.from_numpy(v) for k, v in batch.items()}, 0.0, occ_grid=grid)
     grads = [(to_np(p.grad), a) for p, a in jax_pairs(t.state, *jax_grads)]
     return {"loss": float(m["loss"]), "psnr": float(m["psnr"]), "grads": grads,
             "state": [(to_np(p), a) for p, a in jax_pairs(t.state, *jax_state)]}
@@ -363,3 +374,55 @@ def card_dp_rank(rank, world, device, n_steps=8):
                       "table_grad_in_row_gate": ok})
     return {"backend": torch.distributed.get_backend(), "steps": steps,
             "all_reduce_calls": collective_counts()["all_reduce"]}
+
+
+def card_graphed_global_rank(rank, world, device, settings):
+    """On the card: a data-parallel Trainer with global culling (settings:
+    the args to set on the parser's defaults), its tables scaled to
+    U(-1, 1); 8 eager steps (the grid fills, RAdam's gate opens), then 16
+    steps from one state and generator state twice: eagerly, and as one
+    run_steps(16) block (captured with the culling's all-gather and
+    reduce-scatter, then replayed); then one more block. Returns whether
+    the block's state lies within the atomics' row gate of the eager
+    steps', the keeps, the losses and the collectives a replayed step
+    ran."""
+    from hashnerf_torch.data.synthetic import make_synthetic_scene
+    from hashnerf_torch.parallel.mesh import collective_counts, make_mesh
+    from hashnerf_torch.train.config import config_parser
+    from hashnerf_torch.train.driver import Trainer
+
+    args = config_parser().parse_args(["--num_devices", str(world)])
+    for k, v in settings.items():
+        setattr(args, k, v)
+    t = Trainer(args, make_synthetic_scene(H=32, W=32, n_train=3, n_test=1), device=device,
+                layout=make_mesh(world))
+    with torch.no_grad():
+        for p in t.state.table_parameters():
+            p.mul_(1e4)
+    for _ in range(8):
+        t.step(t.sample_batch(False))
+    snap = [x.detach().clone() for x in t.training_state()]
+    rng, ready = t.generator.get_state(), t._occ_ready
+    for _ in range(16):
+        m_eager = t.step(t.sample_batch(False))
+    eager = [x.detach().clone() for x in t.training_state()]
+    eager_keep = t.last_occ_keep
+    with torch.no_grad():
+        for x, s in zip(t.training_state(), snap):
+            x.copy_(s)
+    t.generator.set_state(rng)
+    t.global_step, t._occ_ready = 8, ready
+    m_block = t.run_steps(16, block_size=16)
+    block_keep = t.last_occ_keep
+    in_gate = True
+    for g, w in zip(t.training_state(), eager):
+        w2 = w.reshape(-1, w.shape[-1]) if w.dim() > 1 else w.reshape(-1, 1)
+        d = (g.reshape(w2.shape) - w2).abs()
+        in_gate &= bool((d <= 2e-5 * w2.abs().sum(-1, keepdim=True) + 1e-6).all())
+    c0 = collective_counts()
+    t.run_steps(16, block_size=16)
+    c1 = collective_counts()
+    return {"backend": torch.distributed.get_backend(), "in_row_gate": in_gate,
+            "keeps": [eager_keep, block_keep, t.last_occ_keep],
+            "losses": [float(m_eager["loss"]), float(m_block["loss"])],
+            "per_replayed_step": {k: (c1[k] - c0[k]) / 16 for k in c0}}
