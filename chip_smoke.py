@@ -129,7 +129,26 @@ Imports hashnerf_torch (never jax or hashnerf_tpu) and, on one CUDA card:
     launch, and every other kernel must show 0 launches there;
     after the loaders, the chair at --compute_dtype float32 for a few steps
     (chair_float32_run: K2, K6 and K5 for TV, finite falling losses);
- 8. multi (phase_multi): W NCCL ranks, one a card (1 on a one-card
+ 8. tools (phase_tools, slice 12): the A9 tools on the blender phase's 800 x
+    800 set (kept for it): the chair for 96 steps with a checkpoint every
+    32, each checkpoint rendered by tools/run_all_checkpoints.py and a GIF
+    of them by tools/make_gif.py (3 frames, in order); tools/render_bench.py
+    on a set of its own with 17 test frames (TOOLS_BENCH_SET: JAX's testskip
+    8 keeps 3; 256 steps of the flagship, those 3 full frames exact and at
+    keep 0.5);
+    tools/profile_step.py in both modes, and K2 and K6 at its encode shape
+    (49,152 points, L 8, F 4) held to their plain versions;
+    hashnerf_torch/bench_quality.py (QB_ITERS 256) and
+    tools/quality_summary.py; tools/parity_curve.py for 3 seeds at 640
+    steps, whose gate against the recorded PyTorch-reference curves must
+    pass; collective_volumes (1 NCCL rank, then MULTI_GLOO_WORLD gloo ranks)
+    and project_two_host, their payload bytes held to SCALING_r05.json
+    where the shapes match (SCALING_*); graft_entry.entry() finite, and
+    against the CPU on rays that absorb most of their light. PATHS["tools"]'s kernels must launch there, K1, K3 and K4 not. The
+    three host plots (plot_losses, pose_visualizer, blender_render_poses)
+    need matplotlib, which the card's host lacks: tests/test_torch_tools.py
+    runs them on the CPU;
+ 9. multi (phase_multi): W NCCL ranks, one a card (1 on a one-card
     machine), then MULTI_GLOO_WORLD gloo ranks sharing card 0; each rank
     runs the chair through run_nerf.main --num_devices W (graphed under
     NCCL), ZeRO-1, the table-sharded trainer and the tpu-fast flagship
@@ -139,10 +158,10 @@ Imports hashnerf_torch (never jax or hashnerf_tpu) and, on one CUDA card:
     the kept blocks); PATHS["multi"] names each run's kernels;
     bench: the line of `python -m hashnerf_torch.bench` for the flagship
     and for BENCH_PARITY=1;
- 9. prints one line {"kernels": [...]} with each kernel's launches on the
-    main paths, the blender, llff, st3d and loaders phases (graph replays
-    included), error, times and bound, the total seconds and the card, and
-    as the last line {"ok": true, "device": {...}}.
+10. prints one line {"kernels": [...]} with each kernel's launches on the
+    main paths, the blender, llff, st3d, loaders, tools and multi phases
+    (graph replays included), error, times and bound, the total seconds and
+    the card, and as the last line {"ok": true, "device": {...}}.
 
 Any failed check raises, and the script exits non-zero without the last
 line. It exits non-zero at once when no CUDA device is present or when
@@ -283,6 +302,11 @@ PATHS = {
     # and table-sharded runs (TV off: no K5), under NCCL and over gloo.
     # Slice 11: the flagship (tpu-fast, global culling: K5 alone) on each
     # rank, its kept blocks shared over the ranks.
+    # Slice 12 (phase_tools): the A9 tools on the card; the chair's runs
+    # (K2, K6; K5 for TV), the flagship's render_bench and profile_step
+    # (K5), and the encode alone (K2, K6).
+    "tools": {"phase": "tools", "keeps_tv": None, "keeps_no_tv": None,
+              "kernels": ("hash_encode_fwd", "hash_encode_bwd", "segment_accumulate_k5")},
     "multi": {"phase": "multi", "keeps_tv": None, "keeps_no_tv": None,
               "runs": {"path": ("hash_encode_fwd", "hash_encode_bwd", "segment_accumulate_k5"),
                        "zero": ("hash_encode_fwd", "hash_encode_bwd"),
@@ -1860,12 +1884,13 @@ def _run(run_nerf, argv):
     return trainer, stamps
 
 
-def phase_blender(torch, np, smi: str, profile: bool):
-    """The blender path end to end: write the set, check the loader against
-    the frames written, train the chair, render only, train the flagship,
-    render the JAX package's checkpoint; K2, K6 and K5 must launch on it and
-    K1, K3 and K4 must not. `profile` adds a profiler breakdown of three
-    chair steps on the blender set."""
+def phase_blender(torch, np, smi: str, profile: bool, data: str):
+    """The blender path end to end: write the set into `data` (kept there
+    for phase_tools), check the loader against the frames written, train
+    the chair, render only, train the flagship, render the JAX package's
+    checkpoint; K2, K6 and K5 must launch on it and K1, K3 and K4 must not.
+    `profile` adds a profiler breakdown of three chair steps on the blender
+    set."""
     import pickle
 
     from hashnerf_torch import kernels
@@ -1881,7 +1906,7 @@ def phase_blender(torch, np, smi: str, profile: bool):
     t_phase = time.perf_counter()
     workdir = tempfile.mkdtemp(prefix="hashnerf_torch_blender_")
     try:
-        data, logs = os.path.join(workdir, "data"), os.path.join(workdir, "logs")
+        logs = os.path.join(workdir, "logs")
         t0 = time.perf_counter()
         frames = make_set([data, *BLENDER_SET])
         write_s = time.perf_counter() - t0
@@ -2123,10 +2148,6 @@ def encode_check(torch, trainer, batch, path: str, ndc: bool = False):
     seeded cotangent. Each is held against its plain version by
     check_encode and timed beside it and its bound (the rows it touches
     from the plain corner expansion)."""
-    from hashnerf_torch.kernels.hash_encode import (
-        hash_encode_bwd, hash_encode_bwd_expand_plain, hash_encode_bwd_plain, hash_encode_fwd,
-        hash_encode_fwd_plain,
-    )
     from hashnerf_torch.models.factory import query_fn
     from hashnerf_torch.ops.rays import get_ndc_rays
     from hashnerf_torch.render.renderer import render_rays
@@ -2150,41 +2171,57 @@ def encode_check(torch, trainer, batch, path: str, ndc: bool = False):
         render_rays(state, capture, o, d_in, d / torch.linalg.norm(d, dim=-1, keepdim=True),
                     batch["near"], batch["far"], trainer.bbox, trainer.render_cfg, generator=gen)
     table = state.hash_table.detach()
-    L, T, F = table.shape
     bmin, bmax, res = trainer.bbox[0].contiguous(), trainer.bbox[1].contiguous(), state.resolutions
     out = {}
     for name, n_samples in (("coarse", args.N_samples), ("fine", args.N_samples + args.N_importance)):
         xs = pts[name]
         n = xs.shape[0]
         require(n == o.shape[0] * n_samples, f"{path} {name} pass encodes {n} points")
-        gs = torch.randn((n, L * F), generator=gen, device=dev)
-        ref = {
-            "k2": hash_encode_fwd_plain(table, xs, bmin, bmax, res),
-            "k2_abs_sum": blend_abs_sum(torch, table, xs, bmin, bmax, res),
-            "k6": hash_encode_bwd_plain(xs, bmin, bmax, res, gs, T),
-            "k6_abs_sum": hash_encode_bwd_plain(xs, bmin, bmax, res, gs.abs(), T),
-        }
-        errs = check_encode(torch, f"{path} {name} pass", ref,
-                            hash_encode_fwd(table, xs, bmin, bmax, res),
-                            hash_encode_bwd(xs, bmin, bmax, res, gs, T))
-        z_face = ((xs[:, 2] - bmin[2]).abs() <= 2e-4) | ((bmax[2] - xs[:, 2]).abs() <= 2e-4)
-        rows = int(torch.unique(hash_encode_bwd_expand_plain(xs, bmin, bmax, res, gs, T)[0]).numel())
-        b2 = bound(n * 12 + rows * F * 4 + n * L * F * 4 + n + 24 + L * 4, n * L * K2_OPS)
-        b6 = bound(n * 12 + n * L * F * 4 + L * T * F * 4 + 24 + L * 4, n * L * K6_OPS)
-        out[name] = {
-            "N": n, **errs, "keep_fraction": float(ref["k2"][1].float().mean()), "touched_rows": rows,
-            "k2_bound_ms": b2[0], "k2_bound_by": b2[1], "k6_bound_ms": b6[0], "k6_bound_by": b6[1],
-            "points_within_2e-4_of_a_z_face": int(z_face.sum()),
-            "k2_ms": cuda_ms(torch, lambda: hash_encode_fwd(table, xs, bmin, bmax, res)),
-            "k2_plain_ms": cuda_ms(torch, lambda: hash_encode_fwd_plain(table, xs, bmin, bmax, res),
-                                   reps=5),
-            "k6_ms": cuda_ms(torch, lambda: hash_encode_bwd(xs, bmin, bmax, res, gs, T)),
-            "k6_plain_ms": cuda_ms(torch, lambda: hash_encode_bwd_plain(xs, bmin, bmax, res, gs, T),
-                                   reps=3),
-        }
-        emit({"phase": "encode_shape", "points": f"{path}_{name}", **out[name]})
-        del ref
+        out[name] = encode_at(torch, f"{path}_{name}", table, xs, bmin, bmax, res, gen)
     return out
+
+
+def encode_at(torch, what: str, table, xs, bmin, bmax, res, gen):
+    """K2 and K6 on points xs of a (L, T, F) table, with a cotangent from
+    gen: held against their plain versions (check_encode) and timed beside
+    them and their bound (the rows they touch, from the plain corner
+    expansion)."""
+    from hashnerf_torch.kernels.hash_encode import (
+        hash_encode_bwd, hash_encode_bwd_expand_plain, hash_encode_bwd_plain, hash_encode_fwd,
+        hash_encode_fwd_plain,
+    )
+
+    L, T, F = table.shape
+    n = xs.shape[0]
+    gs = torch.randn((n, L * F), generator=gen, device=xs.device)
+    ref = {
+        "k2": hash_encode_fwd_plain(table, xs, bmin, bmax, res),
+        "k2_abs_sum": blend_abs_sum(torch, table, xs, bmin, bmax, res),
+        "k6": hash_encode_bwd_plain(xs, bmin, bmax, res, gs, T),
+        "k6_abs_sum": hash_encode_bwd_plain(xs, bmin, bmax, res, gs.abs(), T),
+    }
+    errs = check_encode(torch, what, ref, hash_encode_fwd(table, xs, bmin, bmax, res),
+                        hash_encode_bwd(xs, bmin, bmax, res, gs, T))
+    z_face = ((xs[:, 2] - bmin[2]).abs() <= 2e-4) | ((bmax[2] - xs[:, 2]).abs() <= 2e-4)
+    rows = int(torch.unique(hash_encode_bwd_expand_plain(xs, bmin, bmax, res, gs, T)[0]).numel())
+    # K2_OPS and K6_OPS at this F (they are written for the chair's F = 2)
+    b2 = bound(n * 12 + rows * F * 4 + n * L * F * 4 + n + 24 + L * 4, n * L * (GEOM_OPS + 16 * F))
+    b6 = bound(n * 12 + n * L * F * 4 + L * T * F * 4 + 24 + L * 4,
+               n * L * (GEOM_OPS + 16 * F + 8))
+    rec = {
+        "N": n, "table": [L, T, F], **errs, "keep_fraction": float(ref["k2"][1].float().mean()),
+        "touched_rows": rows,
+        "k2_bound_ms": b2[0], "k2_bound_by": b2[1], "k6_bound_ms": b6[0], "k6_bound_by": b6[1],
+        "points_within_2e-4_of_a_z_face": int(z_face.sum()),
+        "k2_ms": cuda_ms(torch, lambda: hash_encode_fwd(table, xs, bmin, bmax, res)),
+        "k2_plain_ms": cuda_ms(torch, lambda: hash_encode_fwd_plain(table, xs, bmin, bmax, res),
+                               reps=5),
+        "k6_ms": cuda_ms(torch, lambda: hash_encode_bwd(xs, bmin, bmax, res, gs, T)),
+        "k6_plain_ms": cuda_ms(torch, lambda: hash_encode_bwd_plain(xs, bmin, bmax, res, gs, T),
+                               reps=3),
+    }
+    emit({"phase": "encode_shape", "points": what, **rec})
+    return rec
 
 
 def phase_llff(torch, np, smi: str, profile: bool):
@@ -3024,6 +3061,278 @@ def phase_loaders(torch, np, smi: str):
 
 
 # --------------------------------------------------------------------------- #
+# Phase: tools (slice 12, the A9 tools)
+# --------------------------------------------------------------------------- #
+
+TOOLS_ITERS, TOOLS_CKPT_EVERY = 96, 32  # the chair's run: 3 checkpoints
+# render_bench's set: the blender phase's frames, with 17 test frames, of
+# which JAX's testskip 8 loads 3 (the blender phase's set has 4)
+TOOLS_BENCH_SET = ["--hw", "800", "--n_train", "16", "--n_val", "1", "--n_test", "17", "--ss", "1"]
+TOOLS_RENDER_BENCH = ["--iters", "256", "--frames", "3", "--eval-keeps", "0.5"]
+TOOLS_QB_ITERS = 256  # bench_quality: two blocks of 128, two curve points
+TOOLS_PARITY_SEEDS = (0, 1, 2)
+# SCALING_r05.json's payload bytes: JAX's steps compiled on XLA:CPU, at the
+# shapes the port's runs match (compile-time counts, not times). XLA
+# all-reduces the coarse and the fine pass's partial gradients apart, with
+# 4 float32 metrics in the tuple, and carries ZeRO-1's bf16 wire in float32:
+# the record is 2 x the port's payload, plus those metrics
+# (tests/test_torch_collectives.py shows both on the HLO; ROADMAP §C).
+SCALING_DP_ALL_REDUCE = 134_292_496  # data parallel at _chair_args, any W
+SCALING_DP_METRICS = 16
+SCALING_ZERO_W2 = {"all-gather": 117_685_632, "reduce-scatter": 58_842_816}  # flagship, W = 2
+SCALING_ZERO_METRICS = 12
+# graft_entry: its table as drawn absorbs about 2e-6 on a ray, so there the
+# check is that the outputs are finite. The comparison takes rays from the
+# entry's origin aimed at points drawn in [-1, 1]^3 and a table whose
+# levels hold a constant feature vector c * v times 1 + TOOLS_ENTRY_NOISE *
+# U(-1, 1) an entry (v: the first of TOOLS_ENTRY_SEEDS draws that lights
+# TOOLS_ENTRY_MIN_LIT rays on the CPU), and holds rgb, depth and acc on the
+# rays that absorb TOOLS_ENTRY_LIT_ACC or more, relatively. The drawn table
+# scaled until rays absorb is ill conditioned (x 1e6: a 1e-7 relative change
+# of the rays moves rgb by 7.6e-4 on the CPU, and the card differed from
+# the CPU by 4.5e-3); this one moves rgb by 1.3e-6 at most
+# (tests/test_torch_tools.py::lit_table, the same table against JAX's).
+TOOLS_ENTRY_FEATURE_SCALE, TOOLS_ENTRY_NOISE, TOOLS_ENTRY_SEEDS = 10.0, 0.3, 64
+TOOLS_ENTRY_LIT_ACC, TOOLS_ENTRY_MIN_LIT = 0.5, 192
+TOOLS_ENTRY_RTOL = 1e-4  # the fine render tolerance
+
+
+def _tools_collectives():
+    """collective_volumes on one NCCL rank and on MULTI_GLOO_WORLD gloo
+    ranks sharing the card, and project_two_host (two gloo ranks; the
+    flagship's graphed step measured in the call), held to SCALING_r05.json
+    where the shapes match."""
+    from hashnerf_torch.tools.bench_scaling import collective_volumes, project_two_host
+
+    out, secs = {}, {}
+    for name, world in (("nccl", 1), ("gloo", MULTI_GLOO_WORLD)):
+        t0 = time.perf_counter()
+        out[name] = collective_volumes(world, DEV)
+        secs[name] = time.perf_counter() - t0
+    for name, v in out.items():
+        dp = v["data_parallel"]
+        grads = dp["collectives_per_step"]["all-reduce"]["bytes"] - dp["all_reduce_metrics_bytes"]
+        require(2 * grads + SCALING_DP_METRICS == SCALING_DP_ALL_REDUCE,
+                f"tools {name}: data-parallel gradient all-reduce {grads} bytes; the record's "
+                f"{SCALING_DP_ALL_REDUCE} is 2 x {(SCALING_DP_ALL_REDUCE - 16) // 2} + 16")
+        z = v["data_parallel_zero"]["collectives_per_step"]
+        require(z["all-reduce"]["bytes"] == SCALING_ZERO_METRICS,
+                f"tools {name}: ZeRO-1 metrics all-reduce {z['all-reduce']}")
+    t0 = time.perf_counter()
+    proj = project_two_host(device=DEV)
+    secs["project_two_host"] = time.perf_counter() - t0
+    zc = proj["zero1_collectives_2dev"]
+    for kind, want in SCALING_ZERO_W2.items():
+        require(2 * zc[kind]["bytes"] == want,
+                f"tools: ZeRO-1 {kind} at W = 2 {zc[kind]['bytes']} bytes (bf16); the record's "
+                f"{want} is its float32")
+    require(zc["all-reduce"]["bytes"] == SCALING_ZERO_METRICS,
+            f"tools: two-host ZeRO-1 metrics all-reduce {zc['all-reduce']}")
+    require(all(math.isfinite(r["eff_no_overlap"]) for r in proj["projection"]),
+            "tools: projection not finite")
+    return {"volumes": out, "projected_2host": proj, "seconds": secs}
+
+
+def _tools_entry(torch, np):
+    """graft_entry.entry() on the card: finite outputs of its own rays and
+    table; then, on the CPU's MLPs, a lit table (TOOLS_ENTRY_*) and rays
+    aimed at the box, rgb, depth and acc against the CPU's plain route,
+    within TOOLS_ENTRY_RTOL of the CPU's value on every ray that absorbs
+    TOOLS_ENTRY_LIT_ACC or more (TOOLS_ENTRY_MIN_LIT of them at least)."""
+    from hashnerf_torch.graft_entry import N_RAYS, entry
+
+    fwd, (state, rays_o, rays_d) = entry(DEV)
+    cfwd, (cstate, _, _) = entry("cpu")
+    with torch.no_grad():
+        drawn = [t.cpu().numpy() for t in fwd(state, rays_o, rays_d)]
+        require(all(np.isfinite(g).all() for g in drawn)
+                and [g.shape for g in drawn] == [(N_RAYS, 3), (N_RAYS,), (N_RAYS,)],
+                f"tools: entry outputs {[g.shape for g in drawn]}, not finite or of wrong shape")
+        cpu_o = rays_o.cpu()
+        aim = torch.rand((N_RAYS, 3), generator=torch.Generator().manual_seed(2)) * 2 - 1 - cpu_o
+        aim = aim / torch.linalg.norm(aim, dim=-1, keepdim=True)
+        L, T, F = cstate.hash_table.shape
+        noise = torch.rand((L, T, F), generator=torch.Generator().manual_seed(3)) * 2 - 1
+        for seed in range(TOOLS_ENTRY_SEEDS):
+            v = torch.rand((L, 1, F), generator=torch.Generator().manual_seed(100 + seed)) * 2 - 1
+            cstate.hash_table.copy_(TOOLS_ENTRY_FEATURE_SCALE * v * (1 + TOOLS_ENTRY_NOISE * noise))
+            want = [t.numpy() for t in cfwd(cstate, cpu_o, aim)]
+            if int((want[2] >= TOOLS_ENTRY_LIT_ACC).sum()) >= TOOLS_ENTRY_MIN_LIT:
+                break
+        else:
+            raise CheckFailed(f"tools: no table of {TOOLS_ENTRY_SEEDS} lights "
+                              f"{TOOLS_ENTRY_MIN_LIT} rays")
+        state.load_state_dict({k: v.to(DEV) for k, v in cstate.state_dict().items()})
+        got = [t.cpu().numpy() for t in fwd(state, rays_o, aim.to(DEV))]
+    require(all(np.isfinite(g).all() for g in got), "tools: entry outputs not finite (aimed)")
+    lit = want[2] >= TOOLS_ENTRY_LIT_ACC
+    errs = {}
+    for name, g, w in zip(("rgb", "depth", "acc"), got, want):
+        rel = np.abs(g[lit] - w[lit]) / np.abs(w[lit])
+        errs[name] = {"max_abs_err": float(np.abs(g[lit] - w[lit]).max()),
+                      "max_rel_err": float(rel.max())}
+        require(bool(np.all(rel <= TOOLS_ENTRY_RTOL)),
+                f"tools: entry {name} card vs CPU on lit rays: {errs[name]}")
+    return {"drawn_acc_mean": float(drawn[2].mean()), "table_seed": 100 + seed,
+            "lit_rays": int(lit.sum()), "acc_mean": float(want[2].mean()),
+            "min_lit_value": {n: float(np.abs(w[lit]).min())
+                              for n, w in zip(("rgb", "depth", "acc"), want)},
+            "errors_on_lit_rays": errs}
+
+
+def _tools_encode(torch, prof):
+    """K2 and K6 at profile_step's default encode shape (its encode_points
+    uniform in [-1.2, 1.2]^3, a (8, 2^19, 4) table drawn from U(-1, 1),
+    its bbox), held against their plain versions (encode_at)."""
+    from hashnerf_torch.ops.hash_encoding import HashGridConfig
+
+    L, T, F = prof["table"]
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(12)
+    table = torch.rand((L, T, F), generator=gen, device=DEV) * 2 - 1
+    xs = torch.rand((prof["encode_points"], 3), generator=gen, device=DEV) * 2.4 - 1.2
+    bbox = torch.tensor(prof["bbox"], dtype=torch.float32, device=DEV)
+    res = HashGridConfig(n_levels=L, n_features_per_level=F, log2_hashmap_size=T.bit_length() - 1,
+                         finest_resolution=512).resolutions_tensor(DEV)
+    return encode_at(torch, "profile_step_default", table, xs, bbox[0].contiguous(),
+                     bbox[1].contiguous(), res, gen)
+
+
+def phase_tools(torch, np, smi: str, data: str):
+    """The A9 tools on the card (phase_tools, slice 12), on the blender
+    phase's 800 x 800 set (`data`): the chair for TOOLS_ITERS steps with a
+    checkpoint every TOOLS_CKPT_EVERY, each checkpoint rendered by
+    run_all_checkpoints (--render_test --render_factor 4) and make_gif's
+    GIF of them (3 frames, in iteration order); render_bench on a set of
+    TOOLS_BENCH_SET written here; profile_step
+    in both modes; bench_quality (QB_ITERS TOOLS_QB_ITERS) and
+    quality_summary over it; parity_curve's dataset / ours (3 seeds) /
+    merge against the recorded reference curves, whose gate must pass;
+    collective_volumes and project_two_host (_tools_collectives); and
+    graft_entry.entry() (_tools_entry). The launch counts are set to 0
+    before it and read after: PATHS["tools"]'s kernels must launch, K1, K3
+    and K4 not. The three host plots (plot_losses, pose_visualizer,
+    blender_render_poses) need matplotlib and are not run here."""
+    from hashnerf_torch import bench_quality, kernels
+    from hashnerf_torch.run_nerf import main as run_nerf
+    from hashnerf_torch.tools import (
+        make_gif, parity_curve, profile_step, quality_summary, render_bench,
+        run_all_checkpoints,
+    )
+    from hashnerf_torch.tools.make_blender_dataset import main as make_set
+
+    t_phase = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="hashnerf_torch_tools_")
+    secs = {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+        return r
+
+    try:
+        kernels.reset_launch_counts()
+        # checkpoints, their re-renders and the GIF
+        base = ["--config", os.path.join(ROOT, "configs", "chair.txt"), "--datadir", data,
+                "--basedir", os.path.join(work, "logs"), "--device", DEV]
+        trainer, _ = timed("chair_train", lambda: _run(run_nerf, base + [
+            "--N_iters", str(TOOLS_ITERS), "--i_weights", str(TOOLS_CKPT_EVERY),
+            "--i_print", str(TOOLS_CKPT_EVERY), "--i_testset", "0", "--i_video", "0",
+            "--no_reload"]))
+        expdir = os.path.join(work, "logs", trainer.args.expname)
+        del trainer
+        rendered = timed("run_all_checkpoints", lambda: run_all_checkpoints.main(
+            base + ["--render_test", "--render_factor", "4"]))
+        iters = [it for it, _ in make_gif.collect_frames(expdir)]
+        gif = timed("make_gif", lambda: make_gif.make_gif(expdir, os.path.join(work, "conv.gif")))
+        n_gif, gif_hw = gif_frames(gif)
+        want_iters = list(range(TOOLS_CKPT_EVERY, TOOLS_ITERS + 1, TOOLS_CKPT_EVERY))
+        require(len(rendered) == 3 and iters == want_iters and n_gif == 3 and gif_hw == (100, 200),
+                f"tools: {len(rendered)} checkpoints rendered, frames of {iters}, GIF of {n_gif} "
+                f"frames {gif_hw}")
+
+        # render_bench at 800 x 800
+        bench_set = os.path.join(work, "bench_set")
+        timed("bench_set_write", lambda: make_set([bench_set, *TOOLS_BENCH_SET]))
+        rb = timed("render_bench", lambda: render_bench.main(
+            ["--datadir", bench_set, "--json-out", os.path.join(work, "render.json"),
+             "--device", DEV] + TOOLS_RENDER_BENCH))
+        require((rb["H"], rb["W"]) == (800, 800) and len(rb["frame_s"]) == 3
+                and rb["seconds_per_frame"] is not None and len(rb["eval_keep_sweep"]) == 1,
+                f"tools: render_bench {rb['H']}x{rb['W']}, {len(rb['frame_s'])} frames, "
+                f"s/frame {rb['seconds_per_frame']}")
+        shutil.rmtree(bench_set)
+        torch.cuda.empty_cache()
+
+        # profile_step, both modes
+        prof = {}
+        for mode, flags in (("default", []), ("parity", ["--parity"])):
+            prof[mode] = timed(f"profile_{mode}", lambda: profile_step.main(
+                ["--json-out", os.path.join(work, f"profile_{mode}.json"), "--device", DEV]
+                + flags))
+            require(all(math.isfinite(v) and v > 0 for v in prof[mode]["readings_ms"].values()),
+                    f"tools: profile_step {mode} {prof[mode]['readings_ms']}")
+        torch.cuda.empty_cache()
+        encode = _tools_encode(torch, prof["default"])
+
+        # bench_quality and its summary
+        qb_out = os.path.join(work, "quality_tools.json")
+        qb = timed("bench_quality", lambda: bench_quality.main(
+            ["--json-out", qb_out, "--device", DEV], env={"QB_ITERS": str(TOOLS_QB_ITERS)}))
+        require(len(qb["curve"]) == 2 and all(math.isfinite(p["test_psnr"]) for p in qb["curve"]),
+                f"tools: bench_quality curve {qb['curve']}")
+
+        # parity_curve: dataset, ours for each seed, merge against the
+        # recorded reference curves
+        pdata = os.path.join(work, "parity_tiny")
+        timed("parity_dataset", lambda: parity_curve.main(["dataset", pdata]))
+        ours, curves = [], {}
+        for seed in TOOLS_PARITY_SEEDS:
+            ours.append(os.path.join(work, f"parity_ours_s{seed}.json"))
+            curves[seed] = timed(f"parity_ours_s{seed}", lambda: parity_curve.run_ours(
+                pdata, ours[-1], seed=seed, device=DEV, n_iters=640))
+        refs = [os.path.join(ROOT, f"PARITY_CURVE_ref{s}.json") for s in ("", "_s1", "_s2")]
+        merged_path = os.path.join(work, "parity_merged.json")
+        merged = parity_curve.merge(merged_path, refs, ours)
+        require(merged["gate_pass"] and len(merged["milestones"]) == 10,
+                f"tools: parity gate {merged['gate_pass']} over {merged['milestones']}")
+        summary = quality_summary.main(["--json-glob", os.path.join(work, "quality_*.json"),
+                                        "--out", os.path.join(work, "summary.md"),
+                                        "--parity", merged_path])
+        require("**PASS**" in summary, "tools: quality_summary's parity section")
+        torch.cuda.empty_cache()
+
+        graft = timed("graft_entry", lambda: _tools_entry(torch, np))
+        counts = kernels.launch_counts()
+        for name in KERNEL_INFO:
+            want = name in PATHS["tools"]["kernels"]
+            require((counts[name] > 0) == want,
+                    f"tools: kernel {name} launched {counts[name]} times")
+        coll = _tools_collectives()
+        secs.update({f"collectives_{k}": v for k, v in coll.pop("seconds").items()})
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    rec = {"phase": "tools", "card": smi, "seconds": secs, "phase_s": time.perf_counter() - t_phase,
+           "launches": counts, "checkpoints_rendered": [os.path.basename(p) for p in rendered],
+           "gif_frames": n_gif, "render_bench": rb, "profile_step": prof,
+           "profile_step_encode": encode,
+           "bench_quality": qb, "quality_summary": summary,
+           "parity": {"merged": merged, "ours": curves}, "graft_entry": graft, **coll}
+    emit(rec)
+    shown = [("render s/frame 800x800", rb["seconds_per_frame"]),
+             ("eval rays/s", rb["eval_rays_per_s"]),
+             ("keep 0.5 eval rays/s", rb["eval_keep_sweep"][0]["eval_rays_per_s"]),
+             ("profile default step ms", prof["default"]["readings_ms"]["step"]),
+             ("profile parity step ms", prof["parity"]["readings_ms"]["step"]),
+             ("parity mean delta dB", merged["mean_delta_db"]), ("phase_s", rec["phase_s"])]
+    print("tools: " + "; ".join(f"{k} {v:.6g} [{smi}]" for k, v in shown), flush=True)
+    return rec
+
+
+# --------------------------------------------------------------------------- #
 # Phase: multi (slice 10, multi-device training)
 # --------------------------------------------------------------------------- #
 
@@ -3695,13 +4004,20 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     paths = {path: phase_main_path(torch, np, path, opts.profile) for path in MAIN_PATHS}
     torch.cuda.empty_cache()
-    blender = phase_blender(torch, np, dev["smi"], opts.profile)
-    torch.cuda.empty_cache()
-    llff = phase_llff(torch, np, dev["smi"], opts.profile)
-    torch.cuda.empty_cache()
-    st3d = phase_st3d(torch, np, dev["smi"], opts.profile)
-    torch.cuda.empty_cache()
-    loaders = phase_loaders(torch, np, dev["smi"])
+    sets = tempfile.mkdtemp(prefix="hashnerf_torch_sets_")
+    try:
+        blender_set = os.path.join(sets, "blender")
+        blender = phase_blender(torch, np, dev["smi"], opts.profile, blender_set)
+        torch.cuda.empty_cache()
+        llff = phase_llff(torch, np, dev["smi"], opts.profile)
+        torch.cuda.empty_cache()
+        st3d = phase_st3d(torch, np, dev["smi"], opts.profile)
+        torch.cuda.empty_cache()
+        loaders = phase_loaders(torch, np, dev["smi"])
+        torch.cuda.empty_cache()
+        tools = phase_tools(torch, np, dev["smi"], blender_set)
+    finally:
+        shutil.rmtree(sets, ignore_errors=True)
     torch.cuda.empty_cache()
     multi = phase_multi(torch, np, dev["smi"])
     torch.cuda.empty_cache()
@@ -3721,6 +4037,7 @@ def main(argv=None) -> int:
         by_path["llff"] = llff["launches"][name]
         by_path["st3d"] = st3d["launches"][name]
         by_path["loaders"] = loaders["launches"][name]
+        by_path["tools"] = tools["launches"][name]
         by_path["multi"] = multi["launches"][name]
         lines.append({
             "name": name, "route": "cuda", **info,
@@ -3736,7 +4053,8 @@ def main(argv=None) -> int:
             json.dump({"device": dev, "kernels": kern, "k4_hot_row": k4_hot, "k5_hot_rows": k5_hot,
                        "packed_kernels": packed, "occupancy": occupancy, "culled_k5": culled_k5,
                        "packed_encode": packed_enc, "main_paths": paths, "blender": blender,
-                       "llff": llff, "st3d": st3d, "loaders": loaders, "multi": multi,
+                       "llff": llff, "st3d": st3d, "loaders": loaders, "tools": tools,
+                       "multi": multi,
                        "bench": benches,
                        "seconds": time.perf_counter() - t_start}, f, indent=1)
     print(f"chip_smoke seconds: {time.perf_counter() - t_start:.1f} [{dev['smi']}]", flush=True)

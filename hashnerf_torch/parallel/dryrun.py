@@ -94,13 +94,17 @@ def _rank(rank: int, world: int, device):
     return out
 
 
-def dryrun_multichip(n_devices: int, device="cpu"):
-    """Run the modes on n_devices ranks (gloo on the CPU, NCCL on as
-    many cards); returns rank 0's {mode: {loss, ...}} and prints a line a
-    mode."""
-    from hashnerf_torch.parallel.mesh import launch
+def dryrun_multichip(n_devices: int, device=None):
+    """Run the modes on n_devices ranks, on the card unless device names
+    another (hashnerf_torch.resolve_device: with no card and no device
+    named this raises): gloo on the CPU, NCCL on as many cards, gloo ranks
+    sharing card 0 where the cards are fewer (parallel/mesh.py::world_backend).
+    Returns rank 0's {mode: {loss, ...}} and prints a line a mode."""
+    from hashnerf_torch import resolve_device
+    from hashnerf_torch.parallel.mesh import launch, world_backend
 
-    res = launch(_rank, n_devices, device)[0]
+    device = resolve_device(device)
+    res = launch(_rank, n_devices, device, backend=world_backend(n_devices, device))[0]
     for mode, r in res.items():
         print(f"dryrun_multichip OK: {mode} on {n_devices} ranks ({device}): {r}", flush=True)
     return res
@@ -109,6 +113,6 @@ def dryrun_multichip(n_devices: int, device="cpu"):
 if __name__ == "__main__":
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("n", type=int, nargs="?", default=4)
-    ap.add_argument("--device", default="cpu")
+    ap.add_argument("--device", default=None, help="cpu, or cuda (the default)")
     o = ap.parse_args()
     dryrun_multichip(o.n, o.device)

@@ -15,7 +15,8 @@ started reads its rank and world from the environment instead
 through the counting wrappers below (`all_reduce`, `all_gather`,
 `reduce_scatter`, and `gather_shares`, an all-gather whose backward is a
 reduce-scatter): like the kernel wrappers, each keeps a count of its
-calls, which a CUDA graph's replays add to (train/graphs.py).
+calls and of its payload bytes, which a CUDA graph's replays add to
+(train/graphs.py).
 """
 from __future__ import annotations
 
@@ -178,14 +179,26 @@ def replicate(tensors: Sequence[torch.Tensor], src: int = 0) -> None:
 
 def _counted(fn):
     fn.calls = 0
+    fn.bytes = 0
     return fn
 
 
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
 @_counted
-def all_reduce(t: torch.Tensor, group=None) -> None:
-    """In-place SUM over group."""
+def all_reduce(t: torch.Tensor, group=None, metrics: bool = False) -> None:
+    """In-place SUM over group. metrics marks a step's metrics (loss,
+    img_loss, psnr), whose bytes collective_bytes also lists apart."""
     dist.all_reduce(t, group=group)
     all_reduce.calls += 1
+    all_reduce.bytes += _nbytes(t)
+    if metrics:
+        all_reduce.metric_bytes += _nbytes(t)
+
+
+all_reduce.metric_bytes = 0
 
 
 @_counted
@@ -193,6 +206,7 @@ def all_gather(out: torch.Tensor, t: torch.Tensor, group=None) -> None:
     """out (n * len(t), ...) = the group's t, in rank order."""
     dist.all_gather_into_tensor(out, t, group=group)
     all_gather.calls += 1
+    all_gather.bytes += _nbytes(out)
 
 
 @_counted
@@ -200,6 +214,7 @@ def reduce_scatter(out: torch.Tensor, t: torch.Tensor, group=None) -> None:
     """out = this rank's chunk of the group's SUM of t (n * len(out), ...)."""
     dist.reduce_scatter_tensor(out, t, group=group)
     reduce_scatter.calls += 1
+    reduce_scatter.bytes += _nbytes(out)
 
 
 class _GatherShares(torch.autograd.Function):
@@ -237,14 +252,50 @@ def collective_counts() -> Dict[str, int]:
     return {name: fn.calls for name, fn in COLLECTIVES.items()}
 
 
+def collective_bytes() -> Dict[str, int]:
+    """Payload bytes of each kind since the last reset, in the convention
+    of hlo_collective_summary (hashnerf_tpu/tools/bench_scaling.py:53-69):
+    an all-reduce or all-gather counts the whole output a rank holds, a
+    reduce-scatter its 1/n output shard. "all_reduce_metrics" repeats
+    apart the all-reduces marked as a step's metrics, which "all_reduce"
+    includes."""
+    return {**{name: fn.bytes for name, fn in COLLECTIVES.items()},
+            "all_reduce_metrics": all_reduce.metric_bytes}
+
+
+def collective_tally() -> Dict[str, int]:
+    """The counts and, under "<name>_bytes", the bytes: what a CUDA graph
+    records of its capture and adds back on each replay (add_collectives)."""
+    return {**collective_counts(), **{f"{k}_bytes": v for k, v in collective_bytes().items()}}
+
+
 def reset_collective_counts() -> None:
+    """Counts and bytes to 0."""
     for fn in COLLECTIVES.values():
         fn.calls = 0
+        fn.bytes = 0
+    all_reduce.metric_bytes = 0
 
 
-def add_collectives(counts: Dict[str, int], times: int = 1) -> None:
-    for name, n in counts.items():
-        COLLECTIVES[name].calls += n * times
+def add_collectives(tally: Dict[str, int], times: int = 1) -> None:
+    """Add a collective_tally's differences (counts or bytes) times over."""
+    for key, n in tally.items():
+        if key == "all_reduce_metrics_bytes":
+            all_reduce.metric_bytes += n * times
+        elif key.endswith("_bytes"):
+            COLLECTIVES[key[:-len("_bytes")]].bytes += n * times
+        else:
+            COLLECTIVES[key].calls += n * times
+
+
+def world_backend(world: int, device) -> str:
+    """The backend of `world` ranks on device: NCCL, a card a rank, when
+    the cards suffice; gloo otherwise, its ranks on the CPU or sharing
+    card 0 (gloo takes CUDA tensors for every collective the port runs)."""
+    device = torch.device(device)
+    if device.type == "cuda" and world <= torch.cuda.device_count():
+        return "nccl"
+    return "gloo"
 
 
 # --------------------------------------------------------------------------- #

@@ -97,7 +97,7 @@ def sharded_step(layout: Layout, loss_fn: Callable, render_cfg: RenderConfig, st
     optimizer.step()
     sums = torch.stack([loss.detach(), img_loss.detach()])
     if layout.data_group is not None:
-        all_reduce(sums, layout.data_group)
+        all_reduce(sums, layout.data_group, metrics=True)
     return {"loss": sums[0], "psnr": mse2psnr(sums[1]), "img_loss": sums[1]}
 
 
@@ -208,7 +208,7 @@ def make_dp_zero_train_step(layout: Layout, loss_fn: Callable, state,
         # 4) the optimizer on this rank's chunks alone
         optimizer.step()
         m = torch.stack([loss.detach(), psnr.detach(), img_loss.detach()])
-        all_reduce(m, group)
+        all_reduce(m, group, metrics=True)
         m = m / n
         return {"loss": m[0], "psnr": m[1], "img_loss": m[2]}
 

@@ -4,13 +4,14 @@ Counterpart of hashnerf_tpu/tools/multihost_smoke.py: the code a multi-host
 launch runs (process-group bring-up, parallel/mesh.py; a (data, model) =
 (2, 1) layout from make_dcn_mesh; the global batch split over the data
 axis; two data-parallel train steps: loss, all-reduced gradients, RAdam)
-in two processes: gloo on the CPU, or NCCL with one card a process where
-there are two cards.
+in two processes, on the card unless --device names another: NCCL with
+one card a process where there are two cards, else gloo ranks sharing
+card 0; gloo on the CPU with --device cpu.
 
     python -m hashnerf_torch.tools.multihost_smoke [--device cpu|cuda] [--out FILE]
 
-Prints {ok, loss, n_processes, n_global_devices, layout} and writes it to
-FILE when given.
+Prints {ok, loss, n_processes, n_global_devices, layout, device, backend}
+and writes it to FILE when given.
 """
 from __future__ import annotations
 
@@ -56,18 +57,19 @@ def rank_main(rank: int, world: int, device):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--device", default=None,
-                    help="cpu (gloo), or cuda (NCCL; default when two cards are present)")
+    ap.add_argument("--device", default=None, help="cpu, or cuda (the default)")
     ap.add_argument("--out", default=None, help="also write the record to this JSON file")
     opts = ap.parse_args(argv)
-    from hashnerf_torch.parallel.mesh import launch
+    from hashnerf_torch import resolve_device
+    from hashnerf_torch.parallel.mesh import launch, world_backend
 
-    device = opts.device or ("cuda" if torch.cuda.device_count() >= N_PROC else "cpu")
-    res = launch(rank_main, N_PROC, device)
+    device = resolve_device(opts.device)
+    backend = world_backend(N_PROC, device)
+    res = launch(rank_main, N_PROC, device, backend=backend)
     loss = res[0]["loss"]
     rec = {"ok": bool(np.isfinite(loss) and all(r["loss"] == loss for r in res)),
            "loss": loss, "n_processes": N_PROC, "n_global_devices": N_PROC,
-           "layout": res[0]["layout"], "device": device}
+           "layout": res[0]["layout"], "device": str(device), "backend": backend}
     print(json.dumps(rec), flush=True)
     if opts.out:
         with open(opts.out, "w") as f:

@@ -38,12 +38,12 @@ from hashnerf_torch.parallel import mesh
 
 
 def _counts() -> Dict[str, int]:
-    return {**kernels.launch_counts(), **mesh.collective_counts()}
+    return {**kernels.launch_counts(), **mesh.collective_tally()}
 
 
 def _add(counts: Dict[str, int], times: int = 1) -> None:
     kernels.add_launches({k: n for k, n in counts.items() if k in kernels.KERNELS}, times)
-    mesh.add_collectives({k: n for k, n in counts.items() if k in mesh.COLLECTIVES}, times)
+    mesh.add_collectives({k: n for k, n in counts.items() if k not in kernels.KERNELS}, times)
 
 
 class CapturedGraph:

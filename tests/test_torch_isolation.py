@@ -39,6 +39,13 @@ SLICE9 = ["ops/positional.py", "train/adam.py", "data/st3d.py", "data/scannet.py
 # the modules of slice 10 (multi-device training)
 SLICE10 = ["parallel/__init__.py", "parallel/mesh.py", "parallel/train_sharded.py",
            "parallel/table_sharded.py", "parallel/dryrun.py", "tools/multihost_smoke.py"]
+# the modules slice 12 added (the A9 tools) or changed (the collectives'
+# bytes, the three entry points that ran on the CPU by default)
+SLICE12 = ["tools/run_all_checkpoints.py", "tools/make_gif.py", "tools/plot_losses.py",
+           "tools/pose_visualizer.py", "tools/blender_render_poses.py", "tools/render_bench.py",
+           "tools/profile_step.py", "bench_quality.py", "tools/quality_summary.py",
+           "tools/parity_curve.py", "graft_entry.py", "tools/bench_scaling.py",
+           "parallel/mesh.py", "parallel/dryrun.py", "tools/multihost_smoke.py"]
 
 
 def test_port_files_exist():
@@ -46,7 +53,7 @@ def test_port_files_exist():
     assert len(files) > 20
     assert os.path.join(ROOT, "hashnerf_torch", "kernels", "segment_accum.py") in files
     assert os.path.join(ROOT, "hashnerf_torch", "ops", "packed_grid.py") in files
-    for rel in SLICE9 + SLICE10:
+    for rel in SLICE9 + SLICE10 + SLICE12:
         assert os.path.join(ROOT, "hashnerf_torch", *rel.split("/")) in files, rel
 
 
@@ -80,6 +87,28 @@ def test_slice10_modules_import_alone():
         f"for m in {mods!r}: importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{sorted(FORBIDDEN)!r})\n"
+        "assert not bad, bad\n"
+        "import torch.distributed as dist\n"
+        "assert not dist.is_initialized()\n"
+        "print('OK')\n"
+    )
+    env = dict(os.environ, OMP_NUM_THREADS="2")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.startswith("OK")
+
+
+def test_slice12_modules_import_alone():
+    """Each module of slice 12, imported in a fresh interpreter on its own,
+    loads no jax, none of the JAX package and no matplotlib (the host
+    plots import it when they draw), and starts no process group."""
+    mods = ["hashnerf_torch." + rel[:-3].replace("/", ".") for rel in SLICE12]
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}: importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{sorted(FORBIDDEN | {'matplotlib'})!r})\n"
         "assert not bad, bad\n"
         "import torch.distributed as dist\n"
         "assert not dist.is_initialized()\n"
