@@ -42,6 +42,13 @@ gates. Each prints JSON lines; only pool-faults is a gate.
         Device time of the chair's TV step (torch.profiler, 3 steps after 10
         timed ones) on the procedural scene and on a blender set of 8
         frames of 800 x 800 (half_res), twice each in one process.
+    python3 chip_diag.py packed-k8
+        K8's launch order and its hot rows: K7 and K8 (CUDA events, L2
+        flushed; K8's kernel alone from a profiler trace) at the flagship's
+        fine pass (196,608 points, uniform and along rays) over K8's level
+        groups (1, 2, 4 levels), and at its two dense levels alone (res 16
+        and 50: 4,913 and 132,651 vertices), beside K5 adding the same
+        cw * g updates, materialised, into the same vertex rows.
 
 Imports hashnerf_torch and chip_smoke.py (never jax); exits non-zero
 without a CUDA device.
@@ -478,10 +485,70 @@ def blender_step(torch) -> None:
             torch.cuda.empty_cache()
 
 
+def packed_k8(torch, np) -> None:
+    import chip_smoke as cs
+    from hashnerf_torch.kernels import packed_encode as pe
+    from hashnerf_torch.kernels.segment_accum import segment_accumulate_k5
+    from hashnerf_torch.ops.packed_grid import PackedGridConfig, init_packed_tables
+    from torch.profiler import ProfilerActivity, profile
+
+    dev = cs.DEV
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(21)
+    widths = dict(n_features_per_level=cs.PACKED_F, log2_hashmap_size=cs.LOG2_T,
+                  log2_blocks=cs.PACKED_LOG2_BLOCKS)
+    cfgs = {"flagship": PackedGridConfig(n_levels=cs.PACKED_L, **widths),
+            "dense_16_50": PackedGridConfig(n_levels=2, finest_resolution=50, **widths)}
+    bmin, bmax = torch.full((3,), -1.6, device=dev), torch.full((3,), 1.6, device=dev)
+    for cname, pcfg in cfgs.items():
+        tables = {k: v * 1e4 for k, v in init_packed_tables(pcfg, gen, dev).items()}
+        points = {"uniform": cs.chair_points(np, cs.N_POINTS, -1.6, 1.6, pcfg.resolutions, seed=1),
+                  "rays": cs.ray_points(np, 1024, 192, seed=3)}
+        for pname, xs in points.items():
+            x = torch.as_tensor(xs, device=dev)
+            g = torch.randn((x.shape[0], pcfg.out_dim), generator=gen, device=dev)
+            rec = {"config": cname, "points": pname, "N": x.shape[0],
+                   "resolutions": list(pcfg.resolutions),
+                   "k7_ms": cs.cuda_ms(torch, lambda: pe.packed_encode_fwd(
+                       tables.get("dense"), tables.get("fine"), x, bmin, bmax, pcfg))}
+            default = pe._K8_GROUP_LEVELS
+            try:
+                for gl in (1, 2, 4):
+                    pe._K8_GROUP_LEVELS = gl
+                    k8 = lambda: pe.packed_encode_bwd(x, bmin, bmax, g, pcfg)
+                    rec[f"k8_gl{gl}_ms"] = cs.cuda_ms(torch, k8)
+                    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
+                        for _ in range(5):
+                            cs._L2_FLUSH[0].zero_()
+                            k8()
+                        torch.cuda.synchronize()
+                    rec[f"k8_gl{gl}_kernel_device_ms"] = sum(
+                        r[0] for r in cs.kernel_times(p) if "packed_encode_bwd_kernel" in r[1]) / 5e3
+            finally:
+                pe._K8_GROUP_LEVELS = default
+            if cname.startswith("dense"):
+                # the same updates as K8's dense levels, materialised for K5
+                _, levels = pe.corner_rows(x, bmin, bmax, pcfg)
+                F = pcfg.n_features_per_level
+                ids = torch.cat([r.reshape(-1) for _, r, _ in levels])
+                vals = torch.cat([(cw[..., None] * g[:, None, li * F:(li + 1) * F]).reshape(-1, F)
+                                  for li, (_, _, cw) in enumerate(levels)])
+                V = pcfg.dense_offsets[-1]
+                rec.update({"k5_updates": ids.numel(), "unique_vertices": int(ids.unique().numel()),
+                            "k5_same_updates_ms": cs.cuda_ms(
+                                torch, lambda: segment_accumulate_k5(ids, vals, V))})
+                level0 = levels[0][1].reshape(-1)
+                rec["level0_updates_per_vertex_max"] = int(torch.bincount(level0).max())
+                del levels, ids, vals
+            print(json.dumps(rec), flush=True)
+        del tables
+        torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("what", choices=("gate-spread", "pool-faults", "st3d-step", "spread-why",
-                                     "one-step", "blender-step"))
+                                     "one-step", "blender-step", "packed-k8"))
     ap.add_argument("--path", default=None,
                     choices=("chair", "packed", "flagship", "llff", "st3d"),
                     help="gate-spread's path (default flagship); pool-faults' (llff or st3d, "
@@ -514,6 +581,8 @@ def main(argv=None) -> int:
         spread_why(torch, np, opts.reps)
     elif opts.what == "one-step":
         one_step(torch)
+    elif opts.what == "packed-k8":
+        packed_k8(torch, np)
     else:
         blender_step(torch)
     return 0

@@ -41,6 +41,14 @@ Imports hashnerf_torch (never jax or hashnerf_tpu) and, on one CUDA card:
       passes' shapes, with CUDA events and as device time from a profiler
       trace, and K5 at the shapes of the kept points (24,576 a pass at
       keep 0.125, 98,304 at the fine pass's 0.5), beside `index_add_`;
+    - packed_encode: K7 and K8, the packed encode's forward and
+      fused backward, against their plain versions and against the
+      torch-ops route they replaced (packed_encode_ops), at the packed
+      passes (196,608 uniform and ray-ordered points, 65,536), the
+      flagship's culled passes (24,576 at keep 0.125, 98,304 at 0.5) and
+      tpu-quality's L8 / F4 widths (196,608 and 98,304), the tables x 1e4;
+      timed with CUDA events and from a profiler trace beside their bounds
+      (packed_case);
  3. main paths, each at the width of configs/chair.txt on the procedural
     scene (128 x 128, 8 train views) through
     hashnerf_torch.train.driver.train_loop (40 steps with TV, a checkpoint,
@@ -50,7 +58,7 @@ Imports hashnerf_torch (never jax or hashnerf_tpu) and, on one CUDA card:
       loss only);
     - packed: the same with --n_levels 4 --n_features_per_level 8
       --packed_layout --share_fine --compute_dtype bfloat16 --aabb_clip
-      (K5);
+      (K7, K8; K5 from the TV loss only);
     - flagship: packed with the occupancy culling of the JAX package's
       tpu-fast preset (global block-8 culling, coarse keep 0.375, fine keep
       annealed 0.5 / 0.25 / 0.125 from steps 0 / 512 / 1024, adaptive grid
@@ -58,7 +66,7 @@ Imports hashnerf_torch (never jax or hashnerf_tpu) and, on one CUDA card:
       Its 10 steps with TV start at global_step 256, where the warmup
       ends, so each must run culled at keep 0.5 (fine) and 0.375 (coarse);
       its 20 without TV start at 1024, each culled at 0.125 and 0.375, and
-      K5 must launch in them; the test view is rendered exact and culled
+      K7 and K8 must launch in them, K5 not; the test view is rendered exact and culled
       (--occ_keep_eval 0.75 --occ_eval_transmittance);
     then each path's two windows again as Trainer.run_steps blocks of 16
     steps, replayed from CUDA graphs (--steps_per_dispatch): with TV (from
@@ -249,6 +257,15 @@ KERNEL_INFO = {
         "source": "hashnerf_torch/csrc/hash_encode.cu",
         "replaces": "hashnerf_tpu/kernels/hash_encode_vjp.py:82",
     },
+    "packed_encode_fwd": {
+        "source": "hashnerf_torch/csrc/packed_encode.cu",
+        "replaces": "hashnerf_tpu/ops/packed_grid.py:174",
+    },
+    "packed_encode_bwd": {
+        "source": "hashnerf_torch/csrc/packed_encode.cu",
+        "replaces": "hashnerf_tpu/ops/packed_grid.py:174 (its VJP) and "
+                    "hashnerf_tpu/kernels/pallas_segment_accum.py:134 (through take_rows)",
+    },
 }
 # What phase_main_path runs and requires of each main path:
 # - flags: added to configs/chair.txt;
@@ -263,7 +280,8 @@ KERNEL_INFO = {
 #   that window must cull at (None: no step culls);
 # - k5_no_tv: whether K5 must launch (True) or must not (False) in the
 #   steps without TV (the chair path's K5 comes from the TV loss only:
-#   K6 reduces the encode's gradient);
+#   K6 reduces the encode's gradient, and on the packed paths K8 reduces
+#   the packed encode's);
 # - eval_cull: the flags of a second test-view render, culled on the
 #   trained grid (None: none);
 # - graph_tv_start: the global_step of the graphed window with TV; the one
@@ -271,17 +289,20 @@ KERNEL_INFO = {
 #   Trainer.run_steps blocks of GRAPH_BLOCK steps (CUDA graph replays), must
 #   keep the eager window's keeps and K5 rule and launch the path's kernels,
 #   and must pass the graph gate (graphed_window, GATE_*).
+CHAIR_KERNELS = ("hash_encode_fwd", "hash_encode_bwd", "segment_accumulate_k5")
+# The packed layout's encode (K7, K8) and K5 for its TV loss.
+PACKED_KERNELS = ("packed_encode_fwd", "packed_encode_bwd", "segment_accumulate_k5")
 PATHS = {
     "chair": {"flags": [],
               "kernels": ("hash_encode_fwd", "hash_encode_bwd", "segment_accumulate_k5"),
               "tv_start": None, "no_tv_start": 1001, "keeps_tv": None, "keeps_no_tv": None,
               "k5_no_tv": False, "eval_cull": None, "graph_tv_start": 48},
-    "packed": {"flags": PACKED_FLAGS, "kernels": ("segment_accumulate_k5",),
+    "packed": {"flags": PACKED_FLAGS, "kernels": PACKED_KERNELS,
                "tv_start": None, "no_tv_start": 1001, "keeps_tv": None, "keeps_no_tv": None,
-               "k5_no_tv": True, "eval_cull": None, "graph_tv_start": 48},
-    "flagship": {"flags": FLAGSHIP_FLAGS, "kernels": ("segment_accumulate_k5",),
+               "k5_no_tv": False, "eval_cull": None, "graph_tv_start": 48},
+    "flagship": {"flags": FLAGSHIP_FLAGS, "kernels": PACKED_KERNELS,
                  "tv_start": 256, "no_tv_start": 1024, "keeps_tv": (0.5, 0.375),
-                 "keeps_no_tv": FLAGSHIP_KEEP, "k5_no_tv": True, "eval_cull": EVAL_CULL_FLAGS,
+                 "keeps_no_tv": FLAGSHIP_KEEP, "k5_no_tv": False, "eval_cull": EVAL_CULL_FLAGS,
                  "graph_tv_start": 256},
     # Phases of their own (slice 9), not run by phase_main_path: each run
     # of the phase must launch exactly the kernels listed for it (K5 for
@@ -300,18 +321,18 @@ PATHS = {
                                            "segment_accumulate_k5")}},
     # Slice 10 (phase_multi): each rank's chair path (TV on: K5), ZeRO-1
     # and table-sharded runs (TV off: no K5), under NCCL and over gloo.
-    # Slice 11: the flagship (tpu-fast, global culling: K5 alone) on each
-    # rank, its kept blocks shared over the ranks.
+    # Slice 11: the flagship (tpu-fast, global culling) on each rank, its
+    # kept blocks shared over the ranks: K7, K8, and K5 for TV.
     # Slice 12 (phase_tools): the A9 tools on the card; the chair's runs
     # (K2, K6; K5 for TV), the flagship's render_bench and profile_step
-    # (K5), and the encode alone (K2, K6).
+    # (K7, K8), and the encode alone (K2, K6).
     "tools": {"phase": "tools", "keeps_tv": None, "keeps_no_tv": None,
-              "kernels": ("hash_encode_fwd", "hash_encode_bwd", "segment_accumulate_k5")},
+              "kernels": CHAIR_KERNELS + PACKED_KERNELS[:2]},
     "multi": {"phase": "multi", "keeps_tv": None, "keeps_no_tv": None,
               "runs": {"path": ("hash_encode_fwd", "hash_encode_bwd", "segment_accumulate_k5"),
                        "zero": ("hash_encode_fwd", "hash_encode_bwd"),
                        "table": ("hash_encode_fwd", "hash_encode_bwd"),
-                       "flagship": ("segment_accumulate_k5",)}},
+                       "flagship": PACKED_KERNELS}},
 }
 MAIN_PATHS = tuple(p for p, spec in PATHS.items() if "phase" not in spec)
 GRAPH_BLOCK = 16  # the flagship preset's --steps_per_dispatch
@@ -1288,47 +1309,144 @@ def phase_culled_k5(torch, np, kept_pts):
                              torch.full((3,), 1.6, device=DEV), "culled_k5")
 
 
-def phase_packed_encode(torch, np, kept_pts):
-    """packed_encode (torch ops: geometry, take_rows, the einsum blends;
-    backward K5), forward and backward, at the packed path's pass shapes and
-    at the flagship's culled ones: device ms from a profiler trace beside
-    the byte bound of the function (x, the dense vertex table and the fine
-    slabs the points touch read, the cotangent read, the features and both
-    tables' gradients written)."""
-    from hashnerf_torch.ops.packed_grid import init_packed_tables, packed_encode, packed_geometry
+# Arithmetic of one (point, level) of K7 / K8, counted from
+# csrc/packed_encode.cu: clip and geometry 10 ops x 3 axes, 8 corner weights
+# (3 subtractions + 16 products), 8 row ids (about 4 ops each, the hash 8
+# once), then the blend (K7: 8 x F multiply-adds) or the products and the
+# reductions (K8: 8 x F each).
+PACKED_GEOM_OPS = 30 + 19 + 40
+# The flagship's widths, and tpu-quality's (L8 / F4: dense levels 16-70,
+# fine levels 115-511), each at log2 T 19 with 2^16 block rows.
+PACKED_WIDTHS = {"flagship": (PACKED_L, PACKED_F), "quality": (8, 4)}
 
-    pcfg = packed_config()
-    gen = torch.Generator(device=DEV)
-    gen.manual_seed(9)
-    tables = {k: (v * 1e4).requires_grad_(True)
-              for k, v in init_packed_tables(pcfg, gen, DEV).items()}
+
+def packed_case(torch, name: str, pcfg, x, gen, reps: int = 10):
+    """K7 and K8 at one shape (points x on the card, pcfg's widths, tables
+    from U(-1e-4, 1e-4) x 1e4 so that a wrong row cannot hide under the
+    gates' absolute terms), each held to its plain version and to the
+    torch-ops route it replaced (packed_encode_ops: rebuilt table,
+    take_rows, einsums; its backward through autograd and K5): K7's keep
+    mask bit-equal, its features within BLEND_ORDER_RTOL of each blend's
+    absolute sum; K8's gradients within the row gate (row_abs_ok against
+    the terms' absolute sums). Then timed with CUDA events (L2 flushed;
+    K8's wrapper zeroes both gradient tables, which its time includes) and
+    as device time from a profiler trace, beside the byte bound of each
+    direction: K7 reads x and each corner row the points touch once and
+    writes the features and the mask; K8 reads x and g and writes both
+    gradient tables whole."""
+    from hashnerf_torch.kernels import packed_encode as pe
+    from hashnerf_torch.ops.packed_grid import init_packed_tables, packed_encode_ops
+
+    tables = {k: v * 1e4 for k, v in init_packed_tables(pcfg, gen, DEV).items()}
+    dense, fine = tables.get("dense"), tables.get("fine")
     bmin = torch.full((3,), -1.6, device=DEV)
     bmax = torch.full((3,), 1.6, device=DEV)
-    x_all = torch.as_tensor(chair_points(np, N_POINTS, -1.6, 1.6, pcfg.resolutions, seed=1), device=DEV)
-    point_sets = {"fine": x_all, "coarse": x_all[:N_COARSE].contiguous(),
-                  "culled": kept_pts[FLAGSHIP_KEEP[0]].contiguous()}
-    out = {}
-    for name, x in point_sets.items():
-        N = x.shape[0]
-        g = torch.randn((N, pcfg.out_dim), generator=gen, device=DEV)
-        fwd = lambda: packed_encode(tables, x, bmin, bmax, pcfg)
-        both = lambda: torch.autograd.grad(fwd()[0], list(tables.values()), g)
-        feats, keep = fwd()
-        require(bool(torch.isfinite(feats).all()), f"packed_encode ({name}): non-finite features")
-        fine_rows = torch.unique(packed_geometry(x, bmin, bmax, pcfg).fine_rows).numel()
-        dense_b = tables["dense"].numel() * 4
-        fine_b = tables["fine"].numel() * 4
-        read = N * 12 + dense_b + fine_rows * tables["fine"].shape[1] * 4 + N * pcfg.out_dim * 4
-        written = N * pcfg.out_dim * 4 + N + dense_b + fine_b
-        b = bound(read + written, 0)
-        out[name] = {"N": N, "touched_fine_slabs": fine_rows,
-                     "fwd_device_ms": device_ms(torch, fwd, reps=5),
-                     "fwd_bwd_device_ms": device_ms(torch, both, reps=5),
-                     "fwd_bwd_ms": cuda_ms(torch, both, reps=5),
-                     "bound_ms": b[0], "bound_by": b[1]}
-        emit({"phase": "packed_encode", "points": name, **out[name]})
-    del tables
+    N, F, L = x.shape[0], pcfg.n_features_per_level, pcfg.n_levels
+    g = torch.randn((N, pcfg.out_dim), generator=gen, device=DEV)
+    args = (x, bmin, bmax)
+
+    feats, keep = pe.packed_encode_fwd(dense, fine, *args, pcfg)
+    d_k8 = pe.packed_encode_bwd(*args, g, pcfg)
+    torch.cuda.synchronize()
+    plain_f, plain_keep = pe.packed_encode_fwd_plain(dense, fine, *args, pcfg)
+    abs_f, _ = pe.packed_encode_fwd_plain(dense.abs() if dense is not None else None,
+                                          fine.abs() if fine is not None else None, *args, pcfg)
+    ops_tables = {k: v.clone().requires_grad_(True) for k, v in tables.items()}
+    route_f, route_keep = packed_encode_ops(ops_tables, *args, pcfg)
+    route_d = dict(zip(ops_tables, torch.autograd.grad(route_f, list(ops_tables.values()), g)))
+    route_f = route_f.detach()
+    plain_d = dict(zip(("dense", "fine"), pe.packed_encode_bwd_plain(*args, g, pcfg)))
+    abs_d = dict(zip(("dense", "fine"), pe.packed_encode_bwd_plain(*args, g.abs(), pcfg)))
+    got_d = dict(zip(("dense", "fine"), d_k8))
+    rec = {"N": N, "levels": [pcfg.dense_level_count, len(pcfg.fine_resolutions)], "F": F,
+           "resolutions": list(pcfg.resolutions), "inside": int(keep.sum())}
+    for route, (want_f, want_keep) in (("plain", (plain_f, plain_keep)),
+                                      ("ops", (route_f, route_keep))):
+        require(bool(torch.equal(keep, want_keep)), f"K7 keep mask vs {route} ({name})")
+        err = (feats - want_f).abs()
+        ratio = float((err / abs_f.clamp_min(1e-30)).max())
+        require(ratio <= BLEND_ORDER_RTOL,
+                f"K7 vs {route} ({name}): a feature differs by {ratio} of its blend's absolute sum")
+        rec[f"k7_vs_{route}_max_abs_err"] = float(err.max())
+        rec[f"k7_vs_{route}_max_err_over_abs_sum"] = ratio
+        want_d = plain_d if route == "plain" else route_d
+        for kind in ("dense", "fine"):
+            if kind not in tables:
+                require(got_d[kind] is None, f"K8 ({name}): a {kind} gradient without {kind} levels")
+                continue
+            k8_err = float((got_d[kind] - want_d[kind]).abs().max())
+            require(row_abs_ok(got_d[kind], want_d[kind], abs_d[kind]),
+                    f"K8 {kind} vs {route} ({name}): max_abs_err {k8_err}")
+            rec[f"k8_{kind}_vs_{route}_max_abs_err"] = k8_err
+    del route_d, plain_d, abs_d, route_f, plain_f, abs_f, ops_tables
+
+    # bounds: the rows this run's points touch, each read once
+    _, levels = pe.corner_rows(*args, pcfg)
+    touched = {kind: torch.unique(torch.cat([r.reshape(-1) for k, r, _ in levels if k == kind]))
+               .numel() if kind in tables else 0 for kind in ("dense", "fine")}
+    del levels
+    table_b = sum(t.numel() * 4 for t in tables.values())
+    fwd_bytes = N * 12 + 24 + (touched["dense"] + touched["fine"]) * F * 4 + N * L * F * 4 + N
+    bwd_bytes = N * 12 + 24 + N * L * F * 4 + table_b
+    fwd_bound = bound(fwd_bytes, N * L * (PACKED_GEOM_OPS + 16 * F))
+    bwd_bound = bound(bwd_bytes, N * L * (PACKED_GEOM_OPS + 16 * F))
+    rec.update({"touched_rows": touched, "k7_bound_ms": fwd_bound[0], "k7_bound_by": fwd_bound[1],
+                "k8_bound_ms": bwd_bound[0], "k8_bound_by": bwd_bound[1]})
+
+    ops_tables = {k: v.clone().requires_grad_(True) for k, v in tables.items()}
+    k7 = lambda: pe.packed_encode_fwd(dense, fine, *args, pcfg)
+    k8 = lambda: pe.packed_encode_bwd(*args, g, pcfg)
+    both = lambda: (k7(), k8())
+    route_fwd = lambda: packed_encode_ops(ops_tables, *args, pcfg)
+    route_both = lambda: torch.autograd.grad(route_fwd()[0], list(ops_tables.values()), g)
+    timed = {"k7": k7, "k8": k8, "k7_k8": both,
+             "k7_plain": lambda: pe.packed_encode_fwd_plain(dense, fine, *args, pcfg),
+             "k8_plain": lambda: pe.packed_encode_bwd_plain(*args, g, pcfg),
+             "route_fwd": route_fwd, "route_fwd_bwd": route_both}
+    for what, fn in timed.items():
+        rec[f"{what}_ms"] = cuda_ms(torch, fn, reps=reps)
+    for what in ("k7", "k8", "route_fwd", "route_fwd_bwd"):
+        rec[f"{what}_device_ms"] = device_ms(torch, timed[what], reps=5)
+    # K8's kernel alone, without the zero fills of its wrapper
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
+        for _ in range(5):
+            _L2_FLUSH[0].zero_()
+            k8()
+        torch.cuda.synchronize()
+    rec["k8_kernel_device_ms"] = sum(r[0] for r in kernel_times(p)
+                                     if "packed_encode_bwd_kernel" in r[1]) / 1e3 / 5
+    del tables, ops_tables, g, feats, keep, d_k8
     torch.cuda.empty_cache()
+    emit({"phase": "packed_encode", "shape": name, **rec})
+    return rec
+
+
+def phase_packed_encode(torch, np, kept_pts):
+    """K7 and K8 (packed_case) at the packed path's pass shapes (196,608
+    uniform points as the row-id gate's and along 1024 rays of 192 samples,
+    and the coarse pass's 65,536), the flagship's culled pass (the 24,576
+    points its fine cull keeps at 0.125) and its keep-0.5 pass (98,304), and
+    tpu-quality's widths at the same full and keep-0.5 passes."""
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(9)
+    out = {}
+    for widths, (L, F) in PACKED_WIDTHS.items():
+        from hashnerf_torch.ops.packed_grid import PackedGridConfig
+
+        pcfg = PackedGridConfig(n_levels=L, n_features_per_level=F, log2_hashmap_size=LOG2_T,
+                                log2_blocks=PACKED_LOG2_BLOCKS)
+        x_all = torch.as_tensor(chair_points(np, N_POINTS, -1.6, 1.6, pcfg.resolutions, seed=1),
+                                device=DEV)
+        sets = {"fine": x_all, "keep_0.5": kept_pts[0.5].contiguous()}
+        if widths == "flagship":
+            sets.update({"fine_rays": torch.as_tensor(ray_points(np, 1024, 192, seed=3), device=DEV),
+                         "coarse": x_all[:N_COARSE].contiguous(),
+                         "culled": kept_pts[FLAGSHIP_KEEP[0]].contiguous()})
+        for name, x in sets.items():
+            key = name if widths == "flagship" else f"quality_{name}"
+            out[key] = packed_case(torch, key, pcfg, x, gen)
     return out
 
 
@@ -1888,7 +2006,8 @@ def phase_blender(torch, np, smi: str, profile: bool, data: str):
     """The blender path end to end: write the set into `data` (kept there
     for phase_tools), check the loader against the frames written, train
     the chair, render only, train the flagship, render the JAX package's
-    checkpoint; K2, K6 and K5 must launch on it and K1, K3 and K4 must not.
+    checkpoint; K2, K6, K5 (the chair), K7 and K8 (the flagship) must
+    launch on it and K1, K3 and K4 must not.
     `profile` adds a profiler breakdown of three chair steps on the blender
     set."""
     import pickle
@@ -2020,7 +2139,7 @@ def phase_blender(torch, np, smi: str, profile: bool, data: str):
         del jt
 
         counts = kernels.launch_counts()
-        for name in ("hash_encode_fwd", "hash_encode_bwd", "segment_accumulate_k5"):
+        for name in CHAIR_KERNELS + PACKED_KERNELS:  # the chair's runs, the flagship's
             require(counts[name] > 0, f"kernel {name} was not launched on the blender path")
         for name in OFF_PATH:
             require(counts[name] == 0, f"kernel {name} was launched on the blender path")
@@ -3859,7 +3978,8 @@ def multi_flagship(torch, np, rank, world, device, workdir, graphed, flags):
         per = {k: (c2[k] - c1[k]) / n_g for k in c1}
         require(all(k == FLAGSHIP_KEEP for k in keeps),
                 f"rank {rank}: graphed flagship blocks at keeps {keeps}")
-        require(per["segment_accumulate_k5"] > 0
+        require(per["packed_encode_fwd"] > 0 and per["packed_encode_bwd"] > 0
+                and per["segment_accumulate_k5"] == 0
                 and all(per[k] == eager_per[k] for k in ("all_reduce", "all_gather",
                                                          "reduce_scatter")),
                 f"rank {rank}: a replayed flagship step launched {per}, an eager one {eager_per}")
@@ -4029,6 +4149,15 @@ def main(argv=None) -> int:
         "plain_ms": fine["plain_ms"], "library_ms": fine["library_ms"],
         "bound_ms": fine["bound_ms"], "bound_by": fine["bound_by"],
     }
+    for name, k in (("packed_encode_fwd", "k7"), ("packed_encode_bwd", "k8")):
+        case = packed_enc["fine"]
+        kern[name] = {
+            "max_abs_err": max(v for key, v in case.items()
+                               if key.startswith(k) and key.endswith("vs_plain_max_abs_err")),
+            "kernel_ms": case[f"{k}_ms"], "plain_ms": case[f"{k}_plain_ms"],
+            "bound_ms": case[f"{k}_bound_ms"], "bound_by": case[f"{k}_bound_by"],
+            "library_ms": None,  # no one PyTorch call computes it
+        }
     lines = []
     for name, info in KERNEL_INFO.items():
         k = kern[name]

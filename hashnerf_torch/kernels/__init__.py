@@ -12,6 +12,7 @@ from typing import Dict
 from hashnerf_torch.kernels.hash_encode import (
     hash_encode_bwd, hash_encode_bwd_expand, hash_encode_fwd,
 )
+from hashnerf_torch.kernels.packed_encode import packed_encode_bwd, packed_encode_fwd
 from hashnerf_torch.kernels.segment_accum import (
     segment_accumulate_k1, segment_accumulate_k4, segment_accumulate_k5,
 )
@@ -23,6 +24,8 @@ KERNELS = {
     "segment_accumulate_k4": segment_accumulate_k4,
     "segment_accumulate_k5": segment_accumulate_k5,
     "hash_encode_bwd": hash_encode_bwd,
+    "packed_encode_fwd": packed_encode_fwd,
+    "packed_encode_bwd": packed_encode_bwd,
 }
 
 

@@ -3,7 +3,7 @@
 Counterpart of hashnerf_tpu/kernels/gather_vjp.py:
 - take_rows: forward `table[idx]` (index_select), backward accumulates the
   row gradients through sorted_segment_accumulate (K5 on the card). Used
-  by the TV losses and by packed_encode.
+  by the TV losses and by packed_encode_ops (packed_encode's CPU route).
 - permute_rows: forward `x[perm]` for a permutation whose inverse the
   caller holds, backward `g[inv_perm]`, with no accumulation. Used by the
   occupancy un-permute (render/occupancy.py). In JAX both directions are

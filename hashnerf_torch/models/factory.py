@@ -6,7 +6,7 @@ table and the MLPs:
   * the per-corner layout: one (L, 2^T, F) nn.Parameter, encoded by
     kernels/hash_encode.py's HashEncode (K2 forward, K6 backward);
   * `packed_layout`: an nn.ParameterDict {"dense", "fine"} encoded by
-    ops/packed_grid.py's packed_encode (take_rows, backward K5).
+    ops/packed_grid.py's packed_encode (K7 forward, K8 backward on the card).
 With `share_fine` there is no fine net: the coarse net answers both passes.
 Points outside the bbox get sigma (channel 3) zeroed, as in the JAX
 query_fn. Positional encoding and the NeRF / NeRFGradient MLPs come in a

@@ -12,12 +12,17 @@ encoder: one table-row fetch per (sample, level) instead of eight.
     payload is the 3x3x3 vertex slab covering the block's 2x2x2 voxels. The
     8 trilinear weights are routed to the slots of the voxel's parity.
 
-All dense levels go through one take_rows and all fine levels through
-another, so each backward is one K5 scatter-add on the card. The blends are
-torch einsums (float32, TF32 off), as the JAX package leaves them to XLA.
-The geometry is computed in exactly the JAX order (grid = extent / res,
-rel = (xc - bmin) / grid, b = clip(floor(rel), 0, res - 1), w = rel - b): a
-different rounding flips `floor` at a cell boundary and picks another row.
+On CUDA tensors `packed_encode` is kernels/packed_encode.py's PackedEncode:
+K7 reads each corner's row straight from the canonical vertex table or the
+slab's live slot and blends it; K8 adds cw * g straight into the two
+gradient tables. On CPU tensors it is `packed_encode_ops`, the JAX
+package's formulation in torch ops: all dense levels go through one
+take_rows of the rebuilt table and all fine levels through another, with
+torch einsum blends (float32, TF32 off), as the JAX package leaves them to
+XLA. The geometry is computed in exactly the JAX order (grid = extent /
+res, rel = (xc - bmin) / grid, b = clip(floor(rel), 0, res - 1), w = rel -
+b): a different rounding flips `floor` at a cell boundary and picks another
+row.
 """
 from __future__ import annotations
 
@@ -29,6 +34,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import torch
 
 from hashnerf_torch.kernels.gather import take_rows
+from hashnerf_torch.kernels.packed_encode import PackedEncode
 from hashnerf_torch.ops.hash_encoding import corner_weights, level_resolutions
 from hashnerf_torch.ops.hashing import BOX_OFFSETS, spatial_hash
 
@@ -192,8 +198,26 @@ def packed_encode(
     """Encode points x (N, 3) through the packed tables {"dense", "fine"}.
 
     Returns (features (N, L*F) in level order, keep mask (N,) marking points
-    inside the bbox before clipping). Differentiable in both tables.
+    inside the bbox before clipping). Differentiable in both tables. CPU
+    tensors take packed_encode_ops; any other tensor takes K7 / K8, whose
+    wrappers raise unless every tensor is on one CUDA device.
     """
+    dense = tables["dense"] if cfg.dense_level_count else None
+    fine = tables["fine"] if cfg.fine_resolutions else None
+    if all(t.device.type == "cpu" for t in (dense, fine, x, bbox_min, bbox_max) if t is not None):
+        return packed_encode_ops(tables, x, bbox_min, bbox_max, cfg)
+    return PackedEncode.apply(dense, fine, x.contiguous(), bbox_min.to(x.dtype).contiguous(),
+                              bbox_max.to(x.dtype).contiguous(), cfg)
+
+
+def packed_encode_ops(
+    tables, x: torch.Tensor, bbox_min: torch.Tensor, bbox_max: torch.Tensor,
+    cfg: PackedGridConfig,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """packed_encode in torch ops, the JAX package's formulation: the
+    rebuilt per-voxel table, take_rows (backward K5 on the card) and einsum
+    blends. packed_encode's route for CPU tensors; on the card it is the
+    route K7 / K8 replaced, which chip_smoke.py times beside them."""
     F = cfg.n_features_per_level
     N = x.shape[0]
     geo = packed_geometry(x, bbox_min, bbox_max, cfg)

@@ -20,6 +20,8 @@ from hashnerf_torch.kernels.segment_accum import (
     K4_MIN_F, segment_accumulate_k4, segment_accumulate_k5_plain, segment_accumulate_sorted,
     segment_accumulate_sorted_plain, sort_segments, sorted_segment_accumulate,
 )
+from hashnerf_torch.kernels import packed_encode as pe
+from hashnerf_torch.kernels.packed_encode import table_shapes
 from hashnerf_torch.ops.hash_encoding import HashGridConfig, encode_with_resolutions
 
 K1_CASES = ["dense", "single_hot_row", "sparse", "large_m_same_sign", "wide_f8"]
@@ -90,6 +92,72 @@ def snap_to_vertices(x, cfg, lo, hi, frac, seed):
     out = x.copy()
     out[pick] = snapped[pick]
     return out
+
+
+# Packed-layout (K7 / K8) configs and point families, shared with
+# tests/test_torch_packed_kernels.py: L4 has one dense level and three
+# block-hashed ones, L8 three and five.
+PACKED_CONFIGS = {
+    "L4_F1": dict(n_levels=4, n_features_per_level=1, log2_hashmap_size=13, finest_resolution=32),
+    "L4_F2": dict(n_levels=4, n_features_per_level=2, log2_hashmap_size=13, finest_resolution=32),
+    "L4_F4": dict(n_levels=4, n_features_per_level=4, log2_hashmap_size=13, finest_resolution=32),
+    "L4_F8": dict(n_levels=4, n_features_per_level=8, log2_hashmap_size=13, finest_resolution=32),
+    "L8_F4": dict(n_levels=8, n_features_per_level=4, log2_hashmap_size=15, finest_resolution=128),
+    "no_dense": dict(n_levels=4, n_features_per_level=2, log2_hashmap_size=12, finest_resolution=32),
+    "no_fine": dict(n_levels=4, n_features_per_level=2, log2_hashmap_size=16, finest_resolution=32),
+}
+LEVEL_KINDS = {"L4_F1": (1, 3), "L4_F2": (1, 3), "L4_F4": (1, 3), "L4_F8": (1, 3), "L8_F4": (3, 5),
+               "no_dense": (0, 4), "no_fine": (4, 0)}
+PACKED_FAMILIES = ["vertices", "faces", "outside", "block_edges"]
+
+
+def packed_config(name, mod=None):
+    """PACKED_CONFIGS[name] as a PackedGridConfig of `mod` (the port's
+    ops/packed_grid.py by default; the JAX package's in the CPU tests)."""
+    from hashnerf_torch.ops import packed_grid
+
+    return (mod or packed_grid).PackedGridConfig(**PACKED_CONFIGS[name], base_resolution=16,
+                                                  log2_blocks=10)
+
+
+def packed_tables(cfg, seed):
+    """Normal tables (not the 1e-4 init, so that the sums are not tiny), only
+    those the config has."""
+    rng = np.random.default_rng(seed)
+    dense, fine = table_shapes(cfg)
+    out = {}
+    if dense:
+        out["dense"] = rng.normal(size=dense).astype(np.float32)
+    if fine:
+        out["fine"] = rng.normal(size=fine).astype(np.float32)
+    return out
+
+
+def packed_points(cfg, family, n, seed, lo=-1.5, hi=1.5):
+    """n points of a family, in float32 (vertices computed as the encoder
+    computes a cell: k * ((hi - lo) / res) + lo) in the bbox [lo, hi]^3."""
+    rng = np.random.default_rng(seed)
+    ext = np.float32(hi - lo)
+    res = np.asarray(cfg.resolutions, np.float32)[rng.integers(0, cfg.n_levels, n)][:, None]
+    grid = ext / res
+    if family == "vertices":  # every vertex of a random level, the top face's too
+        k = np.floor(rng.uniform(0, 1, (n, 3)) * (res + 1)).astype(np.float32)
+        return (k * grid + np.float32(lo)).astype(np.float32)
+    if family == "faces":  # one or more coordinates on a face of the bbox
+        x = rng.uniform(lo, hi, (n, 3)).astype(np.float32)
+        on = rng.random((n, 3)) < 0.5
+        on[np.arange(n), rng.integers(0, 3, n)] = True
+        x[on] = np.where(rng.random(on.sum()) < 0.5, np.float32(lo), np.float32(hi))
+        return x
+    if family == "outside":  # the bbox grown by 20% on each side: most points outside
+        return rng.uniform(lo - 0.2 * ext, hi + 0.2 * ext, (n, 3)).astype(np.float32)
+    if family == "block_edges":  # even vertices (macro-block faces) and one float either side
+        k = 2 * np.floor(rng.uniform(0, 1, (n, 3)) * (res // 2 + 1)).astype(np.float32)
+        x = (k * grid + np.float32(lo)).astype(np.float32)
+        step = rng.integers(-1, 2, (n, 3))
+        return np.where(step < 0, np.nextafter(x, np.float32(-np.inf)),
+                        np.where(step > 0, np.nextafter(x, np.float32(np.inf)), x)).astype(np.float32)
+    raise KeyError(family)
 
 
 @pytest.fixture
@@ -533,6 +601,123 @@ def test_launch_counts_count_graph_replays(cuda_device):
     assert {k: v for k, v in counts.items() if v} == {k: 16 * v for k, v in graph.launches.items()}
 
 
+# --------------------------------------------------------------------------- #
+# K7 / K8: the packed encode
+# --------------------------------------------------------------------------- #
+
+# K7 and its plain version sum the same 8 float32 products in other orders:
+# each within gamma_7 of their absolute sum from the exact sum
+# (chip_smoke.py's BLEND_ORDER_RTOL).
+PACKED_BLEND_RTOL = 2 * 7 * 2.0**-24 / (1 - 7 * 2.0**-24)
+
+
+def packed_on_card(dev, name, family, n=4001, scale=1e4):
+    """(dense, fine, x, bmin, bmax, g, cfg) on the card: the tables x scale
+    (so that a wrong row cannot hide under the gates' absolute terms), n
+    points of the family (not a multiple of 32: a warp tail)."""
+    cfg = packed_config(name)
+    tabs = packed_tables(cfg, 11)
+    to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    x = packed_points(cfg, family, n, 12)
+    g = np.random.default_rng(13).normal(size=(n, cfg.out_dim)).astype(np.float32)
+    dense = to(tabs["dense"] * scale) if "dense" in tabs else None
+    fine = to(tabs["fine"] * scale) if "fine" in tabs else None
+    return dense, fine, to(x), to(np.full(3, -1.5, np.float32)), to(np.full(3, 1.5, np.float32)), to(g), cfg
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", PACKED_FAMILIES)
+@pytest.mark.parametrize("name", list(PACKED_CONFIGS))
+def test_k7_k8_on_card_match_plain(cuda_device, name, family):
+    dense, fine, x, bmin, bmax, g, cfg = packed_on_card(cuda_device, name, family)
+    before = launch_counts()
+    feats, keep = pe.packed_encode_fwd(dense, fine, x, bmin, bmax, cfg)
+    d_dense, d_fine = pe.packed_encode_bwd(x, bmin, bmax, g, cfg)
+    after = launch_counts()
+    assert all(after[k] == before[k] + (k in ("packed_encode_fwd", "packed_encode_bwd")) for k in after)
+    torch.cuda.synchronize()
+    want, want_keep = pe.packed_encode_fwd_plain(dense, fine, x, bmin, bmax, cfg)
+    abs_sum, _ = pe.packed_encode_fwd_plain(None if dense is None else dense.abs(),
+                                            None if fine is None else fine.abs(), x, bmin, bmax, cfg)
+    assert torch.equal(keep, want_keep)
+    assert bool(((feats - want).abs() <= PACKED_BLEND_RTOL * abs_sum).all())
+    # atomics add in an order that changes from run to run: each entry may
+    # differ from the plain version by 2e-5 of its row's absolute sum
+    plain = pe.packed_encode_bwd_plain(x, bmin, bmax, g, cfg)
+    for got, want_d, table in zip((d_dense, d_fine), plain, (dense, fine)):
+        assert (got is None) == (want_d is None) == (table is None)
+        if got is not None:
+            assert got.shape == table.shape and float(want_d.abs().max()) > 0
+            assert row_gate_ok([got], [want_d])
+
+
+@pytest.mark.cuda
+def test_k7_k8_at_flagship_widths_match_plain(cuda_device):
+    """L4 / F8 at log2 T 19, 2^16 block rows, finest 512 (two dense levels,
+    res 16 and 50; two hashed, 161 and 511), 65,536 points along rays."""
+    from hashnerf_torch.ops.packed_grid import PackedGridConfig
+
+    cfg = PackedGridConfig(n_levels=4, n_features_per_level=8, log2_hashmap_size=19,
+                           finest_resolution=512, log2_blocks=16)
+    rng = np.random.default_rng(14)
+    dev = cuda_device
+    o = rng.uniform(-1.6, 1.6, (1024, 1, 3))
+    d = rng.normal(size=(1024, 1, 3))
+    x = (o + np.linspace(0, 1.2, 64)[None, :, None] * d / np.linalg.norm(d, axis=-1, keepdims=True))
+    x = torch.from_numpy(x.reshape(-1, 3).astype(np.float32)).to(dev)
+    dshape, fshape = table_shapes(cfg)
+    dense = torch.from_numpy(rng.normal(size=dshape).astype(np.float32) * 1e4).to(dev)
+    fine = torch.from_numpy(rng.normal(size=fshape).astype(np.float32) * 1e4).to(dev)
+    g = torch.from_numpy(rng.normal(size=(x.shape[0], cfg.out_dim)).astype(np.float32)).to(dev)
+    bmin, bmax = torch.full((3,), -1.5, device=dev), torch.full((3,), 1.5, device=dev)
+    feats, keep = pe.packed_encode_fwd(dense, fine, x, bmin, bmax, cfg)
+    want, want_keep = pe.packed_encode_fwd_plain(dense, fine, x, bmin, bmax, cfg)
+    abs_sum, _ = pe.packed_encode_fwd_plain(dense.abs(), fine.abs(), x, bmin, bmax, cfg)
+    assert torch.equal(keep, want_keep) and bool(keep.any()) and not bool(keep.all())
+    assert bool(((feats - want).abs() <= PACKED_BLEND_RTOL * abs_sum).all())
+    got = pe.packed_encode_bwd(x, bmin, bmax, g, cfg)
+    assert row_gate_ok(list(got), list(pe.packed_encode_bwd_plain(x, bmin, bmax, g, cfg)))
+
+
+@pytest.mark.cuda
+def test_packed_encode_on_card_launches_k7_k8(cuda_device):
+    """ops/packed_grid.py::packed_encode on CUDA tensors is PackedEncode
+    (K7, then K8 in the backward), never the torch-ops route (no K5), and
+    refuses tables and points on two devices."""
+    from hashnerf_torch.ops.packed_grid import packed_encode
+
+    dense, fine, x, bmin, bmax, g, cfg = packed_on_card(cuda_device, "L4_F8", "outside")
+    tables = {"dense": dense.requires_grad_(True), "fine": fine.requires_grad_(True)}
+    before = launch_counts()
+    feats, _ = packed_encode(tables, x, bmin, bmax, cfg)
+    (feats * g).sum().backward()
+    after = launch_counts()
+    assert {k: after[k] - before[k] for k in after if after[k] != before[k]} == {
+        "packed_encode_fwd": 1, "packed_encode_bwd": 1}
+    want = pe.packed_encode_bwd_plain(x, bmin, bmax, g, cfg)
+    assert row_gate_ok([tables["dense"].grad, tables["fine"].grad], list(want))
+    with pytest.raises(ValueError):
+        packed_encode(tables, x.cpu(), bmin, bmax, cfg)
+
+
+@pytest.mark.cuda
+def test_packed_graph_replays_launch_k7_k8(cuda_device):
+    """A packed TV step's graph launches K7 and K8 in each pass and K5 only
+    for the TV loss's gathers; replays count them."""
+    from hashnerf_torch.kernels import reset_launch_counts
+
+    t = graph_trainer(GRAPH_SETTINGS["packed"])
+    t.run_steps(16, block_size=16)  # the capture and 16 replays
+    graph = t._graphs.graphs[("step", True, False, False, None)]
+    assert graph.launches["packed_encode_fwd"] == 2 and graph.launches["packed_encode_bwd"] == 2
+    assert graph.launches["segment_accumulate_k5"] >= 1
+    assert not any(graph.launches.get(k) for k in ("hash_encode_fwd", "hash_encode_bwd"))
+    reset_launch_counts()
+    t.run_steps(16, block_size=16)  # replays only
+    counts = launch_counts()
+    assert {k: v for k, v in counts.items() if v} == {k: 16 * v for k, v in graph.launches.items() if v}
+
+
 @pytest.mark.cuda
 def test_try_restore_drops_the_graphs(cuda_device, tmp_path):
     t = graph_trainer(GRAPH_SMALL)
@@ -779,3 +964,4 @@ def test_level_shard_encode_on_card_matches_plain(cuda_device, levels):
     abs_sum = he.hash_encode_bwd_plain(*args, g.abs(), T)
     assert got.shape == local.shape
     assert bool(((got - plain).abs() <= 2e-5 * abs_sum + 1e-6).all())
+

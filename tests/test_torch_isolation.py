@@ -46,6 +46,8 @@ SLICE12 = ["tools/run_all_checkpoints.py", "tools/make_gif.py", "tools/plot_loss
            "tools/profile_step.py", "bench_quality.py", "tools/quality_summary.py",
            "tools/parity_curve.py", "graft_entry.py", "tools/bench_scaling.py",
            "parallel/mesh.py", "parallel/dryrun.py", "tools/multihost_smoke.py"]
+# the modules K7 and K8 (the packed encode) added or changed
+PACKED_KERNEL_MODULES = ["kernels/packed_encode.py", "kernels/__init__.py", "ops/packed_grid.py"]
 
 
 def test_port_files_exist():
@@ -53,8 +55,12 @@ def test_port_files_exist():
     assert len(files) > 20
     assert os.path.join(ROOT, "hashnerf_torch", "kernels", "segment_accum.py") in files
     assert os.path.join(ROOT, "hashnerf_torch", "ops", "packed_grid.py") in files
-    for rel in SLICE9 + SLICE10 + SLICE12:
+    for rel in SLICE9 + SLICE10 + SLICE12 + PACKED_KERNEL_MODULES:
         assert os.path.join(ROOT, "hashnerf_torch", *rel.split("/")) in files, rel
+    # the CUDA sources the kernel modules build
+    for src in ("segment_accum.cu", "hash_encode.cu", "scatter_add.cu", "packed_encode.cu",
+                "scatter_common.cuh"):
+        assert os.path.isfile(os.path.join(ROOT, "hashnerf_torch", "csrc", src)), src
 
 
 def test_slice9_modules_import_alone():
@@ -119,6 +125,32 @@ def test_slice12_modules_import_alone():
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
     assert r.stdout.startswith("OK")
+
+
+def test_packed_kernel_modules_import_alone():
+    """The modules of K7 and K8, imported in a fresh interpreter on their own,
+    load no jax and none of the JAX package, and build or load no kernel
+    library (a kernel is built at its first launch); csrc/packed_encode.cu
+    names neither."""
+    mods = ["hashnerf_torch." + rel[:-3].replace("/", ".").replace(".__init__", "")
+            for rel in PACKED_KERNEL_MODULES]
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}: importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{sorted(FORBIDDEN | {'triton'})!r})\n"
+        "assert not bad, bad\n"
+        "from hashnerf_torch.kernels import build\n"
+        "assert not build._LIBS, build._LIBS\n"
+        "print('OK')\n"
+    )
+    env = dict(os.environ, OMP_NUM_THREADS="2")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.startswith("OK")
+    src = open(os.path.join(ROOT, "hashnerf_torch", "csrc", "packed_encode.cu")).read()
+    assert not any(f"#include <{m}" in src or f'#include "{m}' in src for m in FORBIDDEN)
 
 
 @pytest.mark.parametrize("path", _port_files(), ids=lambda p: os.path.relpath(p, ROOT))

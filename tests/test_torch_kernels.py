@@ -29,7 +29,9 @@ from hashnerf_torch.kernels.gather import take_rows
 from hashnerf_torch.kernels.segment_accum import (
     segment_accumulate_k5, segment_accumulate_sorted, sorted_segment_accumulate,
 )
+from hashnerf_torch.kernels.packed_encode import PackedEncode
 from hashnerf_torch.ops.hash_encoding import HashGridConfig
+from hashnerf_torch.ops.packed_grid import PackedGridConfig, init_packed_tables
 
 from test_torch_cuda import K1_CASES, SCATTER_FAMILIES, encode_inputs, k1_case as _k1_case, scatter_family
 
@@ -116,9 +118,16 @@ def test_cpu_tensors_take_plain_versions_without_launching():
     f.sum().backward()
     sorted_segment_accumulate(_t(idx), torch.ones((idx.shape[0], 216)), T)  # the fine slabs' width
     take_rows(torch.zeros((T, 8), requires_grad=True), _t(idx).long()).sum().backward()
+    pcfg = PackedGridConfig(n_levels=4, n_features_per_level=8, log2_hashmap_size=13,
+                            finest_resolution=32, log2_blocks=10)
+    tables = {k: v.requires_grad_(True) for k, v in init_packed_tables(pcfg).items()}
+    f, _ = PackedEncode.apply(tables["dense"], tables["fine"], torch.zeros(4, 3),
+                              torch.full((3,), -1.0), torch.ones(3), pcfg)
+    f.sum().backward()
     assert launch_counts() == {"segment_accumulate_k1": 0, "hash_encode_fwd": 0,
                                "hash_encode_bwd_expand": 0, "segment_accumulate_k4": 0,
-                               "segment_accumulate_k5": 0, "hash_encode_bwd": 0}
+                               "segment_accumulate_k5": 0, "hash_encode_bwd": 0,
+                               "packed_encode_fwd": 0, "packed_encode_bwd": 0}
 
 
 def test_library_path_follows_headers(tmp_path, monkeypatch):
