@@ -49,6 +49,16 @@ gates. Each prints JSON lines; only pool-faults is a gate.
         groups (1, 2, 4 levels), and at its two dense levels alone (res 16
         and 50: 4,913 and 132,651 vertices), beside K5 adding the same
         cw * g updates, materialised, into the same vertex rows.
+    python3 chip_diag.py encode-bwd
+        Where K6 and K8 spend their time (encode_bwd): each on level ranges
+        (K6 at the chair fine pass: levels 0-2, 3-6, 7-15; K8 at the packed
+        one: dense level 0, dense level 1, the fine levels) on uniform
+        points, points along rays and the (x, g) recorded in steps 0, 500
+        and 1000 of the chair and packed main paths, over their level
+        groups; the reductions each grouping leaves, counted from the
+        keys; the share of zero cotangent rows and of clipped points; and
+        the reduction bound (csrc/red_probe.cu: 8- and 16-byte reductions
+        into random and consecutive rows of 16.8, 67 and 134 MB tables).
 
 Imports hashnerf_torch and chip_smoke.py (never jax); exits non-zero
 without a CUDA device.
@@ -56,12 +66,15 @@ without a CUDA device.
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import itertools
 import json
 import os
 import shutil
 import statistics
 import sys
 import tempfile
+import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
@@ -490,7 +503,6 @@ def packed_k8(torch, np) -> None:
     from hashnerf_torch.kernels import packed_encode as pe
     from hashnerf_torch.kernels.segment_accum import segment_accumulate_k5
     from hashnerf_torch.ops.packed_grid import PackedGridConfig, init_packed_tables
-    from torch.profiler import ProfilerActivity, profile
 
     dev = cs.DEV
     gen = torch.Generator(device=dev)
@@ -517,13 +529,8 @@ def packed_k8(torch, np) -> None:
                     pe._K8_GROUP_LEVELS = gl
                     k8 = lambda: pe.packed_encode_bwd(x, bmin, bmax, g, pcfg)
                     rec[f"k8_gl{gl}_ms"] = cs.cuda_ms(torch, k8)
-                    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
-                        for _ in range(5):
-                            cs._L2_FLUSH[0].zero_()
-                            k8()
-                        torch.cuda.synchronize()
-                    rec[f"k8_gl{gl}_kernel_device_ms"] = sum(
-                        r[0] for r in cs.kernel_times(p) if "packed_encode_bwd_kernel" in r[1]) / 5e3
+                    rec[f"k8_gl{gl}_kernel_device_ms"] = _kernel_device_ms(
+                        torch, k8, "packed_encode_bwd", reps=5)
             finally:
                 pe._K8_GROUP_LEVELS = default
             if cname.startswith("dense"):
@@ -545,10 +552,264 @@ def packed_k8(torch, np) -> None:
         torch.cuda.empty_cache()
 
 
+@dataclasses.dataclass(frozen=True)
+class PackedLevels:
+    """Levels of a packed config as a config of their own, with their own
+    tables (the dense levels' vertices from row 0, the fine levels' slabs
+    from block row 0): what packed_encode_bwd needs to run K8 on a range of
+    levels alone."""
+    resolutions: tuple
+    dense_level_count: int
+    n_features_per_level: int
+    log2_blocks: int
+
+    @classmethod
+    def of(cls, pcfg, a: int, b: int):
+        return cls(tuple(pcfg.resolutions[a:b]), max(0, min(b, pcfg.dense_level_count) - a),
+                   pcfg.n_features_per_level, pcfg.log2_blocks)
+
+    n_levels = property(lambda self: len(self.resolutions))
+    out_dim = property(lambda self: self.n_levels * self.n_features_per_level)
+    fine_resolutions = property(lambda self: self.resolutions[self.dense_level_count:])
+    n_block_rows = property(lambda self: 1 << self.log2_blocks)
+    dense_offsets = property(lambda self: tuple(itertools.accumulate(
+        ((r + 1) ** 3 for r in self.resolutions[:self.dense_level_count]), initial=0)))
+
+
+def reduction_counts(torch, keys, nonzero, runs_levels=None):
+    """What one level range's corner updates cost in reductions, counted
+    from the keys. keys (Lr, N, 8) int64: the row each (level, point,
+    corner) adds to (one key space a level); nonzero (Lr, N): the (point,
+    level) cotangent rows that are not all zero; runs_levels (Lr,) bool:
+    the levels the kernel groups by runs (default none). The kernels' warps
+    take 32 points of one level in order (point-fastest), one call of the
+    grouping a corner. Returns
+      updates, updates_nonzero: corner updates of every lane, of the
+        nonzero lanes;
+      match: distinct (level, warp, corner, key) over every lane: the
+        reductions __match_any_sync's grouping issues when every lane adds;
+      match_nonzero: the same over the nonzero lanes (zero lanes skipped);
+      runs_nonzero: runs of one key in neighbouring lanes, zero lanes
+        breaking runs: what the run grouping issues;
+      issued: what the kernel issues, zero lanes skipped: runs_nonzero at
+        runs_levels, match_nonzero at the others."""
+    Lr, N, _ = keys.shape
+    Np = -(-N // 32) * 32
+    k = torch.full((Lr, Np, 8), -1, dtype=torch.int64, device=keys.device)
+    k[:, :N] = keys
+    nz = torch.zeros((Lr, Np), dtype=torch.bool, device=keys.device)
+    nz[:, :N] = nonzero
+    knz = torch.where(nz[..., None], k, torch.full_like(k, -1))
+
+    def distinct(kk):  # per level: keys >= 0 told apart in each (warp, corner)
+        s = kk.reshape(Lr, Np // 32, 32, 8).transpose(-1, -2).sort(dim=-1).values
+        return (((s[..., 1:] != s[..., :-1]) & (s[..., 1:] >= 0)).sum(dim=(1, 2, 3))
+                + (s[..., 0] >= 0).sum(dim=(1, 2)))
+
+    w = knz.reshape(Lr, Np // 32, 32, 8)
+    head = w != torch.roll(w, 1, dims=2)
+    head[:, :, 0] = True
+    match, match_nz = distinct(k), distinct(knz)
+    runs_nz = (head & (w >= 0)).sum(dim=(1, 2, 3))
+    runs = torch.zeros(Lr, dtype=torch.bool, device=keys.device) if runs_levels is None else \
+        torch.as_tensor(runs_levels, device=keys.device)
+    return {"updates": Lr * N * 8, "updates_nonzero": int(nonzero.sum()) * 8,
+            "match": int(match.sum()), "match_nonzero": int(match_nz.sum()),
+            "runs_nonzero": int(runs_nz.sum()),
+            "issued": int(torch.where(runs, runs_nz, match_nz).sum())}
+
+
+def _kernel_device_ms(torch, fn, marker: str, reps: int = 10) -> float:
+    """Device ms of one fn() in the kernels whose names hold `marker`, from
+    a profiler trace, each call after chip_smoke's L2 flush (zero fills
+    and other kernels left out)."""
+    import chip_smoke as cs
+    from torch.profiler import ProfilerActivity, profile
+
+    cs.cuda_ms(torch, fn, reps=1)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
+        for _ in range(reps):
+            cs._L2_FLUSH[0].zero_()
+            fn()
+        torch.cuda.synchronize()
+    return sum(r[0] for r in cs.kernel_times(p) if marker in r[1]) / 1e3 / reps
+
+
+# K6's reductions at the chair fine pass (196,608 points x 16 levels x 8
+# corners, 8 bytes) and K8's at the packed one (196,608 x 4 x 8 corners x 2
+# vectors of 16 bytes)
+FULL_PROBE_COUNTS = {8: 196_608 * 16 * 8, 16: 196_608 * 4 * 8 * 2}
+
+
+def red_probe(torch, reps: int = 10):
+    """The reduction bound: csrc/red_probe.cu's reductions of 8 and 16
+    bytes, as many as K6 issues at the chair fine pass (196,608 points x 16
+    levels x 8 corners) and K8 at the packed one (196,608 x 4 x 8 corners
+    x 2 vectors of 16 bytes), into random rows (and consecutive rows) of
+    tables of 67 MB (the chair table), 16.8 MB (one level group of it) and
+    134 MB, and half as many, CUDA events with the L2 flushed."""
+    import ctypes
+
+    import chip_smoke as cs
+    from hashnerf_torch.kernels import build
+
+    fn = build.load("red_probe").red_probe
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    table = torch.zeros(1 << 25, device=cs.DEV)  # 134 MB
+    k6_count, k8_count = FULL_PROBE_COUNTS[8], FULL_PROBE_COUNTS[16]
+    out = []
+    for vw, count in ((2, k6_count), (4, k8_count)):
+        for mb in (16.8, 67, 134):
+            rows = (1 << 25 if mb == 134 else 1 << 24 if mb == 67 else 1 << 22) // vw
+            for scattered in (1, 0):
+                for m in (count, count // 2):
+                    call = lambda: build.check(fn(table.data_ptr(), rows, m, vw, scattered, sms,
+                                                  torch.cuda.current_stream().cuda_stream), "red_probe")
+                    ms = cs.cuda_ms(torch, call, reps=reps)
+                    out.append({"probe": "red", "bytes": 4 * vw, "count": m, "table_mb": mb,
+                                "rows": rows, "scattered": bool(scattered), "ms": ms,
+                                "reds_per_ns": m / ms / 1e6})
+                    print(json.dumps(out[-1]), flush=True)
+    del table
+    return out
+
+
+# The launch orders encode-bwd times, as the wrappers' constants: K6's and
+# K8's level groups (default 4 levels).
+ENCODE_BWD_VARIANTS = {
+    "default": {"K6": {}, "K8": {}},
+    **{f"gl{n}": {"K6": {"_K6_GROUP_LEVELS": n}, "K8": {"_K8_GROUP_LEVELS": n}} for n in (1, 2, 8)},
+}
+
+
+def encode_bwd(torch, np, variants=None) -> None:
+    """Where K6 and K8 spend their time: each timed on level ranges (CUDA
+    events with the L2 flushed, the wrapper's zero fill included, and the
+    kernel's device ms from a trace) at the chair's and the packed path's
+    fine pass, on uniform points (chip_smoke.chair_points), points along
+    rays (ray_points) and the (x, g) that reach them in real steps 0, 500
+    and 1000 of the chair and packed main paths
+    (chip_smoke.recorded_encode_inputs); beside each, the reductions
+    counted from the keys (reduction_counts), the share of exactly-zero
+    cotangent rows and of points clipped onto the bbox; each range held to
+    the plain version by the row gate. `variants` {name: {"K6" / "K8":
+    {wrapper constant: value}}} (default ENCODE_BWD_VARIANTS) times each
+    range with the wrappers' constants set so. Then the reduction bound
+    (red_probe)."""
+    import chip_smoke as cs
+    from hashnerf_torch.kernels import hash_encode as he
+    from hashnerf_torch.kernels import packed_encode as pe
+    from hashnerf_torch.ops.hash_encoding import HashGridConfig, corner_geometry
+    from hashnerf_torch.ops.packed_grid import PackedGridConfig
+
+    # the reduction rate into a slice the L2 holds, 8 and 16 bytes
+    rate = {r["bytes"]: r["reds_per_ns"] for r in red_probe(torch)
+            if r["scattered"] and r["table_mb"] == 16.8 and r["count"] == FULL_PROBE_COUNTS[r["bytes"]]}
+    dev = cs.DEV
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(14)
+    variants = variants or ENCODE_BWD_VARIANTS
+    modules = {"K6": he, "K8": pe}
+    hcfg = HashGridConfig(n_levels=cs.HASH_L, n_features_per_level=cs.HASH_F,
+                          log2_hashmap_size=cs.LOG2_T)
+    pcfg = PackedGridConfig(n_levels=cs.PACKED_L, n_features_per_level=cs.PACKED_F,
+                            log2_hashmap_size=cs.LOG2_T, log2_blocks=cs.PACKED_LOG2_BLOCKS)
+    box = (torch.full((3,), -1.6, device=dev), torch.full((3,), 1.6, device=dev))
+    T = hcfg.table_size
+    sets = {"K6": {}, "K8": {}}
+    for kern, cfg, res_of in (("K6", hcfg, hcfg.resolutions), ("K8", pcfg, pcfg.resolutions)):
+        F = cfg.n_features_per_level
+        for name, xs in (("uniform", cs.chair_points(np, cs.N_POINTS, -1.6, 1.6, res_of, seed=1)),
+                         ("rays", cs.ray_points(np, 1024, 192, seed=2))):
+            x = torch.as_tensor(xs, device=dev)
+            sets[kern][name] = (x, torch.randn((x.shape[0], cfg.n_levels * F), generator=gen,
+                                               device=dev), *box)
+    for kern, path in (("K6", "chair"), ("K8", "packed")):
+        t0 = time.perf_counter()
+        rec = cs.recorded_encode_inputs(torch, path, (0, 500, 1000))
+        for step, passes in rec.items():
+            for pname, r in zip(("coarse", "fine"), passes):
+                sets[kern][f"recorded_{pname}_{step}"] = (r["x"], r["g"], r["saved"][0], r["saved"][1])
+        print(json.dumps({"recorded": path, "steps": sorted(rec), "seconds": time.perf_counter() - t0}),
+              flush=True)
+        del rec
+    ranges = {"K6": ((0, 3), (3, 7), (7, 16), (0, 16)), "K8": ((0, 1), (1, 2), (2, 4), (0, 4))}
+    for kern in ("K6", "K8"):
+        cfg = hcfg if kern == "K6" else pcfg
+        F, L = cfg.n_features_per_level, cfg.n_levels
+        for sname, (x, g, bmin, bmax) in sets[kern].items():
+            N = x.shape[0]
+            nz = (g.reshape(N, L, F) != 0).any(dim=-1).T  # (L, N)
+            clipped = float(1 - ((x >= bmin) & (x <= bmax)).all(dim=-1).float().mean())
+            if kern == "K6":
+                res = hcfg.resolutions_tensor(dev)
+                keys = corner_geometry(x, bmin, bmax, res, cs.LOG2_T)[0]
+            else:
+                _, levels = pe.corner_rows(x, bmin, bmax, pcfg)
+                keys = torch.stack([r for _, r, _ in levels])
+            for a, b in ranges[kern]:
+                gs = g[:, a * F:b * F].contiguous()
+                if kern == "K6":
+                    r = res[a:b].contiguous()
+                    call = lambda: he.hash_encode_bwd(x, bmin, bmax, r, gs, T)
+                    marker = "hash_encode_bwd"
+                else:
+                    sub = PackedLevels.of(pcfg, a, b)
+                    call = lambda: pe.packed_encode_bwd(x, bmin, bmax, gs, sub)
+                    marker = "packed_encode_bwd"
+                res_ab = cfg.resolutions[a:b]
+                # K6 groups a hashed level (more vertices than table rows) by runs
+                runs = [kern == "K6" and (r_ + 1) ** 3 > T for r_ in res_ab]
+                counts = reduction_counts(torch, keys[a:b], nz[a:b], runs)
+                # a reduction adds 4 floats at most: F = 8 takes two a corner
+                width = 4 * min(F, 4)
+                reds = counts["issued"] * F * 4 // width
+                # x and g read once, the gradient tables written once
+                tables = [((b - a) * T, F)] if kern == "K6" else \
+                    [s_ for s_ in pe.table_shapes(PackedLevels.of(pcfg, a, b)) if s_]
+                n_bytes = N * 12 + N * (b - a) * F * 4 + sum(r_ * c_ * 4 for r_, c_ in tables)
+                line = {"kernel": kern, "points": sname, "N": N, "levels": [a, b],
+                        "resolutions": list(res_ab),
+                        "zero_row_share": float(1 - nz[a:b].float().mean()),
+                        "clipped_share": clipped, "counts": counts, "reductions": reds,
+                        "reduction_bound_ms": reds / rate[width] / 1e6,
+                        "byte_bound_ms": n_bytes / cs.PEAK_BYTES_PER_S * 1e3}
+                if kern == "K6":
+                    want = [he.hash_encode_bwd_plain(x, bmin, bmax, r, gs, T)]
+                    abs_sum = [he.hash_encode_bwd_plain(x, bmin, bmax, r, gs.abs(), T)]
+                else:
+                    want = pe.packed_encode_bwd_plain(x, bmin, bmax, gs, sub)
+                    abs_sum = pe.packed_encode_bwd_plain(x, bmin, bmax, gs.abs(), sub)
+                mod = modules[kern]
+                for vname, by_kernel in variants.items():
+                    consts = by_kernel[kern]
+                    old = {k: getattr(mod, k) for k in consts}
+                    try:
+                        for k, v in consts.items():
+                            setattr(mod, k, v)
+                        got = call()
+                        got = got if isinstance(got, tuple) else [got]
+                        line[f"{vname}_ok"] = all(
+                            (gt is None and w is None) or cs.row_abs_ok(gt, w, s)
+                            for gt, w, s in zip(got, want, abs_sum))
+                        line[f"{vname}_ms"] = cs.cuda_ms(torch, call)
+                        line[f"{vname}_kernel_device_ms"] = _kernel_device_ms(torch, call, marker)
+                    finally:
+                        for k, v in old.items():
+                            setattr(mod, k, v)
+                print(json.dumps(line), flush=True)
+                del want, abs_sum
+            del keys
+        torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("what", choices=("gate-spread", "pool-faults", "st3d-step", "spread-why",
-                                     "one-step", "blender-step", "packed-k8"))
+                                     "one-step", "blender-step", "packed-k8", "encode-bwd"))
     ap.add_argument("--path", default=None,
                     choices=("chair", "packed", "flagship", "llff", "st3d"),
                     help="gate-spread's path (default flagship); pool-faults' (llff or st3d, "
@@ -583,6 +844,8 @@ def main(argv=None) -> int:
         one_step(torch)
     elif opts.what == "packed-k8":
         packed_k8(torch, np)
+    elif opts.what == "encode-bwd":
+        encode_bwd(torch, np)
     else:
         blender_step(torch)
     return 0

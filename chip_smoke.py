@@ -19,12 +19,17 @@ Imports hashnerf_torch (never jax or hashnerf_tpu) and, on one CUDA card:
       plain encode and beside the K3 + K5 route it replaced; K2 and K6 on
       uniform points and on points ordered along rays, and over their
       level groups, each checked against its plain version (K2 there by
-      the bound on the blend's summation order, BLEND_ORDER_RTOL);
+      the bound on the blend's summation order, BLEND_ORDER_RTOL); K6 also
+      on the (x, g) the chair path's step RECORDED_STEP hands it, zero
+      cotangent rows and all (recorded_encode_inputs);
     - K5, the sort-free scatter-add, on the same five cases and three at
       F = 216, each with its ids shuffled and sorted, on ids outside the
       table and on one hot row at each width; then at the chair shape and
       at every packed shape below, beside the sort + K1/K4 route it
-      replaces and `index_add_`, and over its wide-row chunk sizes;
+      replaces and `index_add_`, and over its wide-row chunk sizes; and at
+      the TV losses' own row ids (tv_rows: the chair's hash-grid cubes, the
+      packed dense cubes and slabs), timed in turns with `index_add_`
+      (phase_tv_k5);
     - K4 on the wide case of tests/test_kernels.py, at F = 16 ... 216 into
       131,072 rows, on one hot row and on a large same-sign sum against a
       float64 oracle; then at the packed path's shapes (fine and coarse
@@ -46,7 +51,9 @@ Imports hashnerf_torch (never jax or hashnerf_tpu) and, on one CUDA card:
       torch-ops route they replaced (packed_encode_ops), at the packed
       passes (196,608 uniform and ray-ordered points, 65,536), the
       flagship's culled passes (24,576 at keep 0.125, 98,304 at 0.5) and
-      tpu-quality's L8 / F4 widths (196,608 and 98,304), the tables x 1e4;
+      tpu-quality's L8 / F4 widths (196,608 and 98,304), and on the (x, g)
+      the packed path's fine pass hands K8 at step RECORDED_STEP, the
+      tables x 1e4;
       timed with CUDA events and from a profiler trace beside their bounds
       (packed_case);
  3. main paths, each at the width of configs/chair.txt on the procedural
@@ -182,6 +189,7 @@ steps with TV on the blender set.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import os
@@ -657,6 +665,81 @@ def phase_k5_cases(torch, np):
     return hot
 
 
+TV_ROUNDS = 3  # K5 and index_add_ timed in turns, for the spread
+RECORDED_STEP = 40  # the main-path step whose encode backward K6 and K8 are also held on
+
+
+def tv_rows(torch, device: str = DEV):
+    """The row ids the TV losses hand take_rows (whose backward is K5) at
+    the main paths' widths, with the shape of the table each indexes, as
+    train/losses.py draws them: {"chair_tv": the 16 levels' cubes on the
+    flat (16 x 2^19, 2) table, "packed_tv_dense_<l>": each dense level's
+    cube of vertices (F = 8), "packed_tv_slabs": the fine levels' block
+    rows (27 x 8 floats)}."""
+    from hashnerf_torch.ops.hash_encoding import HashGridConfig
+    from hashnerf_torch.ops.packed_grid import init_packed_tables
+    from hashnerf_torch.train import losses
+
+    got = []
+    take = losses.take_rows
+
+    def recording(table, idx):
+        got.append((tuple(table.shape), idx.detach().reshape(-1).clone()))
+        return take(table, idx)
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(11)
+    hcfg, pcfg = HashGridConfig(log2_hashmap_size=LOG2_T), packed_config()
+    try:
+        losses.take_rows = recording
+        losses.total_variation_loss_all_levels(
+            torch.zeros((HASH_L, 1 << LOG2_T, HASH_F), device=device), hcfg.base_resolution,
+            hcfg.finest_resolution, LOG2_T, generator=gen)
+        losses.total_variation_loss_packed(init_packed_tables(pcfg, gen, device), pcfg,
+                                           generator=gen)
+    finally:
+        losses.take_rows = take
+    names = (["chair_tv"] + [f"packed_tv_dense_{l}" for l in range(pcfg.dense_level_count)]
+             + ["packed_tv_slabs"])
+    require(len(got) == len(names), f"the TV losses made {len(got)} take_rows calls")
+    return dict(zip(names, got))
+
+
+def phase_tv_k5(torch, np):
+    """K5 at the TV losses' own shapes (tv_rows): held to its plain version
+    by the row gate, then timed with CUDA events (L2 flushed) in turns with
+    index_add_ (TV_ROUNDS rounds each, the spread), beside its plain
+    version and its bound."""
+    from hashnerf_torch.kernels import segment_accum as sa
+
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(12)
+    out = {}
+    for name, ((T, F), idx) in tv_rows(torch, DEV).items():
+        M = idx.numel()
+        vals = torch.randn((M, F), generator=gen, device=DEV)
+        got = sa.segment_accumulate_k5(idx, vals, T)
+        want = sa.segment_accumulate_k5_plain(idx, vals, T)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        require(row_abs_ok(got, want, sa.segment_accumulate_k5_plain(idx, vals.abs(), T)),
+                f"K5 {name}: max_abs_err {err}")
+        k5 = lambda: sa.segment_accumulate_k5(idx, vals, T)
+        lib = lambda: torch.zeros((T, F), device=DEV).index_add_(0, idx, vals)
+        k5_ms, lib_ms = [], []
+        for r in range(TV_ROUNDS):  # K5, lib, lib, K5, ...
+            for fn, ts in ((k5, k5_ms), (lib, lib_ms))[:: 1 if r % 2 == 0 else -1]:
+                ts.append(cuda_ms(torch, fn))
+        b = bound(seg_bytes(M, F, T), M * F)
+        out[name] = {"M": M, "F": F, "num_rows": T, "unique_rows": int(torch.unique(idx).numel()),
+                     "max_abs_err": err, "k5_ms": k5_ms, "library_ms": lib_ms,
+                     "plain_ms": cuda_ms(torch, lambda: sa.segment_accumulate_k5_plain(idx, vals, T)),
+                     "bound_ms": b[0], "bound_by": b[1],
+                     "k5_slower_beyond_spread": min(k5_ms) > max(lib_ms)}
+        emit({"phase": "tv_k5", "shape": name, **out[name]})
+    return out
+
+
 def chair_points(np, n: int, bmin: float, bmax: float, resolutions, seed: int = 0):
     """n points uniform in the bbox grown by 10% (about a quarter fall
     outside, as sample points off the object do), with 1% snapped onto grid
@@ -687,6 +770,80 @@ def ray_points(np, n_rays: int, n_samples: int, seed: int):
     o = -4.0 * d + rng.uniform(-0.5, 0.5, (n_rays, 3))
     t = np.sort(rng.uniform(2.0, 6.0, (n_rays, n_samples)), axis=1)
     return (o[:, None, :] + t[..., None] * d[:, None, :]).reshape(-1, 3).astype(np.float32)
+
+
+@contextlib.contextmanager
+def encode_bwd_recorder():
+    """Inside the block, each HashEncode and PackedEncode backward (K6, K8)
+    appends a copy of what it receives to the list it yields: {"kernel",
+    "x", "g" (the features' cotangent), "saved" (the other saved tensors),
+    "ctx_attrs" (table_shape or cfg)}. The kernels run as before."""
+    from hashnerf_torch.kernels import hash_encode as he
+    from hashnerf_torch.kernels import packed_encode as pe
+
+    got = []
+    classes = {he.HashEncode: "hash_encode_bwd", pe.PackedEncode: "packed_encode_bwd"}
+    saved = {cls: vars(cls)["backward"] for cls in classes}
+
+    def recording(cls, name):
+        inner = saved[cls].__func__
+
+        def backward(ctx, g_feats, g_keep):
+            x, *rest = ctx.saved_tensors
+            got.append({"kernel": name, "x": x.detach().clone(),
+                        "g": g_feats.detach().contiguous().clone(),
+                        "saved": [t.detach().clone() for t in rest],
+                        "ctx_attrs": getattr(ctx, "table_shape", None) or getattr(ctx, "cfg", None)})
+            return inner(ctx, g_feats, g_keep)
+
+        return staticmethod(backward)
+
+    try:
+        for cls, name in classes.items():
+            cls.backward = recording(cls, name)
+        yield got
+    finally:
+        for cls, fn in saved.items():
+            cls.backward = fn
+
+
+def path_trainer(torch, path: str, device: str = DEV):
+    """A fresh Trainer of main path `path` (configs/chair.txt plus its flags)
+    on the procedural scene of phase_main_path."""
+    from hashnerf_torch.data.synthetic import make_synthetic_scene
+    from hashnerf_torch.train.config import parse_args
+    from hashnerf_torch.train.driver import Trainer
+
+    args = parse_args(["--config", os.path.join(ROOT, "configs", "chair.txt"),
+                       "--dataset_type", "synthetic", "--no_reload", "--device", device,
+                       *PATHS[path]["flags"]])
+    return Trainer(args, make_synthetic_scene(H=128, W=128, n_train=8, n_test=2), device=device)
+
+
+def recorded_encode_inputs(torch, path: str, iters, device: str = DEV):
+    """The encode backward's inputs as a main path's steps give them: a fresh
+    trainer of `path` (path_trainer) steps on from 0 to max(iters), and the
+    backward of each step whose global_step is in iters is recorded
+    (encode_bwd_recorder). Returns {step: [record of each pass, coarse
+    first]}."""
+    trainer = path_trainer(torch, path, device)
+    args, sc = trainer.args, trainer.scene
+
+    def one_step():  # timed_steps' batch, without its clock
+        img_i = int(sc.i_train[trainer.global_step % len(sc.i_train)])
+        trainer.step(trainer.sample_image(img_i, args.N_rand,
+                                          precrop=trainer.global_step + 1 < args.precrop_iters))
+
+    out = {}
+    while trainer.global_step <= max(iters):
+        step = trainer.global_step
+        if step in iters:
+            with encode_bwd_recorder() as got:
+                one_step()
+            out[step] = sorted(got, key=lambda r: r["x"].shape[0])
+        else:
+            one_step()
+    return out
 
 
 def phase_hash_kernels(torch, np):
@@ -858,6 +1015,33 @@ def phase_hash_kernels(torch, np):
         emit({"phase": "encode_shape", "points": name, **shapes[name]})
         if name not in ("fine", "fine_rays"):
             del refs[name]
+
+    # K6 on the (x, g) the chair path's backward hands it at step
+    # RECORDED_STEP (its zero rows and its bbox), each pass
+    rec = recorded_encode_inputs(torch, "chair", (RECORDED_STEP,))[RECORDED_STEP]
+    for pname, r in zip(("coarse", "fine"), rec):
+        xs, gs, (rmin, rmax, rres) = r["x"], r["g"], r["saved"]
+        require(r["kernel"] == "hash_encode_bwd" and r["ctx_attrs"] == (L, T, F),
+                f"recorded {r['kernel']} at {r['ctx_attrs']}, not the chair path's K6")
+        n = xs.shape[0]
+        want = hash_encode_bwd_plain(xs, rmin, rmax, rres, gs, T)
+        got = hash_encode_bwd(xs, rmin, rmax, rres, gs, T)
+        torch.cuda.synchronize()
+        k6_err = float((got - want).abs().max())
+        require(row_abs_ok(got, want, hash_encode_bwd_plain(xs, rmin, rmax, rres, gs.abs(), T)),
+                f"K6 vs its plain version ({pname}_recorded): max_abs_err {k6_err}")
+        b6 = bound(n * 12 + n * L * F * 4 + L * T * F * 4 + 24 + L * 4, n * L * K6_OPS)
+        shapes[f"{pname}_recorded"] = {
+            "N": n, "step": RECORDED_STEP, "k6_max_abs_err": k6_err,
+            "zero_row_share": float((gs.reshape(n, L, F) == 0).all(dim=-1).float().mean()),
+            "clipped_share": float(1 - ((xs >= rmin) & (xs <= rmax)).all(dim=-1).float().mean()),
+            "k6_ms": cuda_ms(torch, lambda: hash_encode_bwd(xs, rmin, rmax, rres, gs, T)),
+            "k6_plain_ms": cuda_ms(torch, lambda: hash_encode_bwd_plain(xs, rmin, rmax, rres, gs, T),
+                                   reps=3),
+            "k6_bound_ms": b6[0], "k6_bound_by": b6[1],
+        }
+        emit({"phase": "encode_shape", "points": f"{pname}_recorded", **shapes[f"{pname}_recorded"]})
+    del rec, got, want
 
     # levels in a group, at the fine shape: each group size checked (K2's
     # features do not depend on it, bit for bit), then timed
@@ -1320,9 +1504,10 @@ PACKED_GEOM_OPS = 30 + 19 + 40
 PACKED_WIDTHS = {"flagship": (PACKED_L, PACKED_F), "quality": (8, 4)}
 
 
-def packed_case(torch, name: str, pcfg, x, gen, reps: int = 10):
-    """K7 and K8 at one shape (points x on the card, pcfg's widths, tables
-    from U(-1e-4, 1e-4) x 1e4 so that a wrong row cannot hide under the
+def packed_case(torch, name: str, pcfg, x, gen, reps: int = 10, g=None, bbox=None):
+    """K7 and K8 at one shape (points x on the card, the cotangent g
+    (default normal) in the bbox (default [-1.6, 1.6]^3), pcfg's widths,
+    tables from U(-1e-4, 1e-4) x 1e4 so that a wrong row cannot hide under the
     gates' absolute terms), each held to its plain version and to the
     torch-ops route it replaced (packed_encode_ops: rebuilt table,
     take_rows, einsums; its backward through autograd and K5): K7's keep
@@ -1339,10 +1524,10 @@ def packed_case(torch, name: str, pcfg, x, gen, reps: int = 10):
 
     tables = {k: v * 1e4 for k, v in init_packed_tables(pcfg, gen, DEV).items()}
     dense, fine = tables.get("dense"), tables.get("fine")
-    bmin = torch.full((3,), -1.6, device=DEV)
-    bmax = torch.full((3,), 1.6, device=DEV)
+    bmin, bmax = bbox or (torch.full((3,), -1.6, device=DEV), torch.full((3,), 1.6, device=DEV))
     N, F, L = x.shape[0], pcfg.n_features_per_level, pcfg.n_levels
-    g = torch.randn((N, pcfg.out_dim), generator=gen, device=DEV)
+    if g is None:
+        g = torch.randn((N, pcfg.out_dim), generator=gen, device=DEV)
     args = (x, bmin, bmax)
 
     feats, keep = pe.packed_encode_fwd(dense, fine, *args, pcfg)
@@ -1359,7 +1544,8 @@ def packed_case(torch, name: str, pcfg, x, gen, reps: int = 10):
     abs_d = dict(zip(("dense", "fine"), pe.packed_encode_bwd_plain(*args, g.abs(), pcfg)))
     got_d = dict(zip(("dense", "fine"), d_k8))
     rec = {"N": N, "levels": [pcfg.dense_level_count, len(pcfg.fine_resolutions)], "F": F,
-           "resolutions": list(pcfg.resolutions), "inside": int(keep.sum())}
+           "resolutions": list(pcfg.resolutions), "inside": int(keep.sum()),
+           "zero_row_share": float((g.reshape(N, L, F) == 0).all(dim=-1).float().mean())}
     for route, (want_f, want_keep) in (("plain", (plain_f, plain_keep)),
                                       ("ops", (route_f, route_keep))):
         require(bool(torch.equal(keep, want_keep)), f"K7 keep mask vs {route} ({name})")
@@ -1447,6 +1633,13 @@ def phase_packed_encode(torch, np, kept_pts):
         for name, x in sets.items():
             key = name if widths == "flagship" else f"quality_{name}"
             out[key] = packed_case(torch, key, pcfg, x, gen)
+    # the (x, g) the packed path's fine pass hands K8 at step RECORDED_STEP
+    r = recorded_encode_inputs(torch, "packed", (RECORDED_STEP,))[RECORDED_STEP][-1]
+    require(r["kernel"] == "packed_encode_bwd" and r["ctx_attrs"] == packed_config()
+            and r["x"].shape[0] == N_POINTS,
+            f"recorded {r['kernel']} at {r['ctx_attrs']}, not the packed path's fine K8")
+    out["fine_recorded"] = packed_case(torch, "fine_recorded", r["ctx_attrs"], r["x"], gen,
+                                       g=r["g"], bbox=tuple(r["saved"]))
     return out
 
 
@@ -4114,6 +4307,7 @@ def main(argv=None) -> int:
     kern = phase_hash_kernels(torch, np)
     k4_hot = phase_k4_cases(torch, np)
     k5_hot = phase_k5_cases(torch, np)
+    tv_k5 = phase_tv_k5(torch, np)
     geo = phase_packed_rows(torch, np)
     packed = phase_packed_kernels(torch, np, geo)
     del geo
@@ -4180,6 +4374,7 @@ def main(argv=None) -> int:
         os.makedirs(os.path.dirname(os.path.abspath(opts.out)), exist_ok=True)
         with open(opts.out, "w") as f:
             json.dump({"device": dev, "kernels": kern, "k4_hot_row": k4_hot, "k5_hot_rows": k5_hot,
+                       "tv_k5": tv_k5,
                        "packed_kernels": packed, "occupancy": occupancy, "culled_k5": culled_k5,
                        "packed_encode": packed_enc, "main_paths": paths, "blender": blender,
                        "llff": llff, "st3d": st3d, "loaders": loaders, "tools": tools,

@@ -17,11 +17,12 @@
 //   table[l] and blends them with the trilinear weights into
 //   feats[n, l*F:(l+1)*F]. keep[n] (inside the bbox before clipping) is
 //   written once per point, by its level-0 thread.
-// K6: one thread per (level, point). It recomputes the same geometry (only x
-//   and the bbox are saved by the forward), reads g[n, l*F:(l+1)*F] once and,
-//   for each corner c, adds cw_c * g to d_table[l*T + idx_c] with
-//   scatter_common.cuh::warp_group_add: the lanes of a warp that hit one row
-//   are summed by shuffles, and the sum goes to the L2 as one vector
+// K6: one thread per (level, point). It reads g[n, l*F:(l+1)*F] once; a
+//   lane whose row is all +-0 adds nothing, and a warp of such lanes
+//   returns. The others recompute the geometry (only x and the bbox are
+//   saved by the forward) and, for each corner c, add cw_c * g to
+//   d_table[l*T + idx_c]: the lanes of a warp that hit one row are summed by
+//   shuffles (scatter_common.cuh), and the sum goes to the L2 as one vector
 //   reduction. No (id, value) pair reaches device memory.
 // K3: one thread per (level, point); writes, for each corner c,
 //   flat_idx[(l*N + n)*8 + c] = idx + l*T and vals[..., f] = cw * g[n, l*F+f]:
@@ -32,8 +33,10 @@
 //   random 8-byte gather, one 32-byte sector request to the L2; a table of
 //   67 MB does not fit the 50 MB L2, a group's slice does. K6: its bytes
 //   (x, g and the table written once: 94.6 MB, 0.028 ms at the fine pass),
-//   and in practice the L2's throughput for reductions: 25.2M of them at
-//   the fine pass on uniform points, fewer where a warp's lanes share rows.
+//   and in practice the L2's throughput for reductions, about 80 a ns into
+//   a slice the L2 holds (csrc/red_probe.cu): 25.2M of them at the fine
+//   pass on uniform points, fewer where a warp's lanes share rows or a
+//   sample's cotangent is zero (outside the bbox, or sigma <= 0).
 //   K3: the 302 MB of pairs it writes. Integer hashing and the blend are a
 //   few hundred operations a point-level, far below the card's rate. The
 //   times, on an NVIDIA H100 80GB HBM3 at 700 W, are in PERF.md.
@@ -54,6 +57,18 @@
 //  * Vector accesses for F = 2, 4, 8: a table row is one 8- or 16-byte load
 //    (two at F = 8), g one vector a (point, level), a feature row one store.
 //    Other F take a scalar path.
+//  * K6's grouping, by level: where a level's (res+1)^3 vertices fit the
+//    table, __match_any_sync finds every lane of the warp that shares a
+//    row (along a ray, and at the bbox's faces); at a hashed level nearly
+//    every lane's row is its own, and the cheaper run grouping (one
+//    shuffle and one ballot) sums only neighbouring lanes. Skipping zero
+//    rows is exact: the table starts at +0 and adding +-0 to a float32 sum
+//    that started at +0 leaves it as it was.
+//  * No shared-memory accumulation: summing the coarse levels' vertex
+//    boxes in shared memory before one reduction a vertex was measured
+//    slower (PERF.md): a float add into shared memory is a compare-and-swap
+//    loop on this card, which hot rows serialise, where the L2 adds 8 or
+//    16 bytes an instruction.
 //
 // Exactness: the geometry follows the JAX order
 //   grid = (bmax-bmin)/res; rel = (xc-bmin)/grid; bl = floor(rel);
@@ -240,39 +255,55 @@ hash_encode_bwd_kernel(const float* __restrict__ x, const float* __restrict__ bm
                        int64_t Np, int64_t total, int L, int log2T, int Fr, int GL) {
   const int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   // total is a multiple of 32 and blocks start at multiples of 32, so this
-  // leaves whole warps; a padding lane below stays, with key -1, for the
-  // full-mask votes of warp_group_add
+  // and the return below leave whole warps; a padding lane, or one whose
+  // cotangent row is zero, stays with key -1 for the full-mask votes of
+  // the grouping
   if (t >= total) return;
   const Slot s = point_fastest_slot(t, Np, GL);
-  const bool active = s.n < N && s.l < L;
+  bool active = s.n < N && s.l < L;
   const int64_t n = active ? s.n : 0;
   const int l = active ? s.l : 0;
   const int F = FT > 0 ? FT : Fr;
+  const float* gn = g + n * L * F + static_cast<int64_t>(l) * F;
+  float gv[FT > 0 ? FT : 1];
+  if constexpr (FT > 0) {
+    load_row<FT>(gn, gv);
+    active = active && scatter::any_nonzero<FT>(gv);
+  } else {
+    bool nz = false;
+    for (int f = 0; f < F; ++f) nz = nz || gn[f] != 0.f;
+    active = active && nz;
+  }
+  if (!__any_sync(scatter::kFullMask, active)) return;  // a warp of zero rows
 
   const Voxel v = voxel_geometry(x + n * 3, bmin, bmax, res[l]);
   const uint32_t mask = (1u << log2T) - 1u;
   const int level_base = l << log2T;
-  const float* gn = g + n * L * F + static_cast<int64_t>(l) * F;
-  if constexpr (FT > 0) {
-    float gv[FT];
-    load_row<FT>(gn, gv);
+  // a hashed level: its (res+1)^3 vertices outnumber the table's rows.
+  // s.l is warp-uniform, so the warp takes one grouping as a whole.
+  const int64_t side = static_cast<int64_t>(res[s.l < L ? s.l : 0]) + 1;
+  const bool hashed = side * side * side > (int64_t{1} << log2T);
 #pragma unroll
-    for (int c = 0; c < 8; ++c) {
-      const int key = active ? static_cast<int>(corner_index(v, c, mask)) + level_base : -1;
-      const float w = corner_weight(v, c);
+  for (int c = 0; c < 8; ++c) {
+    const int key = active ? static_cast<int>(corner_index(v, c, mask)) + level_base : -1;
+    const float w = corner_weight(v, c);
+    if constexpr (FT > 0) {
       float val[FT];
 #pragma unroll
       for (int f = 0; f < FT; ++f) val[f] = __fmul_rn(w, gv[f]);
-      scatter::warp_group_add<FT>(key, val, d_table, FT);
-    }
-  } else {
-#pragma unroll
-    for (int c = 0; c < 8; ++c) {
-      const int key = active ? static_cast<int>(corner_index(v, c, mask)) + level_base : -1;
-      const float w = corner_weight(v, c);
+      if (hashed) {
+        scatter::warp_run_add<FT>(key, val, d_table, FT);
+      } else {
+        scatter::warp_group_add<FT>(key, val, d_table, FT);
+      }
+    } else {
       for (int f = 0; f < F; ++f) {  // F is uniform, so the warp stays together
         float val[1] = {__fmul_rn(w, gn[f])};
-        scatter::warp_group_add<1>(key, val, d_table + f, F);
+        if (hashed) {
+          scatter::warp_run_add<1>(key, val, d_table + f, F);
+        } else {
+          scatter::warp_group_add<1>(key, val, d_table + f, F);
+        }
       }
     }
   }

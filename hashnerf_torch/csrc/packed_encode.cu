@@ -32,11 +32,12 @@
 //   level-0 thread. No packed table is built and no slab is gathered whole.
 // K8: one thread per (point, level), 32 points of one level a warp
 //   (point-fastest, in groups of GL levels as K6 orders them), which along a
-//   ray share corners at the coarse levels. It recomputes the geometry,
-//   reads g once, and adds cw_c * g to each corner's row with
-//   scatter_common.cuh::warp_group_add: the lanes of a warp that hit one row
-//   are summed by shuffles and the sum goes to the L2 as one vector
-//   reduction. No (N, 27F) cotangent, no packed gradient table and no
+//   ray share corners at the coarse levels. It reads g once (a lane whose
+//   row is all +-0 adds nothing, as in K6, and a warp of such lanes
+//   returns), recomputes the geometry, and adds cw_c * g to each corner's
+//   row with scatter_common.cuh::warp_group_add: the lanes of a warp that
+//   hit one row are summed by shuffles and the sum goes to the L2 as one
+//   vector reduction. No (N, 27F) cotangent, no packed gradient table and no
 //   shifted add reaches device memory. The wrapper zeroes d_dense and
 //   d_fine on the stream (no host synchronisation, so a CUDA graph holds it).
 //
@@ -48,7 +49,11 @@
 // hundred float operations a (point, level), far below the card's rate.
 // In practice K8 is held by the L2's reductions: N * L * 8 corners of F
 // floats (12.6M 16-byte reductions at the fine pass before grouping), many
-// onto the coarsest level's 4,913 vertices. The times are in PERF.md.
+// onto the coarsest level's 4,913 vertices, and the fine levels' into 113
+// MB of slabs that the 50 MB L2 does not hold (about 17-23 reductions a ns
+// into such a table against 80 into one it holds: csrc/red_probe.cu). The
+// run grouping of K6's hashed levels and a shared-memory box for the dense
+// level 0 were measured and not kept. The times are in PERF.md.
 //
 // Exactness: the geometry is the plain version's, in its order,
 //   grid = (hi - lo) / res; rel = (xc - lo) / grid;
@@ -248,27 +253,30 @@ packed_encode_bwd_kernel(const float* __restrict__ x, const float* __restrict__ 
   const int L = lv.n_dense + lv.n_fine;
   const int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   // total is a multiple of 32 and blocks start at multiples of 32, so this
-  // leaves whole warps; a padding lane below stays, with key -1, for the
-  // full-mask votes of warp_group_add
+  // and the return below leave whole warps; a padding lane, or one whose
+  // cotangent row is zero, stays with key -1 for the full-mask votes of
+  // warp_group_add
   if (t >= total) return;
   const Slot s = point_fastest_slot(t, Np, GL);
   // s.l is the same for the 32 lanes of a warp, so the warp takes one
   // branch below (dense or fine) as a whole
   const bool level_ok = s.l < L;
-  const bool active = level_ok && s.n < N;
+  bool active = level_ok && s.n < N;
   const int l = level_ok ? s.l : 0;
   const int64_t n = active ? s.n : 0;
+
+  float gv[F];
+  const float* gn = g + n * L * F + static_cast<int64_t>(l) * F;
+#pragma unroll
+  for (int f = 0; f < F; f += VW) scatter::load_vec<VW>(gn + f, gv + f);
+  active = active && scatter::any_nonzero<F>(gv);
+  if (!__any_sync(scatter::kFullMask, active)) return;  // a warp of zero rows
 
   float lo[3], hi[3], xc[3];
   clip_point(x + n * 3, bmin, bmax, lo, hi, xc);
   const Cell cell = cell_geometry(xc, lo, hi, lv.res[l]);
   const CornerRows rows = corner_rows(lv, l, cell);
   float* tab = l < lv.n_dense ? d_dense : d_fine;
-
-  float gv[F];
-  const float* gn = g + n * L * F + static_cast<int64_t>(l) * F;
-#pragma unroll
-  for (int f = 0; f < F; f += VW) scatter::load_vec<VW>(gn + f, gv + f);
 #pragma unroll
   for (int c = 0; c < 8; ++c) {
     // rows of either table fit an int: the wrapper checks

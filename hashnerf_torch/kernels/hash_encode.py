@@ -5,7 +5,8 @@ Counterpart of hashnerf_tpu/kernels/hash_encode_vjp.py (hash_encode_fast).
 
   forward   K2 hash_encode_fwd -> (feats (N, L*F), keep (N,))
   backward  K6 hash_encode_bwd -> d_table (L, T, F): the geometry recomputed
-            and each corner's cw * g added straight into the table.
+            and each corner's cw * g added straight into the table (a
+            (point, level) whose cotangent row is zero adds nothing).
 
 K3 (hash_encode_bwd_expand), which writes every (level, point, corner) as
 an (id, value) pair for K5 to add, is on no path since K6; it stays as the

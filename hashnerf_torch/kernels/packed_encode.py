@@ -8,7 +8,8 @@ take_rows). `PackedEncode` is a torch.autograd.Function:
   forward   K7 packed_encode_fwd -> (feats (N, L*F), keep (N,))
   backward  K8 packed_encode_bwd -> (d_dense (V, F), d_fine (Lf*2^B, 27F)):
             the geometry recomputed and each corner's cw * g added straight
-            into the canonical vertex row or the slab slot.
+            into the canonical vertex row or the slab slot (a (point,
+            level) whose cotangent row is zero adds nothing).
 
 Each of a voxel's 8 corners is one F-float row: a vertex of the canonical
 dense table, or one of the 8 live slots of the fine slab (csrc/packed_encode.cu

@@ -315,10 +315,11 @@ def _rank_entry(rank: int, fn: Callable, world: int, store: str, device, backend
         dist.destroy_process_group()
 
 
-def launch(fn: Callable, world: int, device="cpu", args: tuple = (),
+def launch(fn: Callable, world: int, device, args: tuple = (),
            backend: Optional[str] = None) -> List[Any]:
     """Run fn(rank, world, device, *args) on `world` ranks spawned here, one
-    process each, under one process group (a file store in a temporary
+    process each, on `device` ("cuda" or "cpu": no default, the caller names
+    it), under one process group (a file store in a temporary
     directory, so parallel launches never share a port); returns each
     rank's result, in rank order. fn must be importable (a module-level
     function) and its result picklable. A rank that raises makes launch

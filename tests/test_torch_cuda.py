@@ -718,6 +718,168 @@ def test_packed_graph_replays_launch_k7_k8(cuda_device):
     assert {k: v for k, v in counts.items() if v} == {k: 16 * v for k, v in graph.launches.items() if v}
 
 
+# --------------------------------------------------------------------------- #
+# K6 / K8 on zero cotangent rows and hot rows (both skip a lane whose
+# cotangent row is zero; K6 groups a hashed level's lanes by runs)
+# --------------------------------------------------------------------------- #
+
+def with_zero_rows(g, L, seed):
+    """g (N, L*F) with exactly-zero (point, level) rows: every level of
+    points 0-63 (two whole warps) and of the last 33 points (the tail
+    warp, past N included), a third of the other rows at random, some of
+    them -0.0."""
+    rng = np.random.default_rng(seed)
+    N = g.shape[0]
+    rows = g.reshape(N, L, -1).clone()
+    zero = torch.from_numpy(rng.random((N, L)) < 1 / 3).to(g.device)
+    zero[:64] = True
+    zero[-33:] = True
+    rows[zero] = 0.0
+    neg = zero & torch.from_numpy(rng.random((N, L)) < 0.5).to(g.device)
+    rows[neg] = -0.0
+    return rows.reshape(N, -1).contiguous()
+
+
+def on_faces(x, lo, hi, seed, n_faces=600, n_hi=200):
+    """x with n_faces points moved outside the bbox on one to three axes
+    (clipped onto its faces, edges and corners: hot rows), then n_hi points
+    exactly at hi on one to three axes (xc = hi: b = res)."""
+    rng = np.random.default_rng(seed)
+    x = x.clone()
+    n = x.shape[0]
+    pick = rng.choice(np.arange(64, n - 33), n_faces + n_hi, replace=False)
+    for rows, value in ((pick[:n_faces], None), (pick[n_faces:], hi)):
+        axes = rng.random((len(rows), 3)) < 0.5
+        axes[np.arange(len(rows)), rng.integers(0, 3, len(rows))] = True
+        far = rng.choice([lo - 1.0, hi + 1.0], (len(rows), 3)) if value is None else np.full(
+            (len(rows), 3), value)
+        sub = x[torch.from_numpy(rows)].cpu().numpy()
+        sub[axes] = far[axes]
+        x[torch.from_numpy(rows)] = torch.from_numpy(sub.astype(np.float32)).to(x.device)
+    return x
+
+
+def k6_rows_ok(got, args, g, T):
+    """K6 against its plain version in the row gate of its terms' absolute
+    sums (atomics add in no fixed order)."""
+    plain = he.hash_encode_bwd_plain(*args, g, T)
+    abs_sum = he.hash_encode_bwd_plain(*args, g.abs(), T)
+    return got.shape == plain.shape and bool(((got - plain).abs() <= 2e-5 * abs_sum + 1e-6).all())
+
+
+def k8_rows_ok(got, x, bmin, bmax, g, cfg):
+    plain = pe.packed_encode_bwd_plain(x, bmin, bmax, g, cfg)
+    abs_sum = pe.packed_encode_bwd_plain(x, bmin, bmax, g.abs(), cfg)
+    for a, p, s in zip(got, plain, abs_sum):
+        if (a is None) != (p is None):
+            return False
+        if a is not None and not (a.shape == p.shape and bool(((a - p).abs() <= 2e-5 * s + 1e-6).all())):
+            return False
+    return True
+
+
+def hard_k6_inputs(dev, F, log2_T):
+    """K6 inputs at the chair's levels (L16 from res 16 to 512): 4001
+    points (a warp tail) in the bbox grown by 20%, a tenth on grid
+    vertices, 800 moved onto the faces or to hi (on_faces), and a
+    cotangent with zero rows, whole warps too (with_zero_rows). At log2 T
+    19 levels 0-6 are collision-free (match grouping) and 7-15 hashed
+    (runs); at 12 every level is hashed."""
+    cfg = HashGridConfig(n_levels=16, n_features_per_level=F, log2_hashmap_size=log2_T)
+    rng = np.random.default_rng(5)
+    x = snap_to_vertices(rng.uniform(-2.24, 2.24, (4001, 3)).astype(np.float32), cfg, -1.6, 1.6,
+                         0.1, seed=6)
+    to = lambda a: torch.from_numpy(a).to(dev)
+    x = on_faces(to(x), -1.6, 1.6, seed=8)
+    g = with_zero_rows(to(rng.normal(size=(4001, 16 * F)).astype(np.float32)), 16, seed=9)
+    box = [torch.full((3,), v, device=dev) for v in (-1.6, 1.6)]
+    return [x, *box, cfg.resolutions_tensor(dev)], g, cfg.table_size
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("log2_T", [12, 19])
+@pytest.mark.parametrize("group_levels", [1, 4, 16])
+@pytest.mark.parametrize("F", [1, 2, 3, 8])
+def test_k6_zero_and_hot_rows_on_card_match_plain(cuda_device, monkeypatch, F, group_levels,
+                                                  log2_T):
+    monkeypatch.setattr(he, "_K6_GROUP_LEVELS", group_levels)
+    args, g, T = hard_k6_inputs(cuda_device, F, log2_T)
+    before = launch_counts()
+    got = he.hash_encode_bwd(*args, g, T)
+    after = launch_counts()
+    assert all(after[n] == before[n] + (n == "hash_encode_bwd") for n in after)
+    assert k6_rows_ok(got, args, g, T)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("group_levels", [1, 4])
+@pytest.mark.parametrize("name", list(PACKED_CONFIGS))
+def test_k8_zero_and_hot_rows_on_card_match_plain(cuda_device, monkeypatch, name, group_levels):
+    """K8 on 1000 points of each packed family (vertices, faces, outside,
+    block edges) and one at hi, with zero cotangent rows (whole warps
+    too)."""
+    monkeypatch.setattr(pe, "_K8_GROUP_LEVELS", group_levels)
+    cfg = packed_config(name)
+    dev = cuda_device
+    x = np.concatenate([packed_points(cfg, fam, 1000, 20 + k) for k, fam in enumerate(PACKED_FAMILIES)]
+                       + [np.full((1, 3), 1.5, np.float32)])
+    x = torch.from_numpy(x).to(dev)
+    g = torch.from_numpy(np.random.default_rng(21).normal(size=(x.shape[0], cfg.out_dim))
+                         .astype(np.float32)).to(dev)
+    g = with_zero_rows(g, cfg.n_levels, seed=22)
+    bmin, bmax = torch.full((3,), -1.5, device=dev), torch.full((3,), 1.5, device=dev)
+    before = launch_counts()
+    got = pe.packed_encode_bwd(x, bmin, bmax, g, cfg)
+    after = launch_counts()
+    assert all(after[n] == before[n] + (n == "packed_encode_bwd") for n in after)
+    assert k8_rows_ok(got, x, bmin, bmax, g, cfg)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["k6", "k8"])
+def test_encode_bwd_graph_capture_and_replay_on_card(cuda_device, which):
+    """K6 (chair levels at log2 T 19) and K8 (L4 / F8), each captured in a
+    CUDA graph with its zero fill and replayed on two cotangents (the
+    second with zero rows) copied into the captured input: each replay
+    within the row gate of its plain version; the capture counts one
+    launch."""
+    from hashnerf_torch.ops.packed_grid import PackedGridConfig
+
+    dev = cuda_device
+    if which == "k6":
+        args, g0, T = hard_k6_inputs(dev, 2, 19)
+        call = lambda: he.hash_encode_bwd(*args, g, T)
+        ok = lambda out, gk: k6_rows_ok(out, args, gk, T)
+        counter = "hash_encode_bwd"
+    else:
+        cfg = PackedGridConfig(n_levels=4, n_features_per_level=8, log2_hashmap_size=13,
+                               finest_resolution=64, log2_blocks=10)
+        x = torch.from_numpy(np.concatenate([packed_points(cfg, fam, 1000, 30 + k)
+                                             for k, fam in enumerate(PACKED_FAMILIES)])).to(dev)
+        bmin, bmax = torch.full((3,), -1.5, device=dev), torch.full((3,), 1.5, device=dev)
+        g0 = torch.randn((x.shape[0], cfg.out_dim), device=dev)
+        call = lambda: pe.packed_encode_bwd(x, bmin, bmax, g, cfg)
+        ok = lambda out, gk: k8_rows_ok(out, x, bmin, bmax, gk, cfg)
+        counter = "packed_encode_bwd"
+    L = g0.shape[1] // (2 if which == "k6" else 8)
+    g = g0.clone()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call()  # build, load and warm up off the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = launch_counts()[counter]
+    with torch.cuda.graph(graph):
+        out = call()
+    assert launch_counts()[counter] == before + 1
+    for k, gk in enumerate((g0, with_zero_rows(-2.0 * g0, L, seed=31))):
+        g.copy_(gk)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert ok(out, gk), k
+
+
 @pytest.mark.cuda
 def test_try_restore_drops_the_graphs(cuda_device, tmp_path):
     t = graph_trainer(GRAPH_SMALL)

@@ -59,7 +59,7 @@ def test_port_files_exist():
         assert os.path.join(ROOT, "hashnerf_torch", *rel.split("/")) in files, rel
     # the CUDA sources the kernel modules build
     for src in ("segment_accum.cu", "hash_encode.cu", "scatter_add.cu", "packed_encode.cu",
-                "scatter_common.cuh"):
+                "scatter_common.cuh", "red_probe.cu"):
         assert os.path.isfile(os.path.join(ROOT, "hashnerf_torch", "csrc", src)), src
 
 

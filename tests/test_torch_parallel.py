@@ -285,6 +285,15 @@ def test_num_devices_checks():
     assert data_parallel_layout(ranks.small_args(), torch.device("cpu"), one) is one
 
 
+def test_launch_needs_a_device():
+    """launch has no default device: every caller names the CPU or the
+    card, and a call without one raises before any rank starts."""
+    with pytest.raises(TypeError, match="device"):
+        launch(ranks.trainer_run, 2)
+    with pytest.raises(TypeError, match="device"):
+        launch(ranks.trainer_run, 2, args=([], 1))
+
+
 def test_global_culling_draws_raise():
     """draw_render gives global culling's draws (it refused them before
     slice 11): a global cull composites every pass on its full z grid, so
