@@ -59,6 +59,18 @@ gates. Each prints JSON lines; only pool-faults is a gate.
         keys; the share of zero cotangent rows and of clipped points; and
         the reduction bound (csrc/red_probe.cu: 8- and 16-byte reductions
         into random and consecutive rows of 16.8, 67 and 134 MB tables).
+    python3 chip_diag.py encode-fwd
+        Where K7 spends its time (encode_fwd): device ms of the kernel at
+        chip_smoke.py's packed_case sets (the packed fine pass on uniform
+        points, along rays and at the x of the packed path's step 40; the
+        coarse pass; the flagship's culled passes at keep 0.125 and 0.5;
+        tpu-quality's L8 / F4), over all levels, the dense levels alone and
+        the fine levels alone, beside the distinct-row byte bound and the
+        rate those bytes are read at; each held to the plain version.
+    python3 chip_diag.py tv-k5
+        K5 at the TV losses' own shapes (tv_k5): the zero fill alone, K5
+        (its fill and kernel) and zeros().index_add_, device ms from a
+        trace and CUDA-event ms, in turns; K5 held to the plain version.
 
 Imports hashnerf_torch and chip_smoke.py (never jax); exits non-zero
 without a CUDA device.
@@ -806,10 +818,149 @@ def encode_bwd(torch, np, variants=None) -> None:
         torch.cuda.empty_cache()
 
 
+def culled_points(torch, np, keep: float):
+    """The points the flagship's fine cull keeps at `keep`, as
+    chip_smoke.phase_occupancy draws them: 1024 rays of 192 samples (seed
+    4) scored on its occupancy grid, blocks of OCC_BLOCK by their max."""
+    import chip_smoke as cs
+    from hashnerf_torch.render import occupancy as occ
+    from hashnerf_torch.render.renderer import keep_k
+
+    pts = torch.as_tensor(cs.ray_points(np, 1024, 192, seed=4), device=cs.DEV)
+    grid = torch.as_tensor(cs.occupancy_grid(np), device=cs.DEV)
+    bbox = torch.tensor([[-1.6] * 3, [1.6] * 3], device=cs.DEV)
+    cfg = occ.OccupancyConfig(resolution=cs.OCC_R, block=cs.OCC_BLOCK)
+    bs = occ.occupancy_scores(grid, pts, bbox, cfg).reshape(-1, cs.OCC_BLOCK).amax(-1)
+    kept = occ.cull_points(bs, keep_k(bs.numel() * cs.OCC_BLOCK, keep) // cs.OCC_BLOCK)[0]
+    return pts.reshape(-1, cs.OCC_BLOCK, 3)[kept].reshape(-1, 3).contiguous()
+
+
+def encode_fwd_sets(torch, np):
+    """[(name, pcfg, x, bmin, bmax)]: the shapes chip_smoke's packed_case
+    runs K7 at (the packed fine pass on uniform points, along rays and at
+    the x the packed path's step RECORDED_STEP encodes; the coarse pass;
+    the flagship's culled pass at keep 0.125 and 0.5; tpu-quality's L8 / F4
+    fine pass)."""
+    import chip_smoke as cs
+    from hashnerf_torch.ops.packed_grid import PackedGridConfig
+
+    box = (torch.full((3,), -1.6, device=cs.DEV), torch.full((3,), 1.6, device=cs.DEV))
+    out = []
+    for widths, (L, F) in cs.PACKED_WIDTHS.items():
+        pcfg = PackedGridConfig(n_levels=L, n_features_per_level=F, log2_hashmap_size=cs.LOG2_T,
+                                log2_blocks=cs.PACKED_LOG2_BLOCKS)
+        x_all = torch.as_tensor(cs.chair_points(np, cs.N_POINTS, -1.6, 1.6, pcfg.resolutions,
+                                                seed=1), device=cs.DEV)
+        if widths != "flagship":
+            out.append(("quality_fine", pcfg, x_all, *box))
+            continue
+        rec = cs.recorded_encode_inputs(torch, "packed", (cs.RECORDED_STEP,))[cs.RECORDED_STEP][-1]
+        out += [("fine", pcfg, x_all, *box),
+                ("fine_rays", pcfg, torch.as_tensor(cs.ray_points(np, 1024, 192, seed=3),
+                                                    device=cs.DEV), *box),
+                ("fine_recorded", rec["ctx_attrs"], rec["x"], *rec["saved"]),
+                ("coarse", pcfg, x_all[:cs.N_COARSE].contiguous(), *box),
+                ("culled", pcfg, culled_points(torch, np, cs.FLAGSHIP_KEEP[0]), *box),
+                ("keep_0.5", pcfg, culled_points(torch, np, 0.5), *box)]
+    return out
+
+
+def encode_fwd(torch, np) -> None:
+    """Where K7 spends its time: device ms of the kernel from a trace (L2
+    flushed) and CUDA-event ms of the wrapper at every set of
+    encode_fwd_sets, over all levels, the dense levels alone and the fine
+    levels alone (each a level config of one kind over the same tables,
+    PackedLevels), beside the distinct-row byte bound and the rate it
+    reads those bytes at; each held to the plain version (keep bit-equal,
+    features within BLEND_ORDER_RTOL of their blend's absolute sum)."""
+    import chip_smoke as cs
+    from hashnerf_torch.kernels import packed_encode as pe
+    from hashnerf_torch.ops.packed_grid import init_packed_tables
+
+    gen = torch.Generator(device=cs.DEV)
+    gen.manual_seed(15)
+    for sname, pcfg, x, bmin, bmax in encode_fwd_sets(torch, np):
+        tables = {k: v * 1e4 for k, v in init_packed_tables(pcfg, gen, cs.DEV).items()}
+        Ld, L, N = pcfg.dense_level_count, pcfg.n_levels, x.shape[0]
+        for part, (a, b) in (("all", (0, L)), ("dense", (0, Ld)), ("fine", (Ld, L))):
+            if a == b:
+                continue
+            sub = pcfg if part == "all" else PackedLevels.of(pcfg, a, b)
+            dense = tables.get("dense") if sub.dense_level_count else None
+            fine = tables.get("fine") if sub.fine_resolutions else None
+            call = lambda: pe.packed_encode_fwd(dense, fine, x, bmin, bmax, sub)
+            want, want_keep = pe.packed_encode_fwd_plain(dense, fine, x, bmin, bmax, sub)
+            abs_sum, _ = pe.packed_encode_fwd_plain(None if dense is None else dense.abs(),
+                                                    None if fine is None else fine.abs(),
+                                                    x, bmin, bmax, sub)
+            _, levels = pe.corner_rows(x, bmin, bmax, sub)
+            F = sub.n_features_per_level
+            touched = sum(torch.unique(torch.cat([r.reshape(-1) for k, r, _ in levels if k == kind]))
+                          .numel() for kind in ("dense", "fine") if any(k == kind for k, _, _ in levels))
+            del levels
+            row_bytes = touched * F * 4
+            n_bytes = N * 12 + 24 + row_bytes + N * sub.n_levels * F * 4 + N
+            bnd = cs.bound(n_bytes, N * sub.n_levels * (cs.PACKED_GEOM_OPS + 16 * F))
+            feats, keep = call()
+            torch.cuda.synchronize()
+            ratio = float(((feats - want).abs() / abs_sum.clamp_min(1e-30)).max())
+            line = {"kernel": "K7", "points": sname, "N": N, "levels": [a, b], "part": part,
+                    "resolutions": list(sub.resolutions), "F": F, "touched_rows": touched,
+                    "bound_ms": bnd[0], "bound_by": bnd[1],
+                    "ok": bool(torch.equal(keep, want_keep)) and ratio <= cs.BLEND_ORDER_RTOL,
+                    "ms": cs.cuda_ms(torch, call),
+                    "kernel_device_ms": _kernel_device_ms(torch, call, "packed_encode_fwd")}
+            dms = line["kernel_device_ms"]
+            if dms > 0:  # a trace that caught no kernel gives 0
+                line["distinct_row_tb_per_s"] = row_bytes / dms / 1e9
+                line["bound_share"] = bnd[0] / dms
+            print(json.dumps(line), flush=True)
+            del feats, keep, want, want_keep, abs_sum
+        del tables
+        torch.cuda.empty_cache()
+
+
+def tv_k5(torch, np, rounds: int = 3) -> None:
+    """K5 at the TV losses' own shapes (chip_smoke.tv_rows): the zero fill
+    (torch.zeros of the gradient table) alone, K5 (fill and kernel) and
+    zeros().index_add_, each as device ms from a trace (L2 flushed) and by
+    CUDA events, in `rounds` rounds of turns; K5's kernel alone from the
+    trace. K5 is held to the plain version run on the CPU by the row gate."""
+    import chip_smoke as cs
+    from hashnerf_torch.kernels import segment_accum as sa
+
+    gen = torch.Generator(device=cs.DEV)
+    gen.manual_seed(12)
+    for name, ((T, F), idx) in cs.tv_rows(torch, cs.DEV).items():
+        M = idx.numel()
+        vals = torch.randn((M, F), generator=gen, device=cs.DEV)
+        want = sa.segment_accumulate_k5_plain(idx.cpu(), vals.cpu(), T)
+        abs_sum = sa.segment_accumulate_k5_plain(idx.cpu(), vals.cpu().abs(), T)
+        got = sa.segment_accumulate_k5(idx, vals, T).cpu()
+        line = {"shape": name, "M": M, "F": F, "num_rows": T, "id_bytes": idx.element_size(),
+                "ok": cs.row_abs_ok(got, want, abs_sum),
+                "fill_bound_ms": T * F * 4 / cs.PEAK_BYTES_PER_S * 1e3,
+                "bound_ms": cs.bound(cs.seg_bytes(M, F, T), M * F)[0]}
+        del got, want, abs_sum
+        timed = {"fill": lambda: torch.zeros((T, F), device=cs.DEV),
+                 "k5": lambda: sa.segment_accumulate_k5(idx, vals, T),
+                 "library": lambda: torch.zeros((T, F), device=cs.DEV).index_add_(0, idx, vals)}
+        for r in range(rounds):
+            for what, fn in (list(timed.items()) if r % 2 == 0 else list(timed.items())[::-1]):
+                line.setdefault(f"{what}_ms", []).append(cs.cuda_ms(torch, fn))
+                line.setdefault(f"{what}_device_ms", []).append(cs.device_ms(torch, fn, reps=5))
+                if what == "k5":
+                    line.setdefault("k5_kernel_device_ms", []).append(
+                        _kernel_device_ms(torch, fn, "scatter_", reps=5))
+        line["k5_slower_than_library_beyond_spread"] = min(line["k5_ms"]) > max(line["library_ms"])
+        print(json.dumps(line), flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("what", choices=("gate-spread", "pool-faults", "st3d-step", "spread-why",
-                                     "one-step", "blender-step", "packed-k8", "encode-bwd"))
+                                     "one-step", "blender-step", "packed-k8", "encode-bwd",
+                                     "encode-fwd", "tv-k5"))
     ap.add_argument("--path", default=None,
                     choices=("chair", "packed", "flagship", "llff", "st3d"),
                     help="gate-spread's path (default flagship); pool-faults' (llff or st3d, "
@@ -826,9 +977,12 @@ def main(argv=None) -> int:
     sys.path.insert(0, ROOT)
     from hashnerf_torch.kernels import build
 
-    build.build_all()
+    logs = build.build_all()["logs"]
     print(json.dumps({"torch": torch.__version__, "cuda": torch.version.cuda,
-                      "device": torch.cuda.get_device_name(0)}), flush=True)
+                      "device": torch.cuda.get_device_name(0),
+                      "ptxas": [ln.strip() for log in logs.values() for ln in log.splitlines()
+                                if "registers" in ln or "Compiling entry" in ln or "spill" in ln]}),
+          flush=True)
     if opts.what == "gate-spread":
         gate_spread(torch, np, opts.path or "flagship", opts.reps)
     elif opts.what == "pool-faults":
@@ -846,6 +1000,10 @@ def main(argv=None) -> int:
         packed_k8(torch, np)
     elif opts.what == "encode-bwd":
         encode_bwd(torch, np)
+    elif opts.what == "encode-fwd":
+        encode_fwd(torch, np)
+    elif opts.what == "tv-k5":
+        tv_k5(torch, np)
     else:
         blender_step(torch)
     return 0

@@ -24,12 +24,20 @@
 // So each of the 8 corners is one F-float row of one of the two tables,
 // and in both the rows of corners k = 0 and k = 1 are neighbours.
 //
-// K7: one thread per (point, level), the L levels of a point in neighbouring
-//   lanes (a warp writes whole feature rows). It clips the point, computes
-//   the voxel, reads the 8 corner rows straight from `dense` or from the 8
-//   live slots of the slab, and blends them in float32 in corner order.
-//   keep[n] (inside the bbox before clipping) is written by the point's
-//   level-0 thread. No packed table is built and no slab is gathered whole.
+// K7: one thread per (point, level), 32 points of one level a warp
+//   (point-fastest), so a warp takes one branch and one table and
+//   neighbouring samples of a ray share the coarse levels' rows in L1. It
+//   clips the point, computes the voxel, reads the 8 corner rows straight
+//   from `dense` or from the 8 live slots of the slab, a corner pair
+//   (k = 0, 1: rows r, r + 1) as one stretch of 2F floats, and blends them
+//   in float32 in corner order as they arrive. The features go through a
+//   shared-memory tile, so a block writes whole (N, L*F) rows with
+//   coalesced 16-byte stores; keep[n] (inside the bbox before clipping) is
+//   written by the level-0 warp. No packed table is built and no slab is
+//   gathered whole. Measured and not kept (PERF.md): L2 eviction policies
+//   (the slab rows evict-first and past L1, the dense rows evict-last),
+//   128-byte L2 fetches at the fine levels, and lanes loading a corner pair
+//   together (4 lanes a 64-byte pair at F = 8).
 // K8: one thread per (point, level), 32 points of one level a warp
 //   (point-fastest, in groups of GL levels as K6 orders them), which along a
 //   ray share corners at the coarse levels. It reads g once (a lane whose
@@ -156,14 +164,15 @@ __device__ __forceinline__ int64_t corner_row(const CornerRows& r, int c) {
   return r.base + (c >> 2) * r.si + ((c >> 1) & 1) * r.sj + (c & 1);
 }
 
-// Rows of F floats as vectors of VW = 4, 2 or 1 floats (the widest that
-// divides F, so every row is aligned to it when the table is). Table rows
-// through the read-only path: the coarse levels' rows are read many times.
+// The 2F floats of rows r and r + 1 (a corner pair k = 0, 1), one stretch,
+// as vectors of VW = 4, 2 or 1 floats (the widest that divides F, so every
+// row is aligned to it when the table is), through the read-only path:
+// the coarse levels' rows are read many times.
 template <int F>
-__device__ __forceinline__ void load_row(const float* p, float* v) {
+__device__ __forceinline__ void load_pair(const float* p, float* v) {
   constexpr int VW = scatter::vec_width<F>();
 #pragma unroll
-  for (int f = 0; f < F; f += VW) {
+  for (int f = 0; f < 2 * F; f += VW) {
     if constexpr (VW == 4) {
       const float4 t = __ldg(reinterpret_cast<const float4*>(p + f));
       v[f] = t.x; v[f + 1] = t.y; v[f + 2] = t.z; v[f + 3] = t.w;
@@ -176,53 +185,89 @@ __device__ __forceinline__ void load_row(const float* p, float* v) {
   }
 }
 
+// The blend of the voxel's 8 corner rows of `tab`, corner by corner in
+// order c = 0..7 (each pair k = 0, 1 blended as it arrives), into the F
+// floats at t.
 template <int F>
-__device__ __forceinline__ void store_row(float* p, const float* v) {
-  constexpr int VW = scatter::vec_width<F>();
-#pragma unroll
-  for (int f = 0; f < F; f += VW) {
-    if constexpr (VW == 4) {
-      *reinterpret_cast<float4*>(p + f) = make_float4(v[f], v[f + 1], v[f + 2], v[f + 3]);
-    } else if constexpr (VW == 2) {
-      *reinterpret_cast<float2*>(p + f) = make_float2(v[f], v[f + 1]);
-    } else {
-      p[f] = v[f];
-    }
-  }
-}
-
-template <int F>
-__global__ void __launch_bounds__(kThreads)
-packed_encode_fwd_kernel(const float* __restrict__ dense, const float* __restrict__ fine,
-                         const float* __restrict__ x, const float* __restrict__ bmin,
-                         const float* __restrict__ bmax, float* __restrict__ feats,
-                         uint8_t* __restrict__ keep, int64_t N, const Levels lv) {
-  const int L = lv.n_dense + lv.n_fine;
-  const int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (t >= N * L) return;  // K7 has no warp-wide operation
-  const int64_t n = t / L;
-  const int l = static_cast<int>(t - n * L);
-
-  float lo[3], hi[3], xc[3];
-  const bool inside = clip_point(x + n * 3, bmin, bmax, lo, hi, xc);
-  const Cell cell = cell_geometry(xc, lo, hi, lv.res[l]);
-  const CornerRows rows = corner_rows(lv, l, cell);
-  const float* tab = l < lv.n_dense ? dense : fine;
-
-  float v[8][F];
-#pragma unroll
-  for (int c = 0; c < 8; ++c) load_row<F>(tab + corner_row(rows, c) * F, v[c]);
+__device__ __forceinline__ void blend(const float* __restrict__ tab, const CornerRows& rows,
+                                      const Cell& cell, float* t) {
   float acc[F];
 #pragma unroll
   for (int f = 0; f < F; ++f) acc[f] = 0.f;
 #pragma unroll
-  for (int c = 0; c < 8; ++c) {
-    const float w = corner_weight(cell, c);
+  for (int p = 0; p < 4; ++p) {  // corners c = 2p (k = 0) and 2p + 1 (k = 1)
+    float v[2 * F];
+    load_pair<F>(tab + corner_row(rows, 2 * p) * F, v);
 #pragma unroll
-    for (int f = 0; f < F; ++f) acc[f] = __fadd_rn(acc[f], __fmul_rn(w, v[c][f]));
+    for (int k = 0; k < 2; ++k) {
+      const float w = corner_weight(cell, 2 * p + k);
+#pragma unroll
+      for (int f = 0; f < F; ++f) acc[f] = __fadd_rn(acc[f], __fmul_rn(w, v[k * F + f]));
+    }
   }
-  store_row<F>(feats + n * L * F + static_cast<int64_t>(l) * F, acc);
-  if (l == 0) keep[n] = inside ? 1 : 0;
+#pragma unroll
+  for (int f = 0; f < F; ++f) t[f] = acc[f];
+}
+
+// K7's block: 32 * pw points and every level of them, as pw * L warp items:
+// item i is level i % L of the points of point warp i / L (32 points of one
+// level a warp, so the warp takes one branch and one table, and
+// neighbouring samples of a ray share the coarse levels' rows); warp w
+// takes items w, w + kFwdWarps, .... Each thread puts its F features into
+// the block's tile (row stride `stride` floats: padded against bank
+// conflicts), and the block then writes its whole (32 * pw, L * F) rows of
+// feats, 16 bytes a thread where L * F is a multiple of 4.
+constexpr int kFwdThreads = 256;
+constexpr int kFwdWarps = kFwdThreads / 32;
+
+template <int F>
+__global__ void __launch_bounds__(kFwdThreads, 4)
+packed_encode_fwd_kernel(const float* __restrict__ dense, const float* __restrict__ fine,
+                         const float* __restrict__ x, const float* __restrict__ bmin,
+                         const float* __restrict__ bmax, float* __restrict__ feats,
+                         uint8_t* __restrict__ keep, int64_t N, const Levels lv, int pw,
+                         int stride) {
+  extern __shared__ float tile[];
+  const int L = lv.n_dense + lv.n_fine;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int64_t n0 = static_cast<int64_t>(blockIdx.x) * 32 * pw;
+
+  for (int item = warp; item < pw * L; item += kFwdWarps) {
+    const int p = item / L;
+    const int l = item - p * L;  // the same in the whole warp
+    const int64_t n = n0 + p * 32 + lane;
+    const int64_t nc = n < N ? n : N - 1;  // a lane past N computes a point it does not write
+    float lo[3], hi[3], xc[3];
+    const bool inside = clip_point(x + nc * 3, bmin, bmax, lo, hi, xc);
+    const Cell cell = cell_geometry(xc, lo, hi, lv.res[l]);
+    const CornerRows rows = corner_rows(lv, l, cell);
+    // one call a table: measured faster than one call on a selected table
+    float* t = tile + (p * 32 + lane) * stride + l * F;
+    if (l < lv.n_dense) {
+      blend<F>(dense, rows, cell, t);
+    } else {
+      blend<F>(fine, rows, cell, t);
+    }
+    if (l == 0 && n < N) keep[n] = inside ? 1 : 0;
+  }
+  __syncthreads();
+
+  const int LF = L * F;
+  const int nrows = static_cast<int>(N - n0 < 32 * pw ? N - n0 : 32 * pw);
+  float* dst = feats + n0 * LF;
+  if (LF % 4 == 0) {
+    const int q4 = LF / 4;
+    for (int i = threadIdx.x; i < nrows * q4; i += kFwdThreads) {
+      const int r = i / q4, c = i - r * q4;
+      *reinterpret_cast<float4*>(dst + r * LF + c * 4) =
+          *reinterpret_cast<const float4*>(tile + r * stride + c * 4);
+    }
+  } else {
+    for (int i = threadIdx.x; i < nrows * LF; i += kFwdThreads) {
+      const int r = i / LF;
+      dst[i] = tile[r * stride + (i - r * LF)];
+    }
+  }
 }
 
 // K8's (point, level) of thread t (hash_encode.cu::point_fastest_slot): 32
@@ -330,6 +375,13 @@ inline bool make_levels(Levels* lv, int n_dense, int n_fine, const int* res,
     default: return static_cast<int>(cudaErrorInvalidValue); \
   }
 
+// K7's block shape for L levels of F floats: (pw, tile row stride in floats)
+inline void fwd_block(int L, int F, int* pw, int* stride) {
+  *pw = L < kFwdWarps ? kFwdWarps / L : 1;
+  const int LF = L * F;
+  *stride = LF % 4 == 0 ? LF + 4 : (LF | 1);
+}
+
 extern "C" int packed_encode_fwd(const void* dense, const void* fine, const void* x,
                                  const void* bmin, const void* bmax, void* feats, void* keep,
                                  long long N, int n_dense, int n_fine, const int* res,
@@ -342,7 +394,10 @@ extern "C" int packed_encode_fwd(const void* dense, const void* fine, const void
   }
   if (N <= 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const unsigned blocks = blocks_for(N * (n_dense + n_fine));
+  int pw = 0, stride = 0;
+  fwd_block(n_dense + n_fine, F, &pw, &stride);
+  const unsigned blocks = static_cast<unsigned>((N + 32 * pw - 1) / (32 * pw));
+  const size_t smem = static_cast<size_t>(32) * pw * stride * sizeof(float);  // <= 33,280 bytes
   const auto* dp = static_cast<const float*>(dense);
   const auto* fp = static_cast<const float*>(fine);
   const auto* xp = static_cast<const float*>(x);
@@ -350,8 +405,9 @@ extern "C" int packed_encode_fwd(const void* dense, const void* fine, const void
   const auto* hi = static_cast<const float*>(bmax);
   auto* out = static_cast<float*>(feats);
   auto* k = static_cast<uint8_t*>(keep);
-#define PACKED_FWD(FV) \
-  packed_encode_fwd_kernel<FV><<<blocks, kThreads, 0, s>>>(dp, fp, xp, lo, hi, out, k, N, lv)
+#define PACKED_FWD(FV)                                                                        \
+  packed_encode_fwd_kernel<FV><<<blocks, kFwdThreads, smem, s>>>(dp, fp, xp, lo, hi, out, k, N, \
+                                                                 lv, pw, stride)
   PACKED_DISPATCH_F(PACKED_FWD)
 #undef PACKED_FWD
   return static_cast<int>(cudaGetLastError());

@@ -47,6 +47,8 @@
 //  * A row that is not a multiple of 4 (or 2) floats wide is not 16-byte
 //    (8-byte) aligned, and takes float2 (scalar) accesses instead.
 //  * A grid-stride loop over at most kBlocksPerSM blocks of kThreads an SM.
+//    A small M takes a shorter chunk, so that it still launches a block an
+//    SM (the packed TV slabs: 4,096 updates).
 
 #include <cuda_runtime.h>
 #include <cstdint>
@@ -206,6 +208,11 @@ int launch(const void* idx, const float* vals, float* out, long long M, int F,
   const int vw = F % 4 == 0 ? 4 : (F % 2 == 0 ? 2 : 1);
   int G = 1;
   while (G < 32 && G * vw < F) G *= 2;  // one vector a lane, up to 32 lanes
+  // at most `chunk` updates a group, fewer where that would leave an SM
+  // without a block (4,096 slab rows of 216 floats: 3, 171 blocks, where 16
+  // gave 32)
+  const long long fit = M * G / (static_cast<long long>(cap / kBlocksPerSM) * kThreads);
+  if (fit < chunk) chunk = fit < 1 ? 1 : static_cast<int>(fit);
   const long long threads = (M + chunk - 1) / chunk * G;
   const unsigned grid = grid_for(threads, cap);
   const Idx* i = static_cast<const Idx*>(idx);
@@ -221,7 +228,7 @@ int launch(const void* idx, const float* vals, float* out, long long M, int F,
 
 }  // namespace
 
-// idx_bytes is 4 (int32 ids) or 8 (int64); chunk is the number of updates a
+// idx_bytes is 4 (int32 ids) or 8 (int64); chunk is the most updates a
 // wide-row group walks (unused for F <= 8). Returns a cudaError_t.
 extern "C" int segment_accumulate_k5(const void* idx, int idx_bytes, const void* vals,
                                      void* out, long long M, int F, long long num_rows,

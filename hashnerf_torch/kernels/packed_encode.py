@@ -5,7 +5,9 @@ per-voxel dense table rebuilt from the canonical vertices, one take_rows
 per layer kind, einsum blends; its backward the Pallas scatter-add behind
 take_rows). `PackedEncode` is a torch.autograd.Function:
 
-  forward   K7 packed_encode_fwd -> (feats (N, L*F), keep (N,))
+  forward   K7 packed_encode_fwd -> (feats (N, L*F), keep (N,)): 32 points
+            of one level a warp, whole feature rows written from a
+            shared-memory tile
   backward  K8 packed_encode_bwd -> (d_dense (V, F), d_fine (Lf*2^B, 27F)):
             the geometry recomputed and each corner's cw * g added straight
             into the canonical vertex row or the slab slot (a (point,

@@ -38,7 +38,8 @@ _K1_WINDOW_FLOATS = 4096
 _K4_WINDOW_ROWS = 32
 K5_MAX_F = 256
 # Updates a group of K5's wide-row kernel walks, keeping runs of equal ids
-# in registers (chip_smoke.py times 1 to 64).
+# in registers (chip_smoke.py times 1 to 64), at most: the kernel takes
+# fewer where a small M would leave an SM without a block.
 _K5_CHUNK = 16
 
 

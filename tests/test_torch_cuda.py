@@ -17,7 +17,8 @@ torch.set_num_threads(2)
 from hashnerf_torch.kernels import launch_counts
 from hashnerf_torch.kernels import hash_encode as he
 from hashnerf_torch.kernels.segment_accum import (
-    K4_MIN_F, segment_accumulate_k4, segment_accumulate_k5_plain, segment_accumulate_sorted,
+    K4_MIN_F, segment_accumulate_k4, segment_accumulate_k5, segment_accumulate_k5_plain,
+    segment_accumulate_sorted,
     segment_accumulate_sorted_plain, sort_segments, sorted_segment_accumulate,
 )
 from hashnerf_torch.kernels import packed_encode as pe
@@ -348,6 +349,95 @@ def test_k5_drops_out_of_range_ids(cuda_device, F):
         ok = (idx >= 0) & (idx < T)
         plain = segment_accumulate_k5_plain(idx[ok], vals[ok], T)
         assert within_row_abs_sum(got, plain, idx[ok], vals[ok], T)
+
+
+def packed_tv_cases(dev):
+    """{name: (idx, vals, num_rows)}: the TV losses' own ids at the packed
+    path's widths (chip_smoke.tv_rows: each dense level's cube, the slab
+    rows), and 4,096 slab rows all on one row."""
+    import chip_smoke
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    out = {}
+    for name, ((T, F), idx) in chip_smoke.tv_rows(torch, dev).items():
+        if name.startswith("packed"):
+            out[name] = (idx, torch.randn((idx.numel(), F), generator=gen, device=dev), T)
+    out["one_row_f216"] = (torch.full((4096,), 77, device=dev),
+                           torch.randn((4096, 216), generator=gen, device=dev), 131_072)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("id_dtype", [torch.int32, torch.int64])
+def test_k5_at_packed_tv_shapes(cuda_device, id_dtype):
+    """K5 at the packed TV shapes, where its wide kernel walks a shorter
+    chunk so that 4,096 updates still fill the card: every row within the
+    row gate of the plain version on the CPU, and bit-equal to it where the
+    row takes at most two updates (+0 + a + b is +0 + b + a)."""
+    for name, (idx, vals, T) in packed_tv_cases(cuda_device).items():
+        idx = idx.to(id_dtype)
+        got = segment_accumulate_k5(idx, vals, T).cpu()
+        i, v = idx.cpu().long(), vals.cpu()
+        plain = segment_accumulate_k5_plain(i, v, T)
+        assert within_row_abs_sum(got, plain, i, v, T), name
+        few = torch.bincount(i, minlength=T) <= 2
+        assert torch.equal(got[few], plain[few]), name
+
+
+@pytest.mark.cuda
+def test_k5_under_graph_capture(cuda_device):
+    """The fill and the launch, with no host synchronisation: a CUDA graph
+    holds them, and each replay zeroes the table anew and adds."""
+    idx, vals, T = packed_tv_cases(cuda_device)["packed_tv_slabs"]
+    i, v = idx.cpu().long(), vals.cpu()
+    plain = segment_accumulate_k5_plain(i, v, T)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        segment_accumulate_k5(idx, vals, T)  # warm up on the side stream
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    before = segment_accumulate_k5.launches
+    with torch.cuda.graph(graph):
+        out = segment_accumulate_k5(idx, vals, T)
+    assert segment_accumulate_k5.launches == before + 1
+    for _ in range(3):
+        out.fill_(float("nan"))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert within_row_abs_sum(out.cpu(), plain, i, v, T)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["both", "dense", "fine"])
+@pytest.mark.parametrize("F", [1, 2, 3, 4, 5, 6, 7, 8])
+def test_k7_ragged_points_and_one_kind_of_level(cuda_device, F, kind):
+    """K7 against its plain version at N = 1, 31 and 33 (a block's tile cut
+    short, a warp's tail), for levels of both kinds, dense only and fine
+    only: keep bit-equal, each feature within PACKED_BLEND_RTOL of its
+    blend's absolute sum."""
+    from hashnerf_torch.ops.packed_grid import PackedGridConfig
+
+    L, finest, log2_T = {"both": (4, 64, 16), "dense": (2, 32, 16), "fine": (4, 512, 12)}[kind]
+    cfg = PackedGridConfig(n_levels=L, n_features_per_level=F, log2_hashmap_size=log2_T,
+                           base_resolution=16, finest_resolution=finest, log2_blocks=10)
+    assert (cfg.dense_level_count > 0) == (kind != "fine")
+    assert (len(cfg.fine_resolutions) > 0) == (kind != "dense")
+    tabs = packed_tables(cfg, F)
+    to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(cuda_device)
+    dense = to(tabs["dense"] * 1e4) if "dense" in tabs else None
+    fine = to(tabs["fine"] * 1e4) if "fine" in tabs else None
+    bmin, bmax = to(np.full(3, -1.5, np.float32)), to(np.full(3, 1.5, np.float32))
+    for n in (1, 31, 33):
+        x = to(packed_points(cfg, "faces", n, n))
+        feats, keep = pe.packed_encode_fwd(dense, fine, x, bmin, bmax, cfg)
+        want, want_keep = pe.packed_encode_fwd_plain(dense, fine, x, bmin, bmax, cfg)
+        abs_sum, _ = pe.packed_encode_fwd_plain(None if dense is None else dense.abs(),
+                                                None if fine is None else fine.abs(),
+                                                x, bmin, bmax, cfg)
+        torch.cuda.synchronize()
+        assert torch.equal(keep, want_keep)
+        assert bool(((feats - want).abs() <= PACKED_BLEND_RTOL * abs_sum).all())
 
 
 
