@@ -71,6 +71,14 @@ gates. Each prints JSON lines; only pool-faults is a gate.
         K5 at the TV losses' own shapes (tv_k5): the zero fill alone, K5
         (its fill and kernel) and zeros().index_add_, device ms from a
         trace and CUDA-event ms, in turns; K5 held to the plain version.
+    python3 chip_diag.py llff-view [--states 6]
+        Test view 0 of the llff phase (378 x 504 rays), card against CPU,
+        at `states` trained states (the phase's schedule, each from another
+        pool row): chip_smoke.py's view gate (view_gate) and, per state,
+        the rays off by more than 2e-3 and 1e-4, each with the first stage
+        that differs beyond rounding and the sample_pdf decisions the
+        devices took apart with both margins; the rays at risk by margin;
+        K2 and K3 at the held rays' sample points (llff_view).
 
 Imports hashnerf_torch and chip_smoke.py (never jax); exits non-zero
 without a CUDA device.
@@ -106,24 +114,25 @@ def _chair_trainer(torch, path: str, scene, workdir: str):
     return train_loop(args, scene, log_fn=lambda *_: None)
 
 
-def _llff_trainer(torch, np, work: str):
+def _llff_trainer(torch, np, work: str, offset: int = 0):
     """The llff phase's trainer and ray pool at the state its graphed
     windows start from: configs/fern.txt trained LLFF_ITERS steps on
-    chip_smoke.llff_set's set under `work`, then 10 pool steps with TV and
-    20 from step 1001, as phase_llff times them. Returns (trainer, pool,
-    the pool row the windows start at)."""
+    chip_smoke.llff_set's set under `work` (made once), then 10 pool steps
+    with TV and 20 from step 1001, as phase_llff times them, from pool row
+    `offset`. Returns (trainer, pool, the pool row the windows start at)."""
     import chip_smoke as cs
     from hashnerf_torch.data.llff import load_llff_scene
     from hashnerf_torch.train.config import parse_args
     from hashnerf_torch.train.driver import train_loop
 
     data, n = os.path.join(work, "fern"), cs.LLFF_ITERS
-    cs.llff_set(np, data)
+    if not os.path.isdir(data):
+        cs.llff_set(np, data)
     args = parse_args(["--config", os.path.join(ROOT, "configs", "fern.txt"), "--datadir", data,
                        "--basedir", work, "--no_reload", "--N_iters", str(n), "--i_print", "20",
                        "--i_weights", str(n), "--i_testset", "0", "--i_video", "0", "--device", "cuda"])
     tr = train_loop(args, load_llff_scene(data, factor=cs.LLFF_FACTOR), log_fn=lambda *_: None)
-    pool, at = tr.build_ray_pool(), 0
+    pool, at = tr.build_ray_pool(), offset
     for k in range(30):
         if k == 10:
             tr.global_step = 1001
@@ -956,16 +965,191 @@ def tv_k5(torch, np, rounds: int = 3) -> None:
         print(json.dumps(line), flush=True)
 
 
+LLFF_VIEW_STATES = 6
+LLFF_VIEW_REPORT_RAYS = 40  # the worst rays reported of each state
+VIEW_STAGES = ("coarse_raw", "coarse_weights", "sample_pdf", "fine_z", "fine_raw", "fine_weights",
+               "rgb")
+
+
+def view_stage_excess(torch, card, cpu):
+    """Per ray and stage, in render order (VIEW_STAGES), the largest
+    difference of the two renders over its tolerance (> 1 beyond
+    rounding): the coarse pass at chip_smoke.VIEW_COARSE_TOL; sample_pdf
+    inf where a decision flipped (chip_smoke.pdf_flips); the samples z over
+    chip_smoke.placement_tolerance; the fine pass at VIEW_FINE_TOL; rgb in
+    units of 1e-4."""
+    import chip_smoke as cs
+
+    flipped, _, _ = cs.pdf_flips(torch, card, cpu)
+    dz = (card["sample_pdf"]["z"] - cpu["sample_pdf"]["z"]).abs()
+    zeros = torch.zeros(flipped.shape[0])
+    return {
+        "coarse_raw": cs._close(torch, card["coarse"]["raw"], cpu["coarse"]["raw"], cs.VIEW_COARSE_TOL),
+        "coarse_weights": cs._close(torch, card["coarse"]["weights"], cpu["coarse"]["weights"],
+                                    cs.VIEW_COARSE_TOL),
+        "sample_pdf": torch.where(flipped.any(dim=-1), zeros + float("inf"), zeros),
+        "fine_z": (dz / cs.placement_tolerance(torch, card, cpu)).amax(dim=-1),
+        "fine_raw": cs._close(torch, card["fine"]["raw"], cpu["fine"]["raw"], cs.VIEW_FINE_TOL),
+        "fine_weights": cs._close(torch, card["fine"]["weights"], cpu["fine"]["weights"],
+                                  cs.VIEW_FINE_TOL),
+        "rgb": (card["fine"]["rgb"] - cpu["fine"]["rgb"]).abs().amax(dim=-1) / 1e-4,
+    }
+
+
+def _k2_at_points(torch, state, pts, bbox, chunk: int = 1 << 16):
+    """K2 at a view's sample points against its plain version (each feature
+    within BLEND_ORDER_RTOL of its blend's absolute sum, keep equal), and
+    the corner rows and weights of K3 (which shares K2's geometry in
+    csrc/hash_encode.cu) against corner_geometry's, all on the card."""
+    import chip_smoke as cs
+    from hashnerf_torch.kernels.hash_encode import (
+        hash_encode_bwd_expand, hash_encode_fwd, hash_encode_fwd_plain,
+    )
+    from hashnerf_torch.ops.hash_encoding import corner_geometry
+
+    table = state.hash_table.detach()
+    L, T, F = table.shape
+    bmin, bmax, res = bbox[0].contiguous(), bbox[1].contiguous(), state.resolutions
+    out = {"points": int(pts.shape[0]), "k2_max_err_over_abs_sum": 0.0, "keep_diffs": 0,
+           "k3_row_diffs": 0, "k3_weight_max_abs_err": 0.0}
+    for x in pts.split(chunk):
+        x = x.contiguous()
+        feats, keep = hash_encode_fwd(table, x, bmin, bmax, res)
+        fp, kp = hash_encode_fwd_plain(table, x, bmin, bmax, res)
+        ratio = (feats - fp).abs() / cs.blend_abs_sum(torch, table, x, bmin, bmax, res).clamp_min(1e-30)
+        ids, vals = hash_encode_bwd_expand(x, bmin, bmax, res, torch.ones_like(feats), T)
+        idx, cw, _ = corner_geometry(x, bmin, bmax, res, T.bit_length() - 1)
+        flat = (idx + (torch.arange(L, device=x.device) * T)[:, None, None]).reshape(-1)
+        out["k2_max_err_over_abs_sum"] = max(out["k2_max_err_over_abs_sum"], float(ratio.max()))
+        out["keep_diffs"] += int((keep != kp).sum())
+        out["k3_row_diffs"] += int((ids.long() != flat).sum())
+        out["k3_weight_max_abs_err"] = max(out["k3_weight_max_abs_err"],
+                                           float((vals[:, 0] - cw.reshape(-1)).abs().max()))
+    out["k2_within_blend_order"] = out["k2_max_err_over_abs_sum"] <= cs.BLEND_ORDER_RTOL
+    return out
+
+
+def _view_ray_report(torch, parts, excess, pos, W):
+    """One held ray (`pos` among the rays held): where it lies, its error,
+    the first stage beyond rounding, each stage's excess, and each
+    decision of sample_pdf the devices took apart, with both margins."""
+    import chip_smoke as cs
+
+    card, cpu, at_card = parts["card"], parts["cpu"], parts["at_card"]
+    view = int(parts["sel"][pos])
+    flipped, m_card, m_cpu = cs.pdf_flips(torch, {k: {n: t[pos:pos + 1] for n, t in v.items()}
+                                                  for k, v in card.items()},
+                                          {k: {n: t[pos:pos + 1] for n, t in v.items()}
+                                           for k, v in cpu.items()})
+    a, b = card["sample_pdf"], cpu["sample_pdf"]
+    flips = []
+    for s in flipped[0].nonzero().flatten().tolist():
+        flips.append({"u_index": s, "u": float(a["u"][pos, s]),
+                      "decision": "count" if int(a["inds"][pos, s]) != int(b["inds"][pos, s])
+                      else "switch",
+                      "inds": [int(a["inds"][pos, s]), int(b["inds"][pos, s])],
+                      "denom": [float(a["denom"][pos, s]), float(b["denom"][pos, s])],
+                      "cdf_end": [float(a["cdf"][pos, -1]), float(b["cdf"][pos, -1])],
+                      "margin_ulps": [float(m_card[0, s]), float(m_cpu[0, s])],
+                      "z": [float(a["z"][pos, s]), float(b["z"][pos, s])]})
+    w_fine = card["fine"]["weights"][pos]
+    first = next((k for k in VIEW_STAGES if float(excess[k][pos]) > 1), None)
+    return {
+        "ray": view, "row": view // W, "col": view % W,
+        "rgb_err": float((card["fine"]["rgb"][pos] - cpu["fine"]["rgb"][pos]).abs().max()),
+        "rgb_err_at_card_z": float((at_card["fine"]["rgb"][pos] - card["fine"]["rgb"][pos]).abs().max()),
+        "first_stage": first, "excess": {k: float(v[pos]) for k, v in excess.items()},
+        "least_margin_ulps": float(parts["margins"]["least"][view]),
+        "coarse_acc": float(card["coarse"]["weights"][pos].sum()),
+        "fine_acc": float(w_fine.sum()),
+        "fine_transmittance_at_last_sample": float(1 - w_fine[:-1].sum()),
+        "flips": flips[:6],
+    }
+
+
+def llff_view(torch, np, states: int) -> None:
+    """Test view 0 of the llff phase, card against CPU, over `states`
+    trained states (_llff_trainer, from pool row k * 30 * N_rand for state
+    k): chip_smoke.view_gate's render and hold, its record printed; then
+    the rays held that are off by more than 2e-3 and by more than 1e-4,
+    each with the first stage beyond rounding and the decisions flipped
+    (view_stage_excess, _view_ray_report); the at-risk counts; the largest
+    cdf difference in ulps; K2 and K3 at the held rays' points
+    (_k2_at_points). A failing state's file goes to
+    chiprun_out/llff_view_state<k>.pt (chip_smoke.save_view_failure)."""
+    import subprocess
+
+    import chip_smoke as cs
+    from hashnerf_torch.ops.rays import get_ndc_rays, get_rays
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip()
+    work = tempfile.mkdtemp(prefix="chip_diag_llff_view_")
+    try:
+        for k in range(states):
+            t0 = time.perf_counter()
+            tr, pool, _ = _llff_trainer(torch, np, work, offset=k * 30 * 1024)
+            del pool
+            train_s = time.perf_counter() - t0
+            sc, args = tr.scene, tr.args
+            c2w = sc.poses[sc.i_test[0]]
+            cfg = tr.render_cfg.eval_mode()
+            ro, rd = get_rays(sc.H, sc.W, torch.as_tensor(sc.K), torch.as_tensor(c2w[:3, :4]))
+            ro, rd = ro.reshape(-1, 3), rd.reshape(-1, 3)
+            vd = rd / torch.linalg.norm(rd, dim=-1, keepdim=True)
+            rays = (*get_ndc_rays(sc.H, sc.W, sc.focal, 1.0, ro, rd), vd)
+            strided = (torch.arange(0, sc.H, cs.LLFF_CPU_ROW_STRIDE)[:, None] * sc.W
+                       + torch.arange(sc.W)).flatten()
+            ok, rec, parts = cs.view_gate(
+                torch, np, tr.state, rays, tr.bbox, cfg, sc.near, sc.far, args.chunk, strided,
+                save_to=os.path.join(ROOT, "chiprun_out", f"llff_view_state{k}.pt"))
+            card, cpu = parts["card"], parts["cpu"]
+            excess = view_stage_excess(torch, card, cpu)
+            err = excess["rgb"] * 1e-4
+            worst = torch.argsort(err, descending=True)
+            off_1e4 = int((err > 1e-4).sum())
+            rays_out = [_view_ray_report(torch, parts, excess, int(p), sc.W)
+                        for p in worst[:min(off_1e4, LLFF_VIEW_REPORT_RAYS)]]
+            in_strided = torch.isin(parts["sel"], strided)
+            dcdf = (card["sample_pdf"]["cdf"] - cpu["sample_pdf"]["cdf"]).abs() / cs.VIEW_CDF_ULP
+            least = parts["margins"]["least"].cpu()
+            o, d = rays[0][parts["sel"]].to(tr.device), rays[1][parts["sel"]].to(tr.device)
+            z = torch.cat([card["coarse"]["z"], card["fine"]["z"]], -1).to(tr.device)
+            pts = (o[:, None, :] + d[:, None, :] * z[..., None]).reshape(-1, 3)
+            k2 = _k2_at_points(torch, tr.state, pts, tr.bbox)
+            del pts, o, d, z
+            line = {
+                "llff_view_state": k, "card": smi, "pool_offset": k * 30 * 1024,
+                "train_s": train_s, "gate_ok": ok,
+                "off_2e-3": int((err > 2e-3).sum()), "off_1e-4": off_1e4,
+                "strided_off_2e-3": int((err[in_strided] > 2e-3).sum()),
+                "strided_off_1e-4": int((err[in_strided] > 1e-4).sum()),
+                "first_stage_counts": {s: sum(r["first_stage"] == s for r in rays_out)
+                                       for s in VIEW_STAGES},
+                "at_risk_by_ulps": {str(u): int((least <= u).sum()) for u in (1, 4, 16, 64, 256)},
+                "cdf_diff_ulps": {"max": float(dcdf.max()),
+                                  "p99": float(torch.quantile(dcdf.flatten(), 0.99))},
+                "k2_at_view_points": k2, "rays": rays_out,
+                "gate": {**rec, "explained": {n: v[:64] for n, v in rec["explained"].items()}},
+            }
+            print(json.dumps(line), flush=True)
+            del tr, parts, card, cpu
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("what", choices=("gate-spread", "pool-faults", "st3d-step", "spread-why",
                                      "one-step", "blender-step", "packed-k8", "encode-bwd",
-                                     "encode-fwd", "tv-k5"))
+                                     "encode-fwd", "tv-k5", "llff-view"))
     ap.add_argument("--path", default=None,
                     choices=("chair", "packed", "flagship", "llff", "st3d"),
                     help="gate-spread's path (default flagship); pool-faults' (llff or st3d, "
                          "default llff)")
     ap.add_argument("--reps", type=int, default=2)
+    ap.add_argument("--states", type=int, default=LLFF_VIEW_STATES, help="llff-view's trained states")
     opts = ap.parse_args(argv)
 
     import numpy as np
@@ -1004,6 +1188,8 @@ def main(argv=None) -> int:
         encode_fwd(torch, np)
     elif opts.what == "tv-k5":
         tv_k5(torch, np)
+    elif opts.what == "llff-view":
+        llff_view(torch, np, opts.states)
     else:
         blender_step(torch)
     return 0

@@ -116,9 +116,12 @@ Imports hashnerf_torch (never jax or hashnerf_tpu) and, on one CUDA card:
     two graphed pool windows (Trainer.run_steps blocks of 16 on the pool,
     held to the graph gate); K2 and K6 on the coarse and fine sample
     points of a pool batch in the NDC box, held to their plain versions;
-    every 8th row of one test view rendered on the card and on the CPU's
-    plain path from the same rays, held by JAX_VIEW_*_TOL. K2, K6 and K5
-    (every TV step) must launch on it, K1, K3 and K4 not;
+    one test view rendered whole on the card, then every 8th row and the
+    rays near a step function of sample_pdf or the keep mask held against
+    the CPU's plain path stage by stage (view_gate: the coarse pass, the
+    fine pass at the card's samples, the placement; JAX_VIEW_*_TOL), a
+    failure's state, rays and stages saved to VIEW_FAILURE_FILE. K2, K6
+    and K5 (every TV step) must launch on it, K1, K3 and K4 not;
  6. st3d: the panorama path end to end (phase_st3d, ST3D_*): a procedural
     512 x 1024 RGB-D panorama of a room written by st3d_set, 100 train
     views with occlusion masks and 10 test views made from it by
@@ -2540,6 +2543,402 @@ def encode_at(torch, what: str, table, xs, bmin, bmax, res, gen):
     return rec
 
 
+# --------------------------------------------------------------------------- #
+# The llff view gate, stage by stage
+# --------------------------------------------------------------------------- #
+# The card's render of a view and the CPU's differ in their last bits
+# (cuBLAS against the CPU's GEMM, K2's blend order, the card's parallel
+# cumsum). Three of the reference's step functions can turn such bits into a
+# jump of a fine sample: sample_pdf's denominator, replaced by 1 below 1e-5;
+# its count of cdf entries <= u at a bin boundary (u = 1 against cdf[-1] at
+# the end); and the box's keep mask at a face. So the view is held on the
+# same rays stage by stage (hold_view_stages): the coarse pass; the fine pass
+# at the card's placement; and the placement itself, where a difference is
+# admitted only as far as the devices' cdf differences carry it, or at a
+# decision that they took apart within rounding. Margins are counted in
+# VIEW_CDF_ULP, the spacing of float32 in [0.5, 1) where the cdf ends, and
+# for the keep mask in ulps of the face. The card's and the CPU's cdf of
+# the llff view lie at most 12 of them apart (PERF.md §6).
+VIEW_CDF_ULP = 2.0**-24
+VIEW_RISK_ULPS = 64  # a margin within this many ulps is within rounding
+VIEW_RISK_LEAST = 256  # the rays of least margin, rendered on the CPU whatever their margin
+VIEW_COARSE_TOL = (1e-5, 1e-6)  # (rtol, atol): ROADMAP §C's coarse render tolerances
+VIEW_FINE_TOL = (1e-4, 5e-5)  # and its fine ones
+VIEW_SAVE_RAYS = 64  # the worst failing rays whose stages and table rows a failure saves
+VIEW_FAILURE_FILE = os.path.join(ROOT, "chiprun_out", "llff_view_failure.pt")
+
+
+def render_stages(torch, state, rays, bbox, cfg, near: float, far: float, chunk: int):
+    """render_rays over rays = (rays_o, rays_d, viewdirs) in chunks, as
+    render() runs them, on the device of bbox, each chunk with a StageTap:
+    {stage: {name: tensor over all rays}} on that device (utils/debug.py
+    says what each stage holds)."""
+    from hashnerf_torch.models.factory import query_fn
+    from hashnerf_torch.render.renderer import render_rays
+    from hashnerf_torch.utils.debug import StageTap
+
+    dev = bbox.device
+    parts = {}
+    with torch.no_grad():
+        for s in range(0, rays[0].shape[0], chunk):
+            o, d, v = (r[s:s + chunk].to(dev) for r in rays)
+            tap = StageTap()
+            render_rays(state, query_fn, o, d, v, near, far, bbox, cfg, tap=tap)
+            for stage, ts in tap.stages.items():
+                for k, t in ts.items():
+                    parts.setdefault(stage, {}).setdefault(k, []).append(t)
+    return {stage: {k: torch.cat(v) for k, v in ts.items()} for stage, ts in parts.items()}
+
+
+def fine_pass_at(torch, state, rays, z, bbox, cfg, chunk: int):
+    """The fine pass of an unculled eval render (render_rays' march: the
+    fine net's query at o + d z and raw2outputs) at given sorted z values
+    (R, N_samples + N_importance), in chunks on the device of bbox:
+    {"fine": {z, raw, weights, rgb}}."""
+    from hashnerf_torch.models.factory import query_fn
+    from hashnerf_torch.ops.volume import raw2outputs
+
+    dev = bbox.device
+    parts = {}
+    with torch.no_grad():
+        for s in range(0, rays[0].shape[0], chunk):
+            o, d, v, zc = (r[s:s + chunk].to(dev) for r in (*rays, z))
+            raw = query_fn(state, o[:, None, :] + d[:, None, :] * zc[..., None], v, bbox, fine=True)
+            out = raw2outputs(raw, zc, d, cfg.raw_noise_std, cfg.white_bkgd)
+            for k, t in (("z", zc), ("raw", raw), ("weights", out.weights), ("rgb", out.rgb_map)):
+                parts.setdefault(k, []).append(t)
+    return {"fine": {k: torch.cat(v) for k, v in parts.items()}}
+
+
+def stages_at(stages, idx, device="cpu"):
+    """The rays idx of a render_stages result, on `device`."""
+    return {stage: {k: v[idx.to(v.device)].to(device) for k, v in ts.items()}
+            for stage, ts in stages.items()}
+
+
+def placement_margins(torch, sp):
+    """(R, S): for each u of sample_pdf's stage sp, how far (in VIEW_CDF_ULP)
+    the cdf may move before the u's sample jumps. (1) The denominator of u's
+    bin against 1e-5, where u is not at the bin's lower edge (there the
+    switch moves nothing) and the bin is not the clamped end. (2) u against
+    the boundary cdf[below] or cdf[above] (never cdf[0] = 0, which is exact):
+    crossing it moves the sample continuously unless the bin under the
+    boundary is switched, so that margin counts only as far as that bin's
+    denominator is within reach of 1e-5. u = 1 against cdf[-1] is case (2)
+    at the last boundary."""
+    cdf, u, below, above, denom = (sp[k] for k in ("cdf", "u", "below", "above", "denom"))
+    inf = torch.full_like(u, float("inf"))
+    d_bins = cdf[:, 1:] - cdf[:, :-1]  # each bin's denominator, as sample_pdf forms it
+    over = lambda d: (d - 1e-5).clamp(min=0)
+    cdf_below = cdf.gather(-1, below)
+    m1 = torch.where((below != above) & (u > cdf_below), (denom - 1e-5).abs(), inf)
+    lo = torch.where(below >= 1, torch.maximum((u - cdf_below).abs(),
+                                               over(d_bins.gather(-1, (below - 1).clamp(min=0)))),
+                     inf)
+    hi = torch.where(below != above, torch.maximum((cdf.gather(-1, above) - u).abs(), over(denom)),
+                     inf)
+    return torch.minimum(m1, torch.minimum(lo, hi)) / VIEW_CDF_ULP
+
+
+def keep_margins(torch, rays, z, bbox):
+    """(R,): the least distance of a ray's points o + d z (z (R, S)) to a
+    face of the box, in ulps of that face's coordinate: the keep mask's
+    margin."""
+    o, d = rays[0].to(z.device), rays[1].to(z.device)
+    p = o[:, None, :] + d[:, None, :] * z[..., None]
+    lo, hi = bbox[0].to(z.device), bbox[1].to(z.device)
+    ulp = lambda f: torch.nextafter(f.abs(), torch.full_like(f, float("inf"))) - f.abs()
+    m = torch.minimum((p - lo).abs() / ulp(lo), (hi - p).abs() / ulp(hi))
+    return m.amin(dim=(1, 2))
+
+
+def view_margins(torch, stages, rays, bbox):
+    """Each ray's least margin at the reference's step functions, from a
+    render_stages result over `rays` in the box bbox: {"pdf" (R,), "keep"
+    (R,), "least" (R,)}, each on the stages' device."""
+    pdf = placement_margins(torch, stages["sample_pdf"]).amin(dim=-1)
+    keep = torch.minimum(keep_margins(torch, rays, stages["coarse"]["z"], bbox),
+                         keep_margins(torch, rays, stages["fine"]["z"], bbox))
+    return {"pdf": pdf, "keep": keep, "least": torch.minimum(pdf, keep)}
+
+
+def view_selection(torch, least, strided):
+    """The rays to render on the CPU: `strided`, every ray whose least
+    margin is within VIEW_RISK_ULPS, and the VIEW_RISK_LEAST rays of least
+    margin; sorted, on the CPU."""
+    least = least.cpu()
+    n_risk = max(int((least <= VIEW_RISK_ULPS).sum()), min(VIEW_RISK_LEAST, least.numel()))
+    return torch.unique(torch.cat([strided.cpu(), torch.argsort(least)[:n_risk]]))
+
+
+def _close(torch, got, want, tol):
+    """Per ray, the largest |got - want| over (atol + rtol |want|): <= 1
+    within tolerance."""
+    rtol, atol = tol
+    r = (got - want).abs() / (atol + rtol * want.abs())
+    return r.reshape(r.shape[0], -1).amax(dim=-1)
+
+
+def pdf_flips(torch, card, cpu):
+    """sample_pdf's decisions that the two renders of the same rays took
+    apart: (ray, u) where the count of cdf entries <= u differs, or, in the
+    same bin, the denominator's switch at 1e-5. Each with its margin on
+    either device, in VIEW_CDF_ULP: |u - cdf[k]| at the boundaries k the
+    counts put apart, or |denom - 1e-5|. Returns (flipped (R, S) bool,
+    margin_card (R, S), margin_cpu (R, S); inf where nothing flipped)."""
+    a, b = card["sample_pdf"], cpu["sample_pdf"]
+    inds_a, inds_b = a["inds"], b["inds"]
+    sw_a, sw_b = a["denom"] < 1e-5, b["denom"] < 1e-5
+    count = inds_a != inds_b
+    switch = ~count & (a["below"] != a["above"]) & (sw_a != sw_b)
+    inf = torch.full_like(a["u"], float("inf"))
+
+    def margin(sp):
+        # the boundaries crossed: cdf[k] for k from min(inds) to max(inds) - 1
+        lo, hi = torch.minimum(inds_a, inds_b), torch.maximum(inds_a, inds_b)
+        m = inf.clone()
+        for k in range(int((hi - lo).max()) if bool(count.any()) else 0):
+            idx = (lo + k).clamp(max=sp["cdf"].shape[-1] - 1)
+            gap = (sp["u"] - sp["cdf"].gather(-1, idx)).abs()
+            m = torch.where(count & (lo + k < hi), torch.minimum(m, gap), m)
+        m = torch.where(switch, (sp["denom"] - 1e-5).abs(), m)
+        return m / VIEW_CDF_ULP
+
+    return count | switch, margin(a), margin(b)
+
+
+def placement_tolerance(torch, card, cpu):
+    """(R, S): how far the two renders' samples z may lie apart where
+    sample_pdf took the same decisions: the differences of their inputs
+    (bin edges, cdf, denominator) carried through z = below + (u - cdf_below)
+    / denom * width, twice, plus one VIEW_CDF_ULP of u - cdf_below and 4
+    ulps of z."""
+    out = []
+    for sp in (card["sample_pdf"], cpu["sample_pdf"]):
+        cb = sp["cdf"].gather(-1, sp["below"])
+        d = torch.where(sp["denom"] < 1e-5, torch.ones_like(sp["denom"]), sp["denom"])
+        bb, ba = sp["bins"].gather(-1, sp["below"]), sp["bins"].gather(-1, sp["above"])
+        out.append((cb, d, bb, ba - bb))
+    (cb1, d1, bb1, w1), (cb2, d2, bb2, w2) = out
+    t = ((card["sample_pdf"]["u"] - cb1) / d1).clamp(0, 1)
+    dmin = torch.minimum(d1, d2)
+    w = torch.maximum(w1.abs(), w2.abs())
+    pred = ((bb1 - bb2).abs() + t * (w1 - w2).abs()
+            + w * ((cb1 - cb2).abs() + t * (d1 - d2).abs()) / dmin)
+    z = card["sample_pdf"]["z"]
+    ulp = torch.nextafter(z.abs(), torch.full_like(z, float("inf"))) - z.abs()
+    return 2 * pred + w * VIEW_CDF_ULP / dmin + 4 * ulp
+
+
+def hold_view_stages(torch, np, card, cpu, at_card):
+    """The llff view gate on one set of rays: card and cpu are render_stages
+    of them on the two devices, at_card the CPU's fine pass at the card's
+    fine z (fine_pass_at); all on the CPU. (a) The coarse pass's rgb and
+    weights within VIEW_COARSE_TOL. (b) At the card's placement, the fine
+    raw within VIEW_FINE_TOL and the rgb by jax_view_close. (c) The
+    placement: every sample within placement_tolerance, except at
+    decisions of sample_pdf that the devices took apart (pdf_flips) with
+    both margins within VIEW_RISK_ULPS, each of which is listed. The whole
+    render's rgb, card against CPU, is recorded; a ray over
+    JAX_VIEW_MAX_TOL there fails unless (c) explains it: its samples lie
+    apart by more than 4 ulps, and (c) admits each difference. Returns (ok,
+    record, failing ray positions)."""
+    fails = {}
+    a = torch.maximum(_close(torch, card["coarse"]["rgb"], cpu["coarse"]["rgb"], VIEW_COARSE_TOL),
+                      _close(torch, card["coarse"]["weights"], cpu["coarse"]["weights"],
+                             VIEW_COARSE_TOL))
+    fails["coarse"] = a > 1
+    b_raw = _close(torch, at_card["fine"]["raw"], card["fine"]["raw"], VIEW_FINE_TOL)
+    fails["fine_raw_at_card_z"] = b_raw > 1
+    ok_b, b_err = jax_view_close(at_card["fine"]["rgb"].numpy(), card["fine"]["rgb"].numpy())
+    b_ray = (at_card["fine"]["rgb"] - card["fine"]["rgb"]).abs().amax(dim=-1)
+    fails["fine_rgb_at_card_z"] = b_ray > JAX_VIEW_MAX_TOL
+    a_sp, b_sp = card["sample_pdf"], cpu["sample_pdf"]
+    flipped, m_card, m_cpu = pdf_flips(torch, card, cpu)
+    within = (m_card <= VIEW_RISK_ULPS) & (m_cpu <= VIEW_RISK_ULPS)
+    z = a_sp["z"]
+    dz = (z - b_sp["z"]).abs()
+    moved = dz > placement_tolerance(torch, card, cpu)
+    fails["placement"] = ((moved & ~flipped) | (flipped & ~within)).any(dim=-1)
+    apart = (dz > 4 * (torch.nextafter(z.abs(), torch.full_like(z, float("inf"))) - z.abs()))
+    explained = apart.any(dim=-1) & ~fails["placement"]
+    whole = (card["fine"]["rgb"] - cpu["fine"]["rgb"]).abs().amax(dim=-1)
+    fails["whole_rgb"] = (whole > JAX_VIEW_MAX_TOL) & ~explained
+    ok_whole, whole_err = jax_view_close(card["fine"]["rgb"].numpy(), cpu["fine"]["rgb"].numpy())
+    bad = torch.zeros_like(whole, dtype=torch.bool)
+    for f in fails.values():
+        bad |= f
+    ok = ok_b and not bool(bad.any())
+    count = a_sp["inds"] != b_sp["inds"]
+    r_idx, s_idx = (flipped & within).nonzero(as_tuple=True)
+    listed = {
+        "ray": r_idx.tolist(), "u_index": s_idx.tolist(),
+        "decision": ["count" if c else "switch" for c in count[r_idx, s_idx].tolist()],
+        "margin_ulps_card": m_card[r_idx, s_idx].tolist(),
+        "margin_ulps_cpu": m_cpu[r_idx, s_idx].tolist(),
+        "dz": dz[r_idx, s_idx].tolist(), "rgb_err": whole[r_idx].tolist(),
+    }
+    rec = {
+        "rays": int(whole.numel()), "ok": ok,
+        "coarse_max_over_tol": float(a.max()),
+        "fine_raw_at_card_z_max_over_tol": float(b_raw.max()),
+        "fine_at_card_z": b_err, "card_vs_cpu": whole_err, "card_vs_cpu_within_view_tol": ok_whole,
+        "placement_max_dz": float(dz.max()),
+        "placed_apart_rays": int(apart.any(dim=-1).sum()),
+        "flips": int(flipped.sum()), "flips_within_rounding": int((flipped & within).sum()),
+        "flips_count": int((flipped & count).sum()), "flips_switch": int((flipped & ~count).sum()),
+        "flip_rays": int(flipped.any(dim=-1).sum()),
+        "flip_max_dz": float(dz[flipped].max()) if bool(flipped.any()) else 0.0,
+        "explained_rays": int(explained.sum()),
+        "explained_over_max_tol": int((explained & (whole > JAX_VIEW_MAX_TOL)).sum()),
+        "explained": listed,
+        "failing": {k: int(v.sum()) for k, v in fails.items()},
+    }
+    return ok, rec, bad.nonzero().flatten()
+
+
+def save_view_failure(torch, path, state, cfg, bbox, near, far, rays, view_idx, order, renders):
+    """Write what replay_view needs to replay a failed view gate to path
+    (torch.save): the state the CPU rendered, the render config, the box and bounds, every
+    failing ray's index in the view (view_idx: the view index of each of
+    `rays`), and for the VIEW_SAVE_RAYS worst of them (`order`: positions
+    in `rays`, worst first) their rays and each
+    render's stages (renders: {name: render_stages result over `rays`}).
+    The hash table keeps only the rows that those rays' points read (the
+    whole table is 64 MiB; the file stays small enough to copy off the
+    card's machine): the rows of every coarse and fine point of each
+    render, by the plain geometry."""
+    import dataclasses
+
+    from hashnerf_torch.ops.hash_encoding import corner_geometry
+
+    keep = order[:VIEW_SAVE_RAYS]
+    sd = {k: v.detach().cpu() for k, v in state.state_dict().items() if k != "hash_table"}
+    table = state.hash_table.detach().cpu()
+    L, T, F = table.shape
+    bb = bbox.cpu()
+    ids = []
+    sub = tuple(r[keep].cpu() for r in rays)
+    for st in renders.values():
+        for stage in ("coarse", "fine"):
+            if stage not in st:
+                continue
+            z = st[stage]["z"][keep].cpu()
+            pts = (sub[0][:, None, :] + sub[1][:, None, :] * z[..., None]).reshape(-1, 3)
+            idx, _, _ = corner_geometry(pts, bb[0], bb[1], state.resolutions.cpu(), T.bit_length() - 1)
+            ids.append((idx + (torch.arange(L) * T)[:, None, None]).reshape(-1).unique())
+    rows = torch.cat(ids).unique()
+    payload = {
+        "model_cfg": dataclasses.asdict(state.cfg), "render_cfg": dataclasses.asdict(cfg),
+        "table_shape": [L, T, F], "table_rows": rows.to(torch.int32),
+        "table_values": table.reshape(L * T, F)[rows], "state": sd,
+        "bbox": bb, "near": float(near), "far": float(far),
+        "failing_view_idx": view_idx.cpu()[order], "saved_view_idx": view_idx.cpu()[keep],
+        "rays": sub,
+        "stages": {name: stages_at(st, keep) for name, st in renders.items()},
+    }
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    torch.save(payload, path)
+    return path
+
+
+def load_view_state(torch, saved):
+    """The NGPState of a save_view_failure payload, on the CPU, its table
+    zero outside the rows saved."""
+    from hashnerf_torch.models.factory import ModelConfig, NGPState
+    from hashnerf_torch.ops.hash_encoding import HashGridConfig
+
+    mc = dict(saved["model_cfg"])
+    mc["hash_grid"] = HashGridConfig(**mc["hash_grid"])
+    state = NGPState(ModelConfig(**mc), device="cpu")
+    L, T, F = saved["table_shape"]
+    table = torch.zeros(L * T, F)
+    table[saved["table_rows"].long()] = saved["table_values"]
+    state.load_state_dict({**saved["state"], "hash_table": table.reshape(L, T, F)})
+    return state
+
+
+def replay_view(torch, path):
+    """Replay a save_view_failure file on the CPU, stage by stage: its rays
+    through the CPU route, and fed the card's saved fine z. Returns
+    {"saved": the payload, "cpu": the replayed render, "at_card": the
+    replayed render at the card's z, "hold": hold_view_stages of the saved
+    card stages against the replay (ok, record, failing rays)}."""
+    import numpy as np
+
+    from hashnerf_torch.render.renderer import RenderConfig
+
+    saved = torch.load(path, weights_only=True)
+    state = load_view_state(torch, saved)
+    cfg = RenderConfig(**saved["render_cfg"])
+    rays, bbox = saved["rays"], saved["bbox"]
+    card = saved["stages"]["card"]
+    cpu = render_stages(torch, state, rays, bbox, cfg, saved["near"], saved["far"], LLFF_CPU_CHUNK)
+    at_card = fine_pass_at(torch, state, rays, card["fine"]["z"], bbox, cfg, LLFF_CPU_CHUNK)
+    return {"saved": saved, "cpu": cpu, "at_card": at_card,
+            "hold": hold_view_stages(torch, np, card, cpu, at_card)}
+
+
+def view_gate(torch, np, state, rays, bbox, cfg, near, far, chunk, strided, save_to=None,
+              cpu_state=None):
+    """The llff view gate on one view (rays = (rays_o, rays_d, viewdirs) of
+    every pixel, NDC): the whole view on the card with its stages
+    (render_stages), each ray's margins (view_margins), the rays held
+    (view_selection: `strided`, the rays at risk and the least margins),
+    those rays on the CPU, and on the CPU again fed the card's fine z; then
+    hold_view_stages. The CPU renders cpu_state, by default a copy of
+    state. On failure save_to, when given, receives save_view_failure's
+    file. Returns (ok, record, the tensors: "whole",
+    "margins", "sel", "card", "cpu", "at_card", "bad")."""
+    from hashnerf_torch.models.factory import NGPState
+
+    sync = torch.cuda.synchronize if bbox.is_cuda else (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    whole = render_stages(torch, state, rays, bbox, cfg, near, far, chunk)
+    margins = view_margins(torch, whole, rays, bbox)
+    sel = view_selection(torch, margins["least"], strided)
+    card = stages_at(whole, sel)
+    sync()
+    card_s = time.perf_counter() - t0
+    if cpu_state is None:
+        cpu_state = NGPState(state.cfg, device="cpu")
+        cpu_state.load_state_dict({k: v.cpu() for k, v in state.state_dict().items()})
+    sub, bb = tuple(r[sel].cpu() for r in rays), bbox.cpu()
+    t0 = time.perf_counter()
+    cpu = render_stages(torch, cpu_state, sub, bb, cfg, near, far, LLFF_CPU_CHUNK)
+    cpu_own_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    at_card = fine_pass_at(torch, cpu_state, sub, card["fine"]["z"], bb, cfg, LLFF_CPU_CHUNK)
+    cpu_at_card_s = time.perf_counter() - t0
+    ok, rec, bad = hold_view_stages(torch, np, card, cpu, at_card)
+    rec["explained"]["ray"] = sel[rec["explained"]["ray"]].tolist()
+    least = margins["least"].cpu()
+    in_sel = torch.isin(sel, strided.cpu())
+    _, strided_err = jax_view_close(card["fine"]["rgb"][in_sel].numpy(),
+                                    cpu["fine"]["rgb"][in_sel].numpy())
+    rec.update({
+        "view_rays": int(least.numel()), "strided_rays": int(strided.numel()),
+        "at_risk_rays": int((least <= VIEW_RISK_ULPS).sum()),
+        "at_risk_pdf": int((margins["pdf"] <= VIEW_RISK_ULPS).sum()),
+        "at_risk_keep": int((margins["keep"] <= VIEW_RISK_ULPS).sum()),
+        "least_margin_ulps": [float(x) for x in torch.topk(least, 8, largest=False).values],
+        "least_keep_margin_ulps": float(margins["keep"].min()),
+        "card_view_s": card_s, "cpu_threads": torch.get_num_threads(),
+        "cpu_view_s": cpu_own_s + cpu_at_card_s, "cpu_own_s": cpu_own_s,
+        "cpu_at_card_z_s": cpu_at_card_s, "strided_card_vs_cpu": strided_err,
+    })
+    if not ok and save_to is not None:
+        err = (card["fine"]["rgb"] - cpu["fine"]["rgb"]).abs().amax(dim=-1)
+        order = bad[torch.argsort(err[bad], descending=True)]
+        rec["saved"] = save_view_failure(torch, save_to, cpu_state, cfg, bbox, near, far, sub, sel,
+                                         order, {"card": card, "cpu": cpu, "at_card": at_card})
+        print(f"llff view gate failed; its state, rays and stages: {rec['saved']}", flush=True)
+    parts = {"whole": whole, "margins": margins, "sel": sel, "card": card, "cpu": cpu,
+             "at_card": at_card, "bad": bad}
+    return ok, rec, parts
+
+
 def phase_llff(torch, np, smi: str, profile: bool):
     """The LLFF path end to end (see LLFF_*): write the set, check the
     loader against the frames written, train configs/fern.txt with ray
@@ -2551,7 +2950,6 @@ def phase_llff(torch, np, smi: str, profile: bool):
 
     from hashnerf_torch import kernels
     from hashnerf_torch.data.llff import load_llff_scene
-    from hashnerf_torch.models.factory import NGPState
     from hashnerf_torch.ops.rays import get_ndc_rays, get_rays
     from hashnerf_torch.run_nerf import main as run_nerf
     from hashnerf_torch.utils.png import read_png
@@ -2662,25 +3060,24 @@ def phase_llff(torch, np, smi: str, profile: bool):
         # K2 and K6 at this path's shapes, on a pool batch's sample points
         encode = encode_check(torch, trainer, trainer.sample_pool(pool, next(rows), args.N_rand), "llff",
                               ndc=True)
-        # the view's rays of every LLFF_CPU_ROW_STRIDE-th row, on the card (K2)
-        # and through the CPU's plain path
+        # the view gate: the whole view on the card (K2), then every
+        # LLFF_CPU_ROW_STRIDE-th row and the rays at risk held stage by stage
+        # against the CPU's plain path (view_gate)
         cfg = trainer.render_cfg.eval_mode()
         ro, rd = get_rays(sc.H, sc.W, torch.as_tensor(sc.K), torch.as_tensor(c2w[:3, :4]))
-        ro, rd = ro[::LLFF_CPU_ROW_STRIDE].reshape(-1, 3), rd[::LLFF_CPU_ROW_STRIDE].reshape(-1, 3)
+        ro, rd = ro.reshape(-1, 3), rd.reshape(-1, 3)
         vd = rd / torch.linalg.norm(rd, dim=-1, keepdim=True)
         rays = (*get_ndc_rays(sc.H, sc.W, sc.focal, 1.0, ro, rd), vd)
-        rgb_card = render_on_rays(torch, trainer.state, rays, trainer.bbox, cfg, sc.near, sc.far,
-                                  args.chunk)
-        cpu_state = NGPState(trainer.model_cfg, device="cpu")
-        cpu_state.load_state_dict({k: v.cpu() for k, v in trainer.state.state_dict().items()})
-        t0 = time.perf_counter()
-        rgb_cpu = render_on_rays(torch, cpu_state, rays, trainer.bbox.cpu(), cfg, sc.near, sc.far,
-                                 LLFF_CPU_CHUNK)
-        cpu_view_s = time.perf_counter() - t0
-        ok, view_err = jax_view_close(rgb_card.numpy(), rgb_cpu.numpy())
+        strided = (torch.arange(0, sc.H, LLFF_CPU_ROW_STRIDE)[:, None] * sc.W
+                   + torch.arange(sc.W)).flatten()
+        ok, view_gate_rec, _ = view_gate(torch, np, trainer.state, rays, trainer.bbox, cfg, sc.near,
+                                         sc.far, args.chunk, strided, save_to=VIEW_FAILURE_FILE)
         n_view = len(range(0, sc.H, LLFF_CPU_ROW_STRIDE)) * sc.W
-        require(ok and rgb_card.shape == (n_view, 3), f"llff: card view against the CPU's: {view_err}")
-        del cpu_state, pool
+        view_gate_brief = {**view_gate_rec, "explained": {
+            k: v[:16] for k, v in view_gate_rec["explained"].items()}}
+        require(ok and view_gate_rec["strided_rays"] == n_view,
+                f"llff: card view against the CPU's, stage by stage: {view_gate_brief}")
+        del pool
 
         for name in ("hash_encode_fwd", "hash_encode_bwd", "segment_accumulate_k5"):
             require(counts[name] > 0, f"kernel {name} was not launched on the llff path")
@@ -2704,13 +3101,14 @@ def phase_llff(torch, np, smi: str, profile: bool):
             "graphed": graphed,
             "train_rays_per_s_graphed_tv": graphed["tv"]["train_rays_per_s_graphed"],
             "train_rays_per_s_graphed_no_tv": graphed["no_tv"]["train_rays_per_s_graphed"],
-            "encode_at_llff_shapes": encode, "view_s": view_s, "cpu_view_rays": n_view,
-            "cpu_view_s": cpu_view_s, "card_vs_cpu_view": view_err,
+            "encode_at_llff_shapes": encode, "view_s": view_s,
+            "cpu_view_rays": view_gate_rec["rays"], "cpu_view_s": view_gate_rec["cpu_view_s"],
+            "card_vs_cpu_view": view_gate_rec["card_vs_cpu"], "view_gate": view_gate_rec,
             "peak_mem_gib_run": run_peak, "peak_mem_gib_training": train_peak,
             "peak_mem_gib_view": view_peak, "launches_in_training": c_train, "launches": counts,
             "phase_s": phase_s,
         }
-        emit(rec)
+        emit({**rec, "view_gate": view_gate_brief})  # every explained ray in --out's record
         if prof is not None:
             emit(prof)
         shown = [("write_s", write_s), ("load_s", load_s), ("train_s", train_s),
@@ -2719,6 +3117,7 @@ def phase_llff(torch, np, smi: str, profile: bool):
                  ("graphed rays/s no TV", rec["train_rays_per_s_graphed_no_tv"]),
                  ("test PSNR dB (sign of life)", rec["test_psnr_mean"]),
                  ("render s per 378x504 view", rec["render_s_per_view"]), ("video_s", rec["video_s"]),
+                 ("view gate rays on the CPU", rec["cpu_view_rays"]), ("cpu_view_s", rec["cpu_view_s"]),
                  ("pool GiB", pool_gib), ("view peak GiB", view_peak), ("phase_s", phase_s)]
         print("llff: " + "; ".join(f"{k} {v:.6g} [{smi}]" for k, v in shown), flush=True)
         return rec

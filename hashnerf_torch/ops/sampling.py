@@ -65,11 +65,13 @@ def sample_pdf(
     det: bool = False,
     u: Optional[torch.Tensor] = None,
     generator: Optional[torch.Generator] = None,
+    tap=None,
 ) -> torch.Tensor:
     """Inverse-transform sampling from the piecewise-constant weight PDF.
 
     bins: (N_rays, M) bin edges; weights: (N_rays, M-1).
-    Returns (N_rays, N_samples). `u` overrides the uniform draws.
+    Returns (N_rays, N_samples). `u` overrides the uniform draws. A `tap`
+    (utils/debug.py::StageTap) records the search and its denominators.
     """
     weights = weights + 1e-5  # prevent nans
     pdf = weights / torch.sum(weights, -1, keepdim=True)
@@ -97,9 +99,13 @@ def sample_pdf(
     bins_above = torch.gather(bins, -1, above)
 
     denom = cdf_above - cdf_below
-    denom = torch.where(denom < 1e-5, torch.ones_like(denom), denom)
-    t = (u - cdf_below) / denom
-    return bins_below + t * (bins_above - bins_below)
+    switched = torch.where(denom < 1e-5, torch.ones_like(denom), denom)
+    t = (u - cdf_below) / switched
+    z = bins_below + t * (bins_above - bins_below)
+    if tap is not None:
+        tap.record("sample_pdf", bins=bins, u=u, cdf=cdf, inds=inds, below=below, above=above,
+                   denom=denom, z=z)
+    return z
 
 
 def sorted_uniform(shape, generator: Optional[torch.Generator] = None, device=None,

@@ -151,6 +151,7 @@ def render_rays(
     generator: Optional[torch.Generator] = None,
     occ_grid: Optional[torch.Tensor] = None,
     layout=None,
+    tap=None,
 ) -> Dict[str, torch.Tensor]:
     """Core per-batch ray march. rays_o/rays_d (R, 3); near/far (R,) or
     scalars; bbox (2, 3). Coarse-pass outputs are keyed rgb0/depth0/acc0/
@@ -160,7 +161,8 @@ def render_rays(
     in the rays' dtype. `layout` (a data-parallel rank's, parallel/mesh.py)
     splits a global cull's kept points over its data ranks: the rays are
     the whole batch's, and every rank returns every ray's outputs
-    (render/occupancy.py::query_with_culling)."""
+    (render/occupancy.py::query_with_culling). A `tap`
+    (utils/debug.py::StageTap) records each pass and sample_pdf's search."""
     R = rays_o.shape[0]
     occ = cfg.occupancy if occ_grid is not None else None
     if draws is None or all(d is None for d in draws):
@@ -228,6 +230,8 @@ def render_rays(
 
     scores_c = score_z(z_vals) if occ is not None else None
     out, w_full, raw = march(z_vals, draws.noise0, fine=False, scores=scores_c)
+    if tap is not None:
+        tap.record("coarse", z=z_vals, raw=raw, weights=w_full, rgb=out.rgb_map)
 
     ret = {}
     if cfg.N_importance > 0:
@@ -244,7 +248,7 @@ def render_rays(
             # torch.sort and gathers here: equal z values would be the only
             # difference, and neither sort promises their order).
             z_samples = sample_pdf(z_vals_mid, w_full[..., 1:-1], cfg.N_importance, det=det,
-                                   u=u_pdf, generator=generator).detach()
+                                   u=u_pdf, generator=generator, tap=tap).detach()
             z_cat = torch.cat([z_vals, z_samples], -1)
             s_cat = torch.cat([scores_c, score_z(z_samples)], -1)
             z_vals, perm = torch.sort(z_cat, dim=-1, stable=True)
@@ -272,10 +276,12 @@ def render_rays(
                     u = sorted_uniform((R, cfg.N_importance), generator, device=z_vals.device,
                                        dtype=z_vals.dtype)
             z_samples = sample_pdf(z_vals_mid, w_full[..., 1:-1], cfg.N_importance, det=det,
-                                   u=u, generator=generator).detach()
+                                   u=u, generator=generator, tap=tap).detach()
             z_vals = merge_sorted(z_vals, z_samples)
             out, _, raw = march(z_vals, draws.noise1, fine=True)
         ret["z_std"] = torch.std(z_samples, dim=-1, correction=0)
+        if tap is not None:
+            tap.record("fine", z=z_vals, raw=raw, weights=out.weights, rgb=out.rgb_map)
 
     ret.update(
         rgb_map=out.rgb_map, depth_map=out.depth_map, acc_map=out.acc_map,

@@ -56,3 +56,21 @@ def check_finite(tree: Any, where: str = "") -> bool:
             clean = False
             print(f"! [Numerical Error] {where}{name} contains {bad} nan/inf of {size}")
     return clean
+
+
+class StageTap:
+    """The tensors the render path hands out at its stages, for holding two
+    devices' renders of the same rays against each other stage by stage
+    (chip_smoke.py's llff view gate, chip_diag.py llff-view).
+
+    render_rays(tap=) records "coarse" (z, raw, weights, rgb) and "fine"
+    (z, raw, weights, rgb); sample_pdf(tap=) records "sample_pdf" (bins, u,
+    cdf, inds, below, above, denom before its 1e-5 switch, and the samples
+    z). Nothing is recorded unless a tap is passed.
+    """
+
+    def __init__(self):
+        self.stages = {}
+
+    def record(self, name: str, **tensors) -> None:
+        self.stages[name] = {k: v.detach() for k, v in tensors.items()}
