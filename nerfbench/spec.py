@@ -1,0 +1,86 @@
+"""Finding a cell's parts by name.
+
+BENCHMARK.json (at the checkout's root) names each cell's configuration and
+traffic mix, and its metrics. Each part is a file of its own under this
+folder, found by that name:
+
+    configs/<config>.json   the port's argv, the settings the reference and
+                            the counts read, the scene, source and cuts
+    traffic/<traffic>.json  the mix's parameters, read by traffic.py
+    metrics/<metric>.py     a per-layer metric's reader
+    limits/<cell>.json      the limit of each number the cell compares
+
+A later change adds a part by adding its file and its entries.
+"""
+from __future__ import annotations
+
+import importlib.util
+import json
+import os
+from typing import Dict, List
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+ROOT = os.path.dirname(HERE)
+
+
+def load_benchmark(root: str = ROOT) -> dict:
+    with open(os.path.join(root, "BENCHMARK.json")) as f:
+        return json.load(f)
+
+
+def _json(kind: str, name: str, base: str) -> dict:
+    path = os.path.join(base, kind, name + ".json")
+    if not os.path.exists(path):
+        raise FileNotFoundError(f"nerfbench: no {kind} file for {name!r} ({path})")
+    with open(path) as f:
+        return json.load(f)
+
+
+def workload(bench: dict, name: str) -> dict:
+    for w in bench["workloads"]:
+        if w["name"] == name:
+            return w
+    raise KeyError(f"nerfbench: no workload {name!r} in BENCHMARK.json "
+                   f"(have {[w['name'] for w in bench['workloads']]})")
+
+
+def config(name: str, base: str = HERE) -> dict:
+    return _json("configs", name, base)
+
+
+def traffic(name: str, base: str = HERE) -> dict:
+    return _json("traffic", name, base)
+
+
+def limits(cell: str, base: str = HERE) -> dict:
+    return _json("limits", cell, base)
+
+
+def metrics_for(bench: dict, cell: str, section: str) -> List[dict]:
+    """The entries of `section` ("end_to_end" or "per_layer") that the cell
+    reports: those that list it, and those with no workloads key."""
+    return [m for m in bench[section] if cell in m.get("workloads", [cell])]
+
+
+def metric_reader(name: str, base: str = HERE):
+    """The module of metrics/<name>.py: NAME, UNIT, LAYER, MOVES and
+    read(ctx) -> float or None (nothing to read)."""
+    path = os.path.join(base, "metrics", name + ".py")
+    if not os.path.exists(path):
+        raise FileNotFoundError(f"nerfbench: no reader for metric {name!r} ({path})")
+    mod_name = "nerfbench_metric_" + "".join(c if c.isalnum() else "_" for c in name)
+    sp = importlib.util.spec_from_file_location(mod_name, path)
+    mod = importlib.util.module_from_spec(sp)
+    sp.loader.exec_module(mod)
+    return mod
+
+
+def read_metrics(entries: List[dict], ctx: dict, base: str = HERE) -> Dict[str, dict]:
+    """{name: {"value", "unit"}} of each per-layer entry whose reader finds
+    something to read."""
+    out = {}
+    for m in entries:
+        value = metric_reader(m["name"], base).read(ctx)
+        if value is not None:
+            out[m["name"]] = {"value": value, "unit": m["unit"]}
+    return out

@@ -1,0 +1,39 @@
+"""The import guard, and that the yardstick imports nothing of the port."""
+import os
+import subprocess
+import sys
+
+from nerfbench import guard
+
+ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+
+def _run(code: str):
+    return subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                          text=True, timeout=300)
+
+
+def test_whole_top_level_names():
+    names = ["hashnerf_torch", "hashnerf_torch.kernels", "hashnerf_tpux", "jaxtyping",
+             "torch", "flax.linen", "jax.numpy", "jaxlib", "hashnerf_tpu.ops"]
+    assert guard.forbidden_modules(names) == ["flax.linen", "hashnerf_tpu.ops", "jax.numpy",
+                                              "jaxlib"]
+
+
+def test_the_port_passes_and_a_planted_jax_package_import_fails():
+    ok = _run("import hashnerf_torch.train.driver, nerfbench.harness\n"
+              "from nerfbench import guard\nguard.check('test')\nprint('passed')")
+    assert ok.returncode == 0 and "passed" in ok.stdout, ok.stderr
+    bad = _run("import hashnerf_torch.train.driver, hashnerf_tpu\n"
+               "from nerfbench import guard\nguard.check('test')\nprint('passed')")
+    assert bad.returncode == 3 and "passed" not in bad.stdout
+    assert "hashnerf_tpu" in bad.stderr
+
+
+def test_the_yardstick_imports_nothing_of_the_port():
+    r = _run("import sys\nimport nerfbench.reference, nerfbench.counts, nerfbench.scene, "
+             "nerfbench.trace, nerfbench.traffic, nerfbench.spec\n"
+             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+             "('hashnerf_torch', 'hashnerf_tpu', 'jax')))")
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == "[]"
