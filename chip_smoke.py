@@ -391,6 +391,14 @@ def require(cond: bool, what: str) -> None:
         raise CheckFailed(what)
 
 
+def kernel_launches():
+    """Each kernel wrapper's launches: kernels.launch_counts without the
+    program's counters."""
+    from hashnerf_torch import kernels
+
+    return {k: n for k, n in kernels.launch_counts().items() if k in kernels.KERNELS}
+
+
 def row_abs_ok(got, want, abs_sum) -> bool:
     """Atomics add in an order that changes from run to run: each entry may
     differ from the plain version by 2e-5 of its row's absolute sum."""
@@ -1710,20 +1718,20 @@ def phase_main_path(torch, np, path: str, profile: bool):
         torch.cuda.synchronize()
         loop_s = time.perf_counter() - t0
 
-        c0 = kernels.launch_counts()
+        c0 = kernel_launches()
         loop_peak = torch.cuda.max_memory_allocated() / 2**30  # its test-set render included
         torch.cuda.reset_peak_memory_stats()
         if spec["tv_start"] is not None:
             trainer.global_step = spec["tv_start"]
         keeps_tv = []
         tv_s, tv_losses = timed_steps(torch, trainer, 10, keeps_tv)  # TV on
-        c1 = kernels.launch_counts()
+        c1 = kernel_launches()
         tv_peak = torch.cuda.max_memory_allocated() / 2**30
         torch.cuda.reset_peak_memory_stats()
         trainer.global_step = spec["no_tv_start"]  # past the TV steps, as bench.py does
         keeps = []
         notv_s, notv_losses = timed_steps(torch, trainer, 20, keeps)
-        c2 = kernels.launch_counts()
+        c2 = kernel_launches()
         notv_peak = torch.cuda.max_memory_allocated() / 2**30
         train_peak = max(tv_peak, notv_peak)  # training steps only
         for window, got, want in (("with", keeps_tv, spec["keeps_tv"]),
@@ -1739,10 +1747,10 @@ def phase_main_path(torch, np, path: str, profile: bool):
             prof = {"path": path, **profile_steps(torch, trainer, 3, statistics.median(notv_s))}
 
         # the same windows as CUDA graph replays (run_steps blocks)
-        c_g0 = kernels.launch_counts()
+        c_g0 = kernel_launches()
         graphed = {"tv": graphed_window(torch, trainer, path, spec["graph_tv_start"], "tv", profile),
                    "no_tv": graphed_window(torch, trainer, path, GRAPH_NO_TV_START, "no_tv", profile)}
-        c_g1 = kernels.launch_counts()
+        c_g1 = kernel_launches()
         k5_graphed_no_tv = graphed["no_tv"]["launches_per_step"]["segment_accumulate_k5"]
         require((k5_graphed_no_tv > 0) == spec["k5_no_tv"],
                 f"{path}: K5 launched {k5_graphed_no_tv} times a graphed step without TV")
@@ -1790,7 +1798,7 @@ def phase_main_path(torch, np, path: str, profile: bool):
                       "occupied_cells": int((trainer.occ_grid > 0).sum())}
             require(rgb_c.shape == (scene.H, scene.W, 3), f"culled render shape {tuple(rgb_c.shape)}")
             require(bool(torch.isfinite(rgb_c).all()), "non-finite culled render")
-        counts = kernels.launch_counts()
+        counts = kernel_launches()
 
         losses = [h[1] for h in trainer.history] + tv_losses + notv_losses
         require(rgb.shape == (scene.H, scene.W, 3), f"render shape {tuple(rgb.shape)}")
@@ -2002,7 +2010,7 @@ def graphed_window(torch, trainer, path: str, start: int, window: str, profile: 
 
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    c0 = kernels.launch_counts()
+    c0 = kernel_launches()
     ts, losses = [], [graph2_loss]
     for i in range(GRAPH_TIMED_BLOCKS[window]):
         torch.cuda.synchronize()
@@ -2011,7 +2019,7 @@ def graphed_window(torch, trainer, path: str, start: int, window: str, profile: 
         losses.append(float(m["loss"]))
         ts.append(time.perf_counter() - t0)
         keeps.append(trainer.last_occ_keep)
-    c1 = kernels.launch_counts()
+    c1 = kernel_launches()
     require(all(k == want_keep for k in keeps),
             f"graphed blocks from step {start}: not all at keeps {want_keep}: {keeps}")
     require(all(math.isfinite(x) for x in losses), f"graphed blocks from step {start}: non-finite loss")
@@ -2287,7 +2295,7 @@ def phase_blender(torch, np, smi: str, profile: bool, data: str):
                  for i in range(BLENDER_VIDEO_FRAMES)]
         require(set(small) == {(100, 200, 3)}, f"render_factor 4 figures {set(small)}")
         del r
-        c_chair = kernels.launch_counts()
+        c_chair = kernel_launches()
 
         # the flagship preset on the same set; every step from the warmup on
         # must cull at its budgets (blocks of graph replays and single steps)
@@ -2338,7 +2346,7 @@ def phase_blender(torch, np, smi: str, profile: bool, data: str):
         require(step_j == 8 and ok, f"JAX checkpoint (step {step_j}) view: {jax_err}")
         del jt
 
-        counts = kernels.launch_counts()
+        counts = kernel_launches()
         for name in CHAIR_KERNELS + PACKED_KERNELS:  # the chair's runs, the flagship's
             require(counts[name] > 0, f"kernel {name} was not launched on the blender path")
         for name in OFF_PATH:
@@ -2984,7 +2992,7 @@ def phase_llff(torch, np, smi: str, profile: bool):
                                                  "--i_video", str(n)])
         torch.cuda.synchronize()
         train_s = time.perf_counter() - t0
-        c_train = kernels.launch_counts()
+        c_train = kernel_launches()
         run_peak = torch.cuda.max_memory_allocated() / 2**30
         args = trainer.args
         require(trainer.render_cfg.ndc and not args.no_batching and trainer.global_step == n,
@@ -3023,12 +3031,12 @@ def phase_llff(torch, np, smi: str, profile: bool):
         rows = itertools.count(0, args.N_rand)
         batches = lambda: trainer.sample_pool(pool, next(rows), args.N_rand)
         torch.cuda.reset_peak_memory_stats()
-        c0 = kernels.launch_counts()
+        c0 = kernel_launches()
         tv_s, tv_losses = timed_steps(torch, trainer, 10, batches=batches)  # TV on
-        c1 = kernels.launch_counts()
+        c1 = kernel_launches()
         trainer.global_step = 1001
         notv_s, notv_losses = timed_steps(torch, trainer, 20, batches=batches)
-        c2 = kernels.launch_counts()
+        c2 = kernel_launches()
         train_peak = torch.cuda.max_memory_allocated() / 2**30
         require(all(np.isfinite(tv_losses + notv_losses)), "llff: non-finite timed loss")
         prof = None
@@ -3055,7 +3063,7 @@ def phase_llff(torch, np, smi: str, profile: bool):
         torch.cuda.synchronize()
         view_s = time.perf_counter() - t0
         view_peak = torch.cuda.max_memory_allocated() / 2**30
-        counts = kernels.launch_counts()
+        counts = kernel_launches()
 
         # K2 and K6 at this path's shapes, on a pool batch's sample points
         encode = encode_check(torch, trainer, trainer.sample_pool(pool, next(rows), args.N_rand), "llff",
@@ -3416,9 +3424,9 @@ def phase_st3d(torch, np, smi: str, profile: bool):
             rows = itertools.count(0, args.N_rand)
             batches = lambda: trainer.sample_pool(pool, next(rows), args.N_rand)
             torch.cuda.reset_peak_memory_stats()
-            c0 = kernels.launch_counts()
+            c0 = kernel_launches()
             eager_s, eager_losses = timed_steps(torch, trainer, 10, batches=batches)
-            c1 = kernels.launch_counts()
+            c1 = kernel_launches()
             train_peak = torch.cuda.max_memory_allocated() / 2**30
             require(all(np.isfinite(eager_losses)), f"st3d {name}: non-finite eager loss")
             prof = None
@@ -3454,7 +3462,7 @@ def phase_st3d(torch, np, smi: str, profile: bool):
             require(rgbs.shape == (1, H, W, 3) and np.isfinite(view_psnr)
                     and not os.path.exists(os.path.join(expdir, "one_view", "video2.gif")),
                     f"st3d {name}: one view {rgbs.shape}, PSNR {view_psnr}")
-            counts = kernels.launch_counts()
+            counts = kernel_launches()
             want = PATHS["st3d"]["runs"][name]
             bad = {k: v for k, v in counts.items() if (v > 0) != (k in want)}
             require(not bad, f"st3d {name}: launches {counts}, must launch exactly {want}")
@@ -3687,7 +3695,7 @@ def chair_float32_run(torch, np, logs: str):
                         "--basedir", logs, "--N_iters", str(CHAIR_F32_ITERS), "--i_print", "4",
                         "--i_weights", str(CHAIR_F32_ITERS), "--i_testset", "0", "--i_video", "0"])
     torch.cuda.synchronize()
-    counts = kernels.launch_counts()
+    counts = kernel_launches()
     losses = [h[1] for h in trainer.history]
     want = PATHS["loaders"]["runs"]["chair_float32"]
     bad = {k: v for k, v in counts.items() if (v > 0) != (k in want)}
@@ -3728,7 +3736,7 @@ def phase_loaders(torch, np, smi: str):
                                                       "--device", DEV] + LOADER_RUN)
             torch.cuda.synchronize()
             run_s = time.perf_counter() - t0
-            counts = kernels.launch_counts()
+            counts = kernel_launches()
             sc, args = trainer.scene, trainer.args
             losses = [h[1] for h in trainer.history]
             require(trainer.global_step == LOADER_ITERS and (sc.H, sc.W) == hw
@@ -4021,7 +4029,7 @@ def phase_tools(torch, np, smi: str, data: str):
         torch.cuda.empty_cache()
 
         graft = timed("graft_entry", lambda: _tools_entry(torch, np))
-        counts = kernels.launch_counts()
+        counts = kernel_launches()
         for name in KERNEL_INFO:
             want = name in PATHS["tools"]["kernels"]
             require((counts[name] > 0) == want,
@@ -4069,7 +4077,7 @@ def _multi_counts():
     from hashnerf_torch import kernels
     from hashnerf_torch.parallel import mesh
 
-    return {**kernels.launch_counts(), **mesh.collective_counts()}
+    return {**kernel_launches(), **mesh.collective_counts()}
 
 
 def _multi_reset():

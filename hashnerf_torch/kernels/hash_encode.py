@@ -28,6 +28,7 @@ import torch
 from hashnerf_torch.kernels import build
 from hashnerf_torch.kernels.segment_accum import segment_accumulate_k5_plain
 from hashnerf_torch.ops.hash_encoding import corner_geometry, encode_with_resolutions
+from hashnerf_torch.utils.profiling import annotate
 
 # Levels in a group of K2's and K6's launch order (csrc/hash_encode.cu):
 # chip_smoke.py times groups of 1 to 16 levels on the card.
@@ -176,15 +177,18 @@ def hash_encode_bwd(
     _check_inputs(name, ts, L, T)
     log2T = _log2(T)
     if _on_cpu(*ts):
-        return hash_encode_bwd_plain(x, bbox_min, bbox_max, resolutions, g_feats, T)
+        with annotate("hn.encode.bwd"):
+            return hash_encode_bwd_plain(x, bbox_min, bbox_max, resolutions, g_feats, T)
     _check_cuda(name, ts, L, T)
     _check_aligned(name, g_feats, F)
-    d_table = torch.zeros((L, T, F), dtype=torch.float32, device=x.device)
-    err = _fn(name)(
-        x.data_ptr(), bbox_min.data_ptr(), bbox_max.data_ptr(), resolutions.data_ptr(),
-        g_feats.data_ptr(), d_table.data_ptr(), x.shape[0], L, log2T, F,
-        _K6_GROUP_LEVELS, torch.cuda.current_stream(x.device).cuda_stream,
-    )
+    # the span names the gradient's zero-fill, a PyTorch fill, with K6
+    with annotate("hn.encode.bwd"):
+        d_table = torch.zeros((L, T, F), dtype=torch.float32, device=x.device)
+        err = _fn(name)(
+            x.data_ptr(), bbox_min.data_ptr(), bbox_max.data_ptr(), resolutions.data_ptr(),
+            g_feats.data_ptr(), d_table.data_ptr(), x.shape[0], L, log2T, F,
+            _K6_GROUP_LEVELS, torch.cuda.current_stream(x.device).cuda_stream,
+        )
     build.check(err, name)
     hash_encode_bwd.launches += 1
     return d_table

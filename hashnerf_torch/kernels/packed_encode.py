@@ -35,6 +35,7 @@ import torch
 from hashnerf_torch.kernels import build
 from hashnerf_torch.ops.hash_encoding import corner_weights
 from hashnerf_torch.ops.hashing import box_offsets, spatial_hash
+from hashnerf_torch.utils.profiling import annotate
 
 MAX_LEVELS = 32  # csrc/packed_encode.cu: kMaxLevels
 MAX_F = 8
@@ -245,16 +246,19 @@ def packed_encode_bwd(
     ts = {"x": x, "bbox_min": bbox_min, "bbox_max": bbox_max, "g_feats": g_feats}
     shapes = {"x": (N, 3), "bbox_min": (3,), "bbox_max": (3,), "g_feats": (N, cfg.out_dim)}
     if _check(name, cfg, ts, shapes) == "cpu":
-        return packed_encode_bwd_plain(x, bbox_min, bbox_max, g_feats, cfg)
+        with annotate("hn.encode.bwd"):
+            return packed_encode_bwd_plain(x, bbox_min, bbox_max, g_feats, cfg)
     _check_aligned(name, {"g_feats": g_feats}, cfg.n_features_per_level)
     dense, fine = table_shapes(cfg)
     z = lambda s: None if s is None else torch.zeros(s, dtype=torch.float32, device=x.device)
-    d_dense, d_fine = z(dense), z(fine)
-    err = _fn(name)(
-        x.data_ptr(), bbox_min.data_ptr(), bbox_max.data_ptr(), g_feats.data_ptr(),
-        _ptr(d_dense), _ptr(d_fine), N, *_level_args(cfg), _K8_GROUP_LEVELS,
-        torch.cuda.current_stream(x.device).cuda_stream,
-    )
+    # the span names the gradients' zero-fills, PyTorch fills, with K8
+    with annotate("hn.encode.bwd"):
+        d_dense, d_fine = z(dense), z(fine)
+        err = _fn(name)(
+            x.data_ptr(), bbox_min.data_ptr(), bbox_max.data_ptr(), g_feats.data_ptr(),
+            _ptr(d_dense), _ptr(d_fine), N, *_level_args(cfg), _K8_GROUP_LEVELS,
+            torch.cuda.current_stream(x.device).cuda_stream,
+        )
     build.check(err, name)
     packed_encode_bwd.launches += 1
     return d_dense, d_fine

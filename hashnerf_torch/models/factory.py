@@ -10,7 +10,8 @@ table and the MLPs:
 With `share_fine` there is no fine net: the coarse net answers both passes.
 Points outside the bbox get sigma (channel 3) zeroed, as in the JAX
 query_fn. Positional encoding and the NeRF / NeRFGradient MLPs come in a
-later slice (ROADMAP A1/A2).
+later slice (ROADMAP A1/A2). query_fn runs in an `hn.query` span, its
+encode in `hn.encode` and its MLP in `hn.mlp` (utils/profiling.py).
 """
 from __future__ import annotations
 
@@ -26,6 +27,7 @@ from hashnerf_torch.ops.hash_encoding import HashGridConfig, init_hash_table
 from hashnerf_torch.ops.packed_grid import PackedGridConfig, init_packed_tables, packed_encode
 from hashnerf_torch.ops.positional import PositionalConfig, positional_encode
 from hashnerf_torch.ops.sh_encoding import sh_encode, sh_out_dim
+from hashnerf_torch.utils.profiling import annotate
 
 # the reference's embedder ids
 EMBED_IDENTITY = -1
@@ -174,30 +176,34 @@ def query_fn(state: NGPState, pts, viewdirs, bbox, fine: bool = False) -> torch.
     the bbox (the hash grid's keep mask). pts (R, S, 3), viewdirs (R, 3) or
     None, bbox (2, 3) -> raw (R, S, C): C 4, or NeRF's output_ch without
     viewdirs, or 7 for NeRFGradient."""
-    cfg = state.cfg
-    R, S = pts.shape[0], pts.shape[1]
-    flat = pts.reshape(-1, 3).contiguous()
-    keep = None  # every point kept
-    if cfg.i_embed == EMBED_IDENTITY:
-        embedded = flat
-    elif cfg.i_embed == EMBED_POSITIONAL:
-        embedded = positional_encode(flat, cfg.positional)
-    elif cfg.i_embed == EMBED_SH:
-        embedded = sh_encode(flat, cfg.sh_degree)
-    elif cfg.packed_layout:
-        embedded, keep = packed_encode(state.hash_table, flat, bbox[0], bbox[1], state.packed_cfg)
-    else:
-        embedded, keep = state.encode_hash(flat, bbox)
-    if cfg.use_viewdirs and viewdirs is not None:
-        dirs = viewdirs[:, None, :].expand(R, S, 3).reshape(-1, 3)
-        if cfg.i_embed_views == EMBED_SH:
-            dirs = sh_encode(dirs, cfg.sh_degree)
-        elif cfg.i_embed_views == EMBED_POSITIONAL:
-            dirs = positional_encode(dirs, cfg.positional_views)
-        embedded = torch.cat([embedded, dirs], dim=-1)
-    mlp = state.fine if (fine and state.fine is not None) else state.coarse
-    raw = mlp(embedded)
-    if keep is not None:
-        sigma = torch.where(keep, raw[..., 3], torch.zeros_like(raw[..., 3]))
-        raw = torch.cat([raw[..., :3], sigma[..., None], raw[..., 4:]], dim=-1)
-    return raw.reshape(R, S, raw.shape[-1])
+    with annotate("hn.query"):
+        cfg = state.cfg
+        R, S = pts.shape[0], pts.shape[1]
+        flat = pts.reshape(-1, 3).contiguous()
+        keep = None  # every point kept
+        with annotate("hn.encode"):
+            if cfg.i_embed == EMBED_IDENTITY:
+                embedded = flat
+            elif cfg.i_embed == EMBED_POSITIONAL:
+                embedded = positional_encode(flat, cfg.positional)
+            elif cfg.i_embed == EMBED_SH:
+                embedded = sh_encode(flat, cfg.sh_degree)
+            elif cfg.packed_layout:
+                embedded, keep = packed_encode(state.hash_table, flat, bbox[0], bbox[1],
+                                               state.packed_cfg)
+            else:
+                embedded, keep = state.encode_hash(flat, bbox)
+        if cfg.use_viewdirs and viewdirs is not None:
+            dirs = viewdirs[:, None, :].expand(R, S, 3).reshape(-1, 3)
+            if cfg.i_embed_views == EMBED_SH:
+                dirs = sh_encode(dirs, cfg.sh_degree)
+            elif cfg.i_embed_views == EMBED_POSITIONAL:
+                dirs = positional_encode(dirs, cfg.positional_views)
+            embedded = torch.cat([embedded, dirs], dim=-1)
+        mlp = state.fine if (fine and state.fine is not None) else state.coarse
+        with annotate("hn.mlp"):
+            raw = mlp(embedded)
+        if keep is not None:
+            sigma = torch.where(keep, raw[..., 3], torch.zeros_like(raw[..., 3]))
+            raw = torch.cat([raw[..., :3], sigma[..., None], raw[..., 4:]], dim=-1)
+        return raw.reshape(R, S, raw.shape[-1])

@@ -22,7 +22,8 @@ score, so the kept set is decided inside runs of equal scores.
 
 Every random draw (update cells, block picks, offsets, jitter) can be
 handed in through `OccUpdateDraws`; any draw left out comes from the
-torch.Generator.
+torch.Generator. query_with_culling's scores, cut and un-permute run in
+`hn.cull` spans (utils/profiling.py); its query does not.
 """
 from __future__ import annotations
 
@@ -34,6 +35,7 @@ import torch.nn.functional as F
 
 from hashnerf_torch.kernels.gather import permute_rows
 from hashnerf_torch.ops.sampling import linspace01
+from hashnerf_torch.utils.profiling import annotate
 
 
 @dataclasses.dataclass(frozen=True)
@@ -306,17 +308,21 @@ def query_with_culling(query_fn, state, pts: torch.Tensor, viewdirs: Optional[to
     Rr, S = pts.shape[0], pts.shape[1]
     flat = pts.reshape(-1, 3)
     n = flat.shape[0]
-    if scores is None:
-        scores = occupancy_scores(grid, flat, bbox, cfg)
-    else:
-        scores = scores.reshape(-1)
-
     B = cfg.block
-    if B > 1 and S % B == 0 and keep_k % B == 0:
-        nb, kb = n // B, keep_k // B
-        bscores = scores.reshape(nb, B).amax(dim=-1)
-        kept_idx, order, inv_perm = cull_points(bscores, kb, mode=cfg.partition)
+    blocks = B > 1 and S % B == 0 and keep_k % B == 0
+    with annotate("hn.cull"):
+        if scores is None:
+            scores = occupancy_scores(grid, flat, bbox, cfg)
+        else:
+            scores = scores.reshape(-1)
+        if blocks:
+            nb, kb = n // B, keep_k // B
+            kept_idx, order, inv_perm = cull_points(scores.reshape(nb, B).amax(dim=-1), kb,
+                                                    mode=cfg.partition)
+        else:
+            kept_idx, order, inv_perm = cull_points(scores, keep_k, mode=cfg.partition)
 
+    if blocks:
         def query(idx):
             dirs = None
             if viewdirs is not None:
@@ -326,11 +332,10 @@ def query_with_culling(query_fn, state, pts: torch.Tensor, viewdirs: Optional[to
 
         raw_kept = _query_kept(query, kept_idx, layout)  # (kb, B, C)
         C = raw_kept.shape[-1]
-        raw_perm = torch.cat([raw_kept.reshape(kb, B * C),
-                              raw_kept.new_zeros((nb - kb, B * C))], dim=0)
-        return permute_rows(raw_perm, inv_perm, order).reshape(Rr, S, C)
-
-    kept_idx, order, inv_perm = cull_points(scores, keep_k, mode=cfg.partition)
+        with annotate("hn.cull"):
+            raw_perm = torch.cat([raw_kept.reshape(kb, B * C),
+                                  raw_kept.new_zeros((nb - kb, B * C))], dim=0)
+            return permute_rows(raw_perm, inv_perm, order).reshape(Rr, S, C)
 
     def query(idx):
         if viewdirs is not None:
@@ -341,6 +346,7 @@ def query_with_culling(query_fn, state, pts: torch.Tensor, viewdirs: Optional[to
 
     raw_kept = _query_kept(query, kept_idx, layout)
     C = raw_kept.shape[-1]
-    # row j of raw_perm belongs to point order[j]; point i sits at inv_perm[i]
-    raw_perm = torch.cat([raw_kept, raw_kept.new_zeros((n - keep_k, C))], dim=0)
-    return permute_rows(raw_perm, inv_perm, order).reshape(Rr, S, C)
+    with annotate("hn.cull"):
+        # row j of raw_perm belongs to point order[j]; point i sits at inv_perm[i]
+        raw_perm = torch.cat([raw_kept, raw_kept.new_zeros((n - keep_k, C))], dim=0)
+        return permute_rows(raw_perm, inv_perm, order).reshape(Rr, S, C)

@@ -13,6 +13,13 @@ splits one key into k_strat, k_noise0, k_pdf and k_noise1; here each of
 those draws is a tensor in
 `RenderDraws` that the caller may hand in, and any draw left out is taken
 from the torch.Generator.
+
+Spans (utils/profiling.py): `hn.render` (a frame), `hn.render.chunk`
+(each chunk's render_rays), `hn.render.gather` (the chunks' outputs put
+together); inside render_rays `hn.march.coarse` and `hn.march.fine` (a
+pass: its query and compositing), `hn.sample_pdf`, `hn.cull` (the
+occupancy scores, the cut and its undoing, without the query) and
+`hn.composite` (raw2outputs).
 """
 from __future__ import annotations
 
@@ -33,6 +40,7 @@ from hashnerf_torch.render.occupancy import (
 )
 from hashnerf_torch.utils.debug import check_finite, debug_enabled
 from hashnerf_torch.utils.io import save_psnr_pickle, save_render_figures
+from hashnerf_torch.utils.profiling import annotate
 
 
 @dataclasses.dataclass(frozen=True)
@@ -204,32 +212,40 @@ def render_rays(
                 raw = query_with_culling(query_fn, state, pts, viewdirs, bbox, occ_grid, occ,
                                          keep_k(n, keep_fraction(fine)), fine=fine,
                                          scores=scores, layout=layout)
-            out = raw2outputs(raw, z_vals, rays_d, cfg.raw_noise_std, cfg.white_bkgd,
-                              noise=noise, generator=generator)
+            with annotate("hn.composite"):
+                out = raw2outputs(raw, z_vals, rays_d, cfg.raw_noise_std, cfg.white_bkgd,
+                                  noise=noise, generator=generator)
             return out, out.weights, raw
 
         S = z_vals.shape[-1]
         K = keep_per_ray(S, keep_fraction(fine))
-        if scores is None:
-            scores = score_z(z_vals)
-        idx = cull_per_ray(scores, K)  # (R, K), z order
-        z_k = torch.gather(z_vals, -1, idx)
-        dists_full = torch.cat([z_vals[..., 1:] - z_vals[..., :-1],
-                                torch.full_like(z_vals[..., :1], 1e10)], -1)
-        pts_k = rays_o[:, None, :] + rays_d[:, None, :] * z_k[..., None]
+        with annotate("hn.cull"):
+            if scores is None:
+                scores = score_z(z_vals)
+            idx = cull_per_ray(scores, K)  # (R, K), z order
+            z_k = torch.gather(z_vals, -1, idx)
+            dists_full = torch.cat([z_vals[..., 1:] - z_vals[..., :-1],
+                                    torch.full_like(z_vals[..., :1], 1e10)], -1)
+            pts_k = rays_o[:, None, :] + rays_d[:, None, :] * z_k[..., None]
         raw = query_fn(state, pts_k, viewdirs, bbox, fine=fine)
-        out = raw2outputs(raw, z_k, rays_d, cfg.raw_noise_std, cfg.white_bkgd,
-                          noise=noise, generator=generator,
-                          dists=torch.gather(dists_full, -1, idx))
-        w_full = torch.zeros_like(z_vals, dtype=out.weights.dtype).scatter(-1, idx, out.weights)
+        with annotate("hn.composite"):
+            out = raw2outputs(raw, z_k, rays_d, cfg.raw_noise_std, cfg.white_bkgd,
+                              noise=noise, generator=generator,
+                              dists=torch.gather(dists_full, -1, idx))
+        with annotate("hn.cull"):
+            w_full = torch.zeros_like(z_vals, dtype=out.weights.dtype).scatter(-1, idx, out.weights)
         return out, w_full, raw
 
     z_vals = stratified_z_vals(near, far, cfg.N_samples, cfg.lindisp)
     if cfg.perturb:
         z_vals = perturb_z_vals(z_vals, draws.t_strat, generator)
 
-    scores_c = score_z(z_vals) if occ is not None else None
-    out, w_full, raw = march(z_vals, draws.noise0, fine=False, scores=scores_c)
+    with annotate("hn.march.coarse"):
+        scores_c = None
+        if occ is not None:
+            with annotate("hn.cull"):
+                scores_c = score_z(z_vals)
+        out, w_full, raw = march(z_vals, draws.noise0, fine=False, scores=scores_c)
     if tap is not None:
         tap.record("coarse", z=z_vals, raw=raw, weights=w_full, rgb=out.rgb_map)
 
@@ -247,25 +263,28 @@ def render_rays(
             # one sort keyed on z (JAX's multi-operand lax.sort; a stable
             # torch.sort and gathers here: equal z values would be the only
             # difference, and neither sort promises their order).
-            z_samples = sample_pdf(z_vals_mid, w_full[..., 1:-1], cfg.N_importance, det=det,
-                                   u=u_pdf, generator=generator, tap=tap).detach()
-            z_cat = torch.cat([z_vals, z_samples], -1)
-            s_cat = torch.cat([scores_c, score_z(z_samples)], -1)
-            z_vals, perm = torch.sort(z_cat, dim=-1, stable=True)
-            scores_f = torch.gather(s_cat, -1, perm)
-            if occ.transmittance_cull:
-                # Early ray termination as a score threshold (eval only):
-                # T at each coarse sample, +inf at the new ones; after the
-                # sort a running minimum carries each sample the T of the
-                # last coarse sample at or before it. Samples behind
-                # T < 1e-3 drop to score 0, below every live score.
-                cw = torch.cumsum(w_full, dim=-1)
-                t_coarse = 1.0 - torch.cat([torch.zeros_like(cw[..., :1]), cw[..., :-1]], -1)
-                payload = torch.cat([t_coarse, torch.full_like(z_samples, float("inf"))], -1)
-                t_fill = torch.cummin(torch.gather(payload, -1, perm), dim=-1).values
-                scores_f = torch.where((t_fill < 1e-3) & (scores_f > 0),
-                                       torch.zeros_like(scores_f), scores_f)
-            out, _, raw = march(z_vals, draws.noise1, fine=True, scores=scores_f)
+            with annotate("hn.sample_pdf"):
+                z_samples = sample_pdf(z_vals_mid, w_full[..., 1:-1], cfg.N_importance, det=det,
+                                       u=u_pdf, generator=generator, tap=tap).detach()
+            with annotate("hn.cull"):
+                z_cat = torch.cat([z_vals, z_samples], -1)
+                s_cat = torch.cat([scores_c, score_z(z_samples)], -1)
+                z_vals, perm = torch.sort(z_cat, dim=-1, stable=True)
+                scores_f = torch.gather(s_cat, -1, perm)
+                if occ.transmittance_cull:
+                    # Early ray termination as a score threshold (eval only):
+                    # T at each coarse sample, +inf at the new ones; after the
+                    # sort a running minimum carries each sample the T of the
+                    # last coarse sample at or before it. Samples behind
+                    # T < 1e-3 drop to score 0, below every live score.
+                    cw = torch.cumsum(w_full, dim=-1)
+                    t_coarse = 1.0 - torch.cat([torch.zeros_like(cw[..., :1]), cw[..., :-1]], -1)
+                    payload = torch.cat([t_coarse, torch.full_like(z_samples, float("inf"))], -1)
+                    t_fill = torch.cummin(torch.gather(payload, -1, perm), dim=-1).values
+                    scores_f = torch.where((t_fill < 1e-3) & (scores_f > 0),
+                                           torch.zeros_like(scores_f), scores_f)
+            with annotate("hn.march.fine"):
+                out, _, raw = march(z_vals, draws.noise1, fine=True, scores=scores_f)
         else:
             u = u_pdf
             if cfg.fast_merge and not det:
@@ -275,10 +294,12 @@ def render_rays(
                 if u is None:
                     u = sorted_uniform((R, cfg.N_importance), generator, device=z_vals.device,
                                        dtype=z_vals.dtype)
-            z_samples = sample_pdf(z_vals_mid, w_full[..., 1:-1], cfg.N_importance, det=det,
-                                   u=u, generator=generator, tap=tap).detach()
-            z_vals = merge_sorted(z_vals, z_samples)
-            out, _, raw = march(z_vals, draws.noise1, fine=True)
+            with annotate("hn.sample_pdf"):
+                z_samples = sample_pdf(z_vals_mid, w_full[..., 1:-1], cfg.N_importance, det=det,
+                                       u=u, generator=generator, tap=tap).detach()
+            with annotate("hn.march.fine"):
+                z_vals = merge_sorted(z_vals, z_samples)
+                out, _, raw = march(z_vals, draws.noise1, fine=True)
         ret["z_std"] = torch.std(z_samples, dim=-1, correction=0)
         if tap is not None:
             tap.record("fine", z=z_vals, raw=raw, weights=out.weights, rgb=out.rgb_map)
@@ -322,49 +343,53 @@ def render(
     autograd. Returns (rgb_map, depth_map, acc_map, extras), each shaped
     (H, W, ...), or as the given rays.
     """
-    if rays is None:
-        rays_o, rays_d = get_rays(H, W, K, torch.as_tensor(c2w, device=bbox.device))
-    else:
-        rays_o, rays_d = (torch.as_tensor(r, dtype=torch.float32, device=bbox.device)
-                          for r in rays)
-    sh = rays_d.shape
-    viewdirs = None
-    if cfg.use_viewdirs:
-        viewdirs = rays_d / torch.linalg.norm(rays_d, dim=-1, keepdim=True)
-        viewdirs = viewdirs.reshape(-1, 3)
-    if cfg.ndc:
-        rays_o, rays_d = get_ndc_rays(H, W, float(K[0][0]), 1.0, rays_o, rays_d)
-    rays_o = rays_o.reshape(-1, 3)
-    rays_d = rays_d.reshape(-1, 3)
-    N = rays_o.shape[0]
-    chunk = min(chunk, N) or N
-    pad = -N % chunk
+    with annotate("hn.render"):
+        if rays is None:
+            rays_o, rays_d = get_rays(H, W, K, torch.as_tensor(c2w, device=bbox.device))
+        else:
+            rays_o, rays_d = (torch.as_tensor(r, dtype=torch.float32, device=bbox.device)
+                              for r in rays)
+        sh = rays_d.shape
+        viewdirs = None
+        if cfg.use_viewdirs:
+            viewdirs = rays_d / torch.linalg.norm(rays_d, dim=-1, keepdim=True)
+            viewdirs = viewdirs.reshape(-1, 3)
+        if cfg.ndc:
+            rays_o, rays_d = get_ndc_rays(H, W, float(K[0][0]), 1.0, rays_o, rays_d)
+        rays_o = rays_o.reshape(-1, 3)
+        rays_d = rays_d.reshape(-1, 3)
+        N = rays_o.shape[0]
+        chunk = min(chunk, N) or N
+        pad = -N % chunk
 
-    def pad0(x):
-        return torch.cat([x, x.new_zeros((pad,) + x.shape[1:])]) if pad else x
+        def pad0(x):
+            return torch.cat([x, x.new_zeros((pad,) + x.shape[1:])]) if pad else x
 
-    rays_o, rays_d = pad0(rays_o), pad0(rays_d)
-    viewdirs = pad0(viewdirs) if viewdirs is not None else None
-    if cfg.occupancy is None:
-        occ_grid = None
+        rays_o, rays_d = pad0(rays_o), pad0(rays_d)
+        viewdirs = pad0(viewdirs) if viewdirs is not None else None
+        if cfg.occupancy is None:
+            occ_grid = None
 
-    parts: Dict[str, list] = {}
-    with torch.no_grad():
-        for s in range(0, N + pad, chunk):
-            e = s + chunk
-            ret = render_rays(
-                state, query_fn, rays_o[s:e], rays_d[s:e],
-                viewdirs[s:e] if viewdirs is not None else None,
-                near, far, bbox, cfg, generator=generator, occ_grid=occ_grid,
-            )
-            for k, v in ret.items():
-                parts.setdefault(k, []).append(v)
-    out = {k: torch.cat(v, 0)[:N].reshape(sh[:-1] + v[0].shape[1:]) for k, v in parts.items()}
-    if debug_enabled():
-        check_finite(out, where="render:")
-    extract = ("rgb_map", "depth_map", "acc_map")
-    extras = {k: v for k, v in out.items() if k not in extract}
-    return out["rgb_map"], out["depth_map"], out["acc_map"], extras
+        parts: Dict[str, list] = {}
+        with torch.no_grad():
+            for s in range(0, N + pad, chunk):
+                e = s + chunk
+                with annotate("hn.render.chunk"):
+                    ret = render_rays(
+                        state, query_fn, rays_o[s:e], rays_d[s:e],
+                        viewdirs[s:e] if viewdirs is not None else None,
+                        near, far, bbox, cfg, generator=generator, occ_grid=occ_grid,
+                    )
+                for k, v in ret.items():
+                    parts.setdefault(k, []).append(v)
+        with annotate("hn.render.gather"):
+            out = {k: torch.cat(v, 0)[:N].reshape(sh[:-1] + v[0].shape[1:])
+                   for k, v in parts.items()}
+        if debug_enabled():
+            check_finite(out, where="render:")
+        extract = ("rgb_map", "depth_map", "acc_map")
+        extras = {k: v for k, v in out.items() if k not in extract}
+        return out["rgb_map"], out["depth_map"], out["acc_map"], extras
 
 
 def render_path(

@@ -26,6 +26,13 @@ random draw of an eager step (stratified jitter, sigma noise, importance
 samples, TV cuboids and rows, and those of a grid update) can be handed in
 through `TrainDraws` and `OccUpdateDraws`, which is how the tests give the
 port the draws JAX took from its keys.
+
+Spans (utils/profiling.py): `hn.run_steps`, inside it `hn.block` (one
+block) and `hn.host_read` (the readiness read); `hn.sample` (a batch's
+draw); `hn.step` (one eager step, after its batch's draw) with
+`hn.forward`, `hn.backward`, `hn.optimizer` and `hn.grid_update`.
+Counters: steps_eager, steps_replayed (a block's steps), grid_updates,
+host_reads.
 """
 from __future__ import annotations
 
@@ -59,6 +66,7 @@ from hashnerf_torch.train.losses import total_variation_loss_all_levels, total_v
 from hashnerf_torch.train.radam import RAdam
 from hashnerf_torch.utils.io import save_loss_history, save_video
 from hashnerf_torch.utils.metrics import img2mse, mse2psnr
+from hashnerf_torch.utils.profiling import annotate, count
 
 
 class TrainDraws(NamedTuple):
@@ -422,8 +430,16 @@ class Trainer:
                 dirs[:, 2] = 1.0
             return query_fn(self.state, pts[:, None, :], dirs, self.bbox, fine=fine)[:, 0, 3]
 
-        self.occ_grid.copy_(update_occupancy_grid(self.occ_grid, self.bbox, occ, sigma_fn, draws,
-                                                  self.generator))
+        count("grid_updates")
+        with annotate("hn.grid_update"):
+            self.occ_grid.copy_(update_occupancy_grid(self.occ_grid, self.bbox, occ, sigma_fn,
+                                                      draws, self.generator))
+
+    def _read_ready(self) -> bool:
+        """Whether the grid holds density yet: a blocking host read."""
+        count("host_reads")
+        with annotate("hn.host_read"):
+            return float(self.occ_grid.max()) > 0.0
 
     def _keep_fractions(self, keep: Optional[float]) -> Tuple[float, float]:
         """(fine, coarse) keep fractions of a culled step at fine budget keep."""
@@ -444,11 +460,15 @@ class Trainer:
         if self.layout is not None:
             return sharded_step(self.layout, loss_fn, self._render_cfg_for(keep), self.state,
                                 self.optimizer, batch, tv_w, draws, self.generator, occ_grid)
-        self.optimizer.zero_grad(set_to_none=True)
-        loss, (psnr, img_loss) = loss_fn(self.state, batch, tv_w, draws, self.generator,
-                                         occ_grid=occ_grid)
-        loss.backward()
-        self.optimizer.step()
+        with annotate("hn.optimizer"):
+            self.optimizer.zero_grad(set_to_none=True)
+        with annotate("hn.forward"):
+            loss, (psnr, img_loss) = loss_fn(self.state, batch, tv_w, draws, self.generator,
+                                             occ_grid=occ_grid)
+        with annotate("hn.backward"):
+            loss.backward()
+        with annotate("hn.optimizer"):
+            self.optimizer.step()
         return {"loss": loss.detach(), "psnr": psnr.detach(), "img_loss": img_loss.detach()}
 
     def step(self, batch: Dict[str, torch.Tensor], draws: Optional[TrainDraws] = None,
@@ -458,21 +478,23 @@ class Trainer:
         if one does. Returns detached loss / psnr / img_loss tensors; sets
         last_occ_keep to the (fine, coarse) keep fractions the step culled
         at, or None."""
-        # TV only during warmup (the reference zeroes it after iter 1000)
-        tv_w = self.args.tv_loss_weight if self.global_step <= 1000 else 0.0
-        occ = self.render_cfg.occupancy
-        keep = self._keep_at(self.global_step)[0] if self.keep_schedule else None
-        active = occ is not None and self.global_step >= occ.warmup_steps and self._occ_ready
-        metrics = self._train_one(batch, tv_w, keep, self.occ_grid if active else None, draws)
-        self.global_step += 1
-        self.last_occ_keep = self._keep_fractions(keep) if active else None
+        count("steps_eager")
+        with annotate("hn.step"):
+            # TV only during warmup (the reference zeroes it after iter 1000)
+            tv_w = self.args.tv_loss_weight if self.global_step <= 1000 else 0.0
+            occ = self.render_cfg.occupancy
+            keep = self._keep_at(self.global_step)[0] if self.keep_schedule else None
+            active = occ is not None and self.global_step >= occ.warmup_steps and self._occ_ready
+            metrics = self._train_one(batch, tv_w, keep, self.occ_grid if active else None, draws)
+            self.global_step += 1
+            self.last_occ_keep = self._keep_fractions(keep) if active else None
 
-        if occ is not None and self.global_step % occ.update_every == 0:
-            self._update_grid(occ_draws)
-            if not self._occ_ready:
-                # one host read an update, until the field shows density
-                self._occ_ready = float(self.occ_grid.max()) > 0.0
-        return metrics
+            if occ is not None and self.global_step % occ.update_every == 0:
+                self._update_grid(occ_draws)
+                if not self._occ_ready:
+                    # one host read an update, until the field shows density
+                    self._occ_ready = self._read_ready()
+            return metrics
 
     def _precrop_window(self, precrop: bool) -> Tuple[int, int, int, int]:
         """(y0, x0, rows, cols) of the pixels a step draws from."""
@@ -514,16 +536,18 @@ class Trainer:
         """n_rand random pixels of image img_i, without replacement. `sel`
         (n_rand,) picks the pixels (flat indices into the, possibly
         cropped, grid) instead of the draw from the Trainer's generator."""
-        img = torch.full((1,), int(img_i), dtype=torch.int64, device=self.device)
-        return self._sample(img, n_rand, precrop, sel)
+        with annotate("hn.sample"):
+            img = torch.full((1,), int(img_i), dtype=torch.int64, device=self.device)
+            return self._sample(img, n_rand, precrop, sel)
 
     def sample_batch(self, precrop: bool) -> Dict[str, torch.Tensor]:
         """One step's batch, drawn on the device as the JAX package's scanned
         step draws it (`sample_batch` of _build_block): a training image
         uniform over i_train, then N_rand of its pixels, no host read."""
-        pick = torch.randint(0, self._i_train.numel(), (1,), generator=self.generator,
-                             device=self.device)
-        return self._sample(self._i_train.index_select(0, pick), self.args.N_rand, precrop)
+        with annotate("hn.sample"):
+            pick = torch.randint(0, self._i_train.numel(), (1,), generator=self.generator,
+                                 device=self.device)
+            return self._sample(self._i_train.index_select(0, pick), self.args.N_rand, precrop)
 
     # ------------------------------------------------------------------ #
     # Ray batching: a shuffled pool of every training ray, on the device
@@ -593,7 +617,8 @@ class Trainer:
         """Rows [i_batch, i_batch + n_rand) of the pool as a batch (fewer at
         its end), copied out of it: the pool may be shuffled before the
         step."""
-        return self._pool_batch(pool[i_batch:i_batch + n_rand].clone())
+        with annotate("hn.sample"):
+            return self._pool_batch(pool[i_batch:i_batch + n_rand].clone())
 
     # ------------------------------------------------------------------ #
     # Many steps a launch (--steps_per_dispatch)
@@ -628,11 +653,14 @@ class Trainer:
                 return self.sample_batch(precrop)
         else:
             def batch():
-                rows = pool.index_select(0, self._pool_offset + self._pool_rows)
-                self._pool_offset.add_(self.args.N_rand)
-                return self._pool_batch(rows)
+                with annotate("hn.sample"):
+                    rows = pool.index_select(0, self._pool_offset + self._pool_rows)
+                    self._pool_offset.add_(self.args.N_rand)
+                    return self._pool_batch(rows)
 
         def one():
+            # a step graph's capture counts it; each replay adds it
+            count("steps_replayed")
             return self._train_one(batch(), tv_w, keep, grid)
 
         if self.device.type != "cuda":
@@ -706,7 +734,7 @@ class Trainer:
             occ_mode = None
             if occ is not None:
                 if not self._occ_ready:
-                    self._occ_ready = float(self.occ_grid.max()) > 0.0
+                    self._occ_ready = self._read_ready()
                 active = self.global_step >= occ.warmup_steps and self._occ_ready
                 occ_mode = "cull" if active else "update"
                 if not active and self.global_step < occ.warmup_steps:
@@ -744,17 +772,19 @@ class Trainer:
         if pool is not None and offset + n_steps * n_rand > pool.shape[0]:
             raise ValueError(f"run_steps: {n_steps} steps of {n_rand} rays from row {offset} "
                              f"pass the pool's end ({pool.shape[0]} rows)")
-        for b, use_tv, occ_mode, keep in self._block_plan(
-                n_steps, block_size or max(1, self.args.steps_per_dispatch)):
-            at = offset + done * n_rand
-            if b == 0:
-                metrics = self.step(self.sample_batch(precrop) if pool is None
-                                    else self.sample_pool(pool, at, n_rand))
-                done += 1
-                continue
-            metrics = self._run_block(b, use_tv, occ_mode, precrop, keep, pool, at)
-            self.global_step += b
-            done += b
+        with annotate("hn.run_steps"):
+            for b, use_tv, occ_mode, keep in self._block_plan(
+                    n_steps, block_size or max(1, self.args.steps_per_dispatch)):
+                at = offset + done * n_rand
+                if b == 0:
+                    metrics = self.step(self.sample_batch(precrop) if pool is None
+                                        else self.sample_pool(pool, at, n_rand))
+                    done += 1
+                    continue
+                with annotate("hn.block"):
+                    metrics = self._run_block(b, use_tv, occ_mode, precrop, keep, pool, at)
+                self.global_step += b
+                done += b
         return metrics
 
     def capture_first_step(self, block_size: int, precrop: bool = False,

@@ -23,9 +23,15 @@ block reads its step's outputs before it replays anything else.
 
 Launch counts: the kernel wrappers count in Python, which a capture runs
 once and a replay never. A capture notes each wrapper's count, takes it off
-again (a capture launches nothing), and every replay adds it. The
+again (a capture launches nothing), and every replay adds it. The program's
+counters (utils/profiling.py: the steps a block runs, grid updates) and the
 collectives of a data-parallel step (parallel/mesh.py: NCCL's, which a
-graph captures) are counted the same way.
+graph captures) are counted the same way. The eager run before a capture
+counts as what it ran.
+
+Spans: `hn.capture` around a new capture, `hn.replay.<kind>` around each
+replay (`kind` the key's first item: "step" or "update"). The captured
+function's own spans run at its capture alone.
 """
 from __future__ import annotations
 
@@ -35,6 +41,7 @@ import torch
 
 from hashnerf_torch import kernels
 from hashnerf_torch.parallel import mesh
+from hashnerf_torch.utils.profiling import annotate, count
 
 
 def _counts() -> Dict[str, int]:
@@ -42,16 +49,17 @@ def _counts() -> Dict[str, int]:
 
 
 def _add(counts: Dict[str, int], times: int = 1) -> None:
-    kernels.add_launches({k: n for k, n in counts.items() if k in kernels.KERNELS}, times)
-    mesh.add_collectives({k: n for k, n in counts.items() if k not in kernels.KERNELS}, times)
+    kernels.add_launches({k: n for k, n in counts.items() if k in kernels.COUNTED}, times)
+    mesh.add_collectives({k: n for k, n in counts.items() if k not in kernels.COUNTED}, times)
 
 
 class CapturedGraph:
     """fn captured as one CUDA graph. fn returns a dict of tensors (the
-    outputs each replay rewrites) or None."""
+    outputs each replay rewrites) or None. `span` names each replay."""
 
     def __init__(self, fn: Callable[[], Optional[Dict[str, torch.Tensor]]], pool,
-                 generator: torch.Generator, state: List[torch.Tensor]):
+                 generator: torch.Generator, state: List[torch.Tensor], span: str):
+        self.span = span
         # One eager run on a side stream first (PyTorch's rule for capture:
         # it makes lazy state, library handles and workspaces), then undo
         # what it did to `state` and to the generator.
@@ -82,7 +90,8 @@ class CapturedGraph:
             generator.set_state(rng)
 
     def replay(self) -> None:
-        self.graph.replay()
+        with annotate(self.span):
+            self.graph.replay()
         _add(self.launches)
 
 
@@ -99,5 +108,8 @@ class GraphCache:
     def get(self, key: tuple, fn: Callable) -> CapturedGraph:
         graph = self.graphs.get(key)
         if graph is None:
-            graph = self.graphs[key] = CapturedGraph(fn, self.pool, self.generator, self.state)
+            with annotate("hn.capture"):
+                graph = self.graphs[key] = CapturedGraph(fn, self.pool, self.generator, self.state,
+                                                         span=f"hn.replay.{key[0]}")
+            count("graph_captures")
         return graph

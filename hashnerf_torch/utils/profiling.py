@@ -1,20 +1,58 @@
-"""Tracing and profiling: torch.profiler traces and per-step wall clocks.
+"""Tracing: named spans, the program's counters, and a trace exporter.
 
-Counterpart of hashnerf_tpu/utils/profiling.py: `device_trace` writes a
-torch.profiler trace (CPU activity, and CUDA kernels on a GPU host) of the
-code inside it to a directory, as a Chrome trace JSON that
-chrome://tracing, Perfetto or TensorBoard's profiler plugin read;
-`annotate` names a region in it; `StepTimer` (the JAX package's, pure
-Python) keeps rolling step times, whose history feeds loss_vs_time.pkl.
+  * `annotate(name)`: a span, a torch.profiler `record_function` range
+    while a profiler records, else a shared null context after one flag
+    check. Every span of the port is named `hn.*`. A CUDA graph's capture
+    runs under no profiler and its replays run no Python, so spans inside a
+    captured function cost nothing on replay.
+  * Counters: plain integers, raised on the host where the work is asked
+    for (see COUNTERS). kernels.launch_counts reads them beside the kernel
+    wrappers' launches, and a CUDA graph's replay adds what its capture
+    counted of both (train/graphs.py).
+  * `device_trace(logdir)`: a torch.profiler trace (CPU activity, and CUDA
+    kernels on a GPU host) of the code inside it, written to a directory as
+    a Chrome trace JSON that chrome://tracing, Perfetto or TensorBoard's
+    profiler plugin read.
 """
 from __future__ import annotations
 
 import contextlib
 import os
-import time
-from typing import Dict, List, Optional
+from typing import Dict
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
+
+COUNTERS = {
+    "steps_eager": "Trainer.step's eager steps",
+    "steps_replayed": "steps run in run_steps' blocks (a step graph's replay on a GPU)",
+    "grid_updates": "occupancy-grid updates, eager or replayed",
+    "graph_captures": "CUDA graphs captured",
+    "host_reads": "the program's own blocking reads of a device value",
+}
+_counts: Dict[str, int] = dict.fromkeys(COUNTERS, 0)
+_NULL = contextlib.nullcontext()
+
+
+def annotate(name: str):
+    """A named span of the profiler's timeline, or a null context when no
+    profiler records."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _NULL
+    return torch.profiler.record_function(name)
+
+
+def count(name: str, n: int = 1) -> None:
+    _counts[name] += n
+
+
+def counters() -> Dict[str, int]:
+    return dict(_counts)
+
+
+def reset_counters() -> None:
+    for name in _counts:
+        _counts[name] = 0
 
 
 @contextlib.contextmanager
@@ -30,41 +68,3 @@ def device_trace(logdir: str):
     with profile(activities=activities) as prof:
         yield prof
     prof.export_chrome_trace(os.path.join(logdir, f"trace_{os.getpid()}.json"))
-
-
-def annotate(name: str):
-    """Named region that shows up in profiler timelines."""
-    return torch.profiler.record_function(name)
-
-
-class StepTimer:
-    """Rolling per-step wall times + simple rates."""
-
-    def __init__(self, window: int = 100):
-        self.window = window
-        self.times: List[float] = []
-        self._last: Optional[float] = None
-
-    def tick(self) -> float:
-        now = time.perf_counter()
-        dt = 0.0 if self._last is None else now - self._last
-        self._last = now
-        if dt > 0:
-            self.times.append(dt)
-            if len(self.times) > self.window:
-                self.times.pop(0)
-        return dt
-
-    @property
-    def mean_step_s(self) -> float:
-        return sum(self.times) / len(self.times) if self.times else 0.0
-
-    def rays_per_s(self, n_rays: int) -> float:
-        m = self.mean_step_s
-        return n_rays / m if m > 0 else 0.0
-
-    def summary(self, n_rays: int) -> Dict[str, float]:
-        return {
-            "mean_step_s": self.mean_step_s,
-            "rays_per_s": self.rays_per_s(n_rays),
-        }

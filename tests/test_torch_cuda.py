@@ -683,8 +683,9 @@ def test_launch_counts_count_graph_replays(cuda_device):
     t = graph_trainer(GRAPH_SMALL)
     t.run_steps(16, block_size=16)  # the capture and 16 replays
     graph = t._graphs.graphs[("step", True, False, False, None)]
-    # a TV step: K2 and K6 in each pass, K5 for the TV loss
-    assert graph.launches == {"hash_encode_fwd": 2, "hash_encode_bwd": 2, "segment_accumulate_k5": 1}
+    # a TV step: K2 and K6 in each pass, K5 for the TV loss; one step a replay
+    assert graph.launches == {"hash_encode_fwd": 2, "hash_encode_bwd": 2, "segment_accumulate_k5": 1,
+                              "steps_replayed": 1}
     reset_launch_counts()
     t.run_steps(16, block_size=16)  # replays only
     counts = launch_counts()

@@ -1,7 +1,7 @@
 """The port's utils (ROADMAP A9.3) against the JAX package's on the CPU:
 the HASHNERF_DEBUG NaN/Inf scan (utils/debug.py) on the same trees, and
-on a render's outputs with a NaN planted; StepTimer on the same clock;
-the torch.profiler trace (utils/profiling.py); and bench_scaling's
+on a render's outputs with a NaN planted; the torch.profiler trace
+(utils/profiling.py); and bench_scaling's
 Trainer against the JAX tool's (ROADMAP §C)."""
 import collections
 import json
@@ -101,29 +101,6 @@ def test_render_scans_its_outputs_when_debug_is_on(capsys, monkeypatch):
     assert "! [Numerical Error] render:['rgb_map'] contains" in got
     assert not jcheck({k: v.numpy() for k, v in out.items()}, where="render:")
     assert capsys.readouterr().out == got
-
-
-def test_step_timer_matches_jax(monkeypatch):
-    """StepTimer is the JAX package's: the same window, means and rates on
-    the same clock readings."""
-    import time
-
-    from hashnerf_tpu.utils.profiling import StepTimer as JTimer
-    from hashnerf_torch.utils.profiling import StepTimer
-
-    clock = [0.0, 0.5, 0.5, 1.25, 2.0, 2.1, 3.5]
-    for cls in (JTimer, StepTimer):
-        it = iter(clock)
-        monkeypatch.setattr(time, "perf_counter", lambda: next(it))
-        t = cls(window=3)
-        ticks = [t.tick() for _ in clock]
-        monkeypatch.undo()
-        if cls is JTimer:
-            want = (ticks, list(t.times), t.summary(1024), t.rays_per_s(0))
-        else:
-            assert (ticks, list(t.times), t.summary(1024), t.rays_per_s(0)) == want
-    assert want[1] == pytest.approx([0.75, 0.1, 1.4]) and len(want[0]) == len(clock)
-    assert StepTimer().summary(8) == JTimer().summary(8) == {"mean_step_s": 0.0, "rays_per_s": 0.0}
 
 
 def test_device_trace_writes_an_annotated_trace(tmp_path):
