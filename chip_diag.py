@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Diagnostics of the PyTorch port on one NVIDIA GPU, beyond chip_smoke.py's
-gates. Each prints JSON lines; only pool-faults is a gate.
+gates. Each prints JSON lines; only pool-faults and field-query (through
+chip_smoke.phase_field_kernels) are gates.
 
     python3 chip_diag.py gate-spread [--path flagship] [--reps 2]
         chip_smoke.py's main path `path` (chair, packed or flagship), `reps`
@@ -79,6 +80,11 @@ gates. Each prints JSON lines; only pool-faults is a gate.
         that differs beyond rounding and the sample_pdf decisions the
         devices took apart with both margins; the rays at risk by margin;
         K2 and K3 at the held rays' sample points (llff_view).
+    python3 chip_diag.py field-query
+        K9 and field_raw (field_query) as chip_smoke.py holds and times
+        them (phase_field_kernels), then one pass's copies at each of its
+        shapes by the per-sample route they replaced and by the per-ray
+        one.
 
 Imports hashnerf_torch and chip_smoke.py (never jax); exits non-zero
 without a CUDA device.
@@ -965,6 +971,46 @@ def tv_k5(torch, np, rounds: int = 3) -> None:
         print(json.dumps(line), flush=True)
 
 
+def field_query(torch, rounds: int = 2) -> None:
+    """K9 and field_raw at the field query's shapes: chip_smoke's check and
+    timing of each kernel against its plain version (phase_field_kernels),
+    then one pass's copies by the per-sample route they replaced (the
+    directions expanded and SH-encoded on every sample, the features',
+    colour input's and raw's concatenations and the keep mask's where) and
+    by the per-ray one (SH on the rays, K9, field_raw), in `rounds` rounds
+    of turns: CUDA-event ms (L2 flushed) and device ms from a trace."""
+    import chip_smoke as cs
+    from hashnerf_torch.kernels import field_query as fq
+    from hashnerf_torch.ops.sh_encoding import sh_encode
+
+    cs.phase_field_kernels(torch)
+    gen = torch.Generator(device=cs.DEV)
+    gen.manual_seed(21)
+    for name, (R, S) in cs.FIELD_SHAPES.items():
+        t = cs.field_inputs(torch, R, S, gen)
+        d, feats, h, rgb, keep = (t[k] for k in ("d", "feats", "h", "rgb", "keep"))
+
+        def per_sample():
+            dirs = sh_encode(d[:, None, :].expand(R, S, 3).reshape(-1, 3))
+            x = torch.cat([feats, dirs], dim=-1)
+            c = torch.cat([x[:, 32:48], h[:, 1:]], dim=-1)
+            raw = torch.cat([rgb, h[:, :1]], dim=-1)
+            sigma = torch.where(keep, raw[:, 3], torch.zeros_like(raw[:, 3]))
+            return c, torch.cat([raw[:, :3], sigma[:, None], raw[:, 4:]], dim=-1)
+
+        timed = {"per_ray_route": lambda: (fq.field_colour_input_fwd(sh_encode(d), h, S),
+                                           fq.field_raw_fwd(rgb, h, keep)),
+                 "per_sample_route": per_sample}
+        line = {"shape": name, "R": R, "S": S, "N": R * S}
+        for r in range(rounds):
+            for what, fn in (list(timed.items()) if r % 2 == 0 else list(timed.items())[::-1]):
+                line.setdefault(f"{what}_ms", []).append(cs.cuda_ms(torch, fn))
+                line.setdefault(f"{what}_device_ms", []).append(cs.device_ms(torch, fn, reps=5))
+        print(json.dumps(line), flush=True)
+        del t, d, feats, h, rgb, keep
+        torch.cuda.empty_cache()
+
+
 LLFF_VIEW_STATES = 6
 LLFF_VIEW_REPORT_RAYS = 40  # the worst rays reported of each state
 VIEW_STAGES = ("coarse_raw", "coarse_weights", "sample_pdf", "fine_z", "fine_raw", "fine_weights",
@@ -1143,7 +1189,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("what", choices=("gate-spread", "pool-faults", "st3d-step", "spread-why",
                                      "one-step", "blender-step", "packed-k8", "encode-bwd",
-                                     "encode-fwd", "tv-k5", "llff-view"))
+                                     "encode-fwd", "tv-k5", "llff-view", "field-query"))
     ap.add_argument("--path", default=None,
                     choices=("chair", "packed", "flagship", "llff", "st3d"),
                     help="gate-spread's path (default flagship); pool-faults' (llff or st3d, "
@@ -1190,6 +1236,8 @@ def main(argv=None) -> int:
         tv_k5(torch, np)
     elif opts.what == "llff-view":
         llff_view(torch, np, opts.states)
+    elif opts.what == "field-query":
+        field_query(torch)
     else:
         blender_step(torch)
     return 0

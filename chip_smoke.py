@@ -56,6 +56,14 @@ Imports hashnerf_torch (never jax or hashnerf_tpu) and, on one CUDA card:
       tables x 1e4;
       timed with CUDA events and from a profiler trace beside their bounds
       (packed_case);
+    - the field query's copies: K9 (NeRFSmall's colour input) and
+      field_raw (the query's raw), forward and backward, at the render
+      chunk's passes (32,768 rays x 64 and x 192 samples), the chair's
+      training passes (1024 x 64 and x 192), the flagship's culled blocks
+      (3072 x 8) and a grid update's 65,536 points, each equal to its
+      plain version on the same card tensors, with and without the view
+      encoding and the keep mask; timed beside its plain version and its
+      byte bound (phase_field_kernels);
  3. main paths, each at the width of configs/chair.txt on the procedural
     scene (128 x 128, 8 train views) through
     hashnerf_torch.train.driver.train_loop (40 steps with TV, a checkpoint,
@@ -279,6 +287,11 @@ KERNEL_INFO = {
         "replaces": "hashnerf_tpu/ops/packed_grid.py:174 (its VJP) and "
                     "hashnerf_tpu/kernels/pallas_segment_accum.py:134 (through take_rows)",
     },
+    # The field query's copies: no TPU kernel (XLA fuses the JAX package's
+    # concatenations into their consumers)
+    **{name: {"source": "hashnerf_torch/csrc/field_query.cu", "replaces": "none"}
+       for name in ("field_colour_input_fwd", "field_colour_input_bwd", "field_raw_fwd",
+                    "field_raw_bwd")},
 }
 # What phase_main_path runs and requires of each main path:
 # - flags: added to configs/chair.txt;
@@ -302,12 +315,16 @@ KERNEL_INFO = {
 #   Trainer.run_steps blocks of GRAPH_BLOCK steps (CUDA graph replays), must
 #   keep the eager window's keeps and K5 rule and launch the path's kernels,
 #   and must pass the graph gate (graphed_window, GATE_*).
-CHAIR_KERNELS = ("hash_encode_fwd", "hash_encode_bwd", "segment_accumulate_k5")
-# The packed layout's encode (K7, K8) and K5 for its TV loss.
-PACKED_KERNELS = ("packed_encode_fwd", "packed_encode_bwd", "segment_accumulate_k5")
+# NeRFSmall's colour input (K9) and raw (field_raw), forward and backward:
+# every path of the hash grid's MLP launches them, the NeRF family none.
+FIELD_KERNELS = ("field_colour_input_fwd", "field_colour_input_bwd", "field_raw_fwd",
+                 "field_raw_bwd")
+CHAIR_KERNELS = ("hash_encode_fwd", "hash_encode_bwd", "segment_accumulate_k5") + FIELD_KERNELS
+# The packed layout's encode (K7, K8), K5 for its TV loss, and the MLP's K9.
+PACKED_KERNELS = ("packed_encode_fwd", "packed_encode_bwd", "segment_accumulate_k5") + FIELD_KERNELS
 PATHS = {
     "chair": {"flags": [],
-              "kernels": ("hash_encode_fwd", "hash_encode_bwd", "segment_accumulate_k5"),
+              "kernels": CHAIR_KERNELS,
               "tv_start": None, "no_tv_start": 1001, "keeps_tv": None, "keeps_no_tv": None,
               "k5_no_tv": False, "eval_cull": None, "graph_tv_start": 48},
     "packed": {"flags": PACKED_FLAGS, "kernels": PACKED_KERNELS,
@@ -322,16 +339,13 @@ PATHS = {
     # the TV loss of the hash grid's steps <= 1000) and no other kernel of
     # KERNEL_INFO; nothing is culled.
     "st3d": {"phase": "st3d", "keeps_tv": None, "keeps_no_tv": None,
-             "runs": {"hash": ("hash_encode_fwd", "hash_encode_bwd", "segment_accumulate_k5"),
-                      "omninerf": ()}},
+             "runs": {"hash": CHAIR_KERNELS, "omninerf": ()}},
     "loaders": {"phase": "loaders", "keeps_tv": None, "keeps_no_tv": None,
-                "runs": {"scannet": ("hash_encode_fwd", "hash_encode_bwd", "segment_accumulate_k5"),
+                "runs": {"scannet": CHAIR_KERNELS,
                          "deepvoxels": (),
-                         "LINEMOD": ("hash_encode_fwd", "hash_encode_bwd",
-                                     "segment_accumulate_k5"),
+                         "LINEMOD": CHAIR_KERNELS,
                          # slice 11: the chair's MLPs at --compute_dtype float32
-                         "chair_float32": ("hash_encode_fwd", "hash_encode_bwd",
-                                           "segment_accumulate_k5")}},
+                         "chair_float32": CHAIR_KERNELS}},
     # Slice 10 (phase_multi): each rank's chair path (TV on: K5), ZeRO-1
     # and table-sharded runs (TV off: no K5), under NCCL and over gloo.
     # Slice 11: the flagship (tpu-fast, global culling) on each rank, its
@@ -342,9 +356,9 @@ PATHS = {
     "tools": {"phase": "tools", "keeps_tv": None, "keeps_no_tv": None,
               "kernels": CHAIR_KERNELS + PACKED_KERNELS[:2]},
     "multi": {"phase": "multi", "keeps_tv": None, "keeps_no_tv": None,
-              "runs": {"path": ("hash_encode_fwd", "hash_encode_bwd", "segment_accumulate_k5"),
-                       "zero": ("hash_encode_fwd", "hash_encode_bwd"),
-                       "table": ("hash_encode_fwd", "hash_encode_bwd"),
+              "runs": {"path": CHAIR_KERNELS,
+                       "zero": ("hash_encode_fwd", "hash_encode_bwd") + FIELD_KERNELS,
+                       "table": ("hash_encode_fwd", "hash_encode_bwd") + FIELD_KERNELS,
                        "flagship": PACKED_KERNELS}},
 }
 MAIN_PATHS = tuple(p for p, spec in PATHS.items() if "phase" not in spec)
@@ -1655,6 +1669,103 @@ def phase_packed_encode(torch, np, kept_pts):
             f"recorded {r['kernel']} at {r['ctx_attrs']}, not the packed path's fine K8")
     out["fine_recorded"] = packed_case(torch, "fine_recorded", r["ctx_attrs"], r["x"], gen,
                                        g=r["g"], bbox=tuple(r["saved"]))
+    return out
+
+
+# The field query's (rays, samples a ray) at NeRFSmall's widths (Cv 16 view
+# columns, h = [sigma, 15 geo features]): the render chunk's coarse and fine
+# passes, the chair's training passes, the flagship's culled blocks of 8 and
+# a grid update's points.
+FIELD_SHAPES = {"render_coarse": (32768, 64), "render_fine": (32768, 192),
+                "train_coarse": (1024, 64), "train_fine": (1024, 192),
+                "culled_blocks": (3072, 8), "grid_update": (65536, 1)}
+FIELD_CV, FIELD_H = 16, 16
+FIELD_LINE_SHAPE = "render_fine"  # the kernels line's shape: the most bytes
+
+
+def field_inputs(torch, R: int, S: int, gen):
+    """Card tensors of one field query at (R, S): unit directions d (R, 3),
+    their SH encoding, the encoded points, the sigma net's output h, rgb,
+    the keep mask and the colour input's and raw's cotangents."""
+    from hashnerf_torch.ops.sh_encoding import sh_encode
+
+    N = R * S
+    normal = lambda *shape: torch.randn(shape, generator=gen, device=DEV)
+    d = normal(R, 3)
+    d = d / d.norm(dim=-1, keepdim=True)
+    G = FIELD_H - 1
+    return {"d": d, "views": sh_encode(d), "feats": normal(N, 32), "h": normal(N, FIELD_H),
+            "rgb": normal(N, 3), "keep": torch.rand((N,), generator=gen, device=DEV) < 0.8,
+            "g_c": normal(N, FIELD_CV + G), "g_raw": normal(N, 4)}
+
+
+def phase_field_kernels(torch):
+    """K9 (field_colour_input) and field_raw, forward and backward, at the
+    field query's shapes (FIELD_SHAPES): each launch on card tensors must
+    equal its plain version on the same tensors (torch.equal: every value
+    is a copy or +0), with and without the view encoding and the keep mask;
+    then each is timed with CUDA events (L2 flushed) and from a profiler
+    trace beside its plain version and its byte bound. The bounds count
+    what the function needs: each input read once and each output column
+    written once; K9's pad column (its rows are padded to 32 floats for
+    16-byte stores) is given apart as k9_pad_ms."""
+    from hashnerf_torch.kernels import field_query as fq
+
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(20)
+    Cv, H = FIELD_CV, FIELD_H
+    G = H - 1
+    out = {}
+    for shape, (R, S) in FIELD_SHAPES.items():
+        N = R * S
+        t = field_inputs(torch, R, S, gen)
+        views, h, rgb, keep, g_c, g_raw = (t[k] for k in ("views", "h", "rgb", "keep", "g_c",
+                                                         "g_raw"))
+        pairs = {
+            "k9": (lambda: fq.field_colour_input_fwd(views, h, S),
+                   lambda: fq.field_colour_input_fwd_plain(views, h, S)),
+            "k9_no_views": (lambda: fq.field_colour_input_fwd(None, h, S),
+                            lambda: fq.field_colour_input_fwd_plain(None, h, S)),
+            "k9_bwd": (lambda: fq.field_colour_input_bwd(g_c, Cv, H),
+                       lambda: fq.field_colour_input_bwd_plain(g_c, Cv, H)),
+            "field_raw": (lambda: fq.field_raw_fwd(rgb, h, keep),
+                          lambda: fq.field_raw_fwd_plain(rgb, h, keep)),
+            "field_raw_no_keep": (lambda: fq.field_raw_fwd(rgb, h, None),
+                                  lambda: fq.field_raw_fwd_plain(rgb, h, None)),
+            "field_raw_bwd": (lambda: fq.field_raw_bwd(g_raw, keep, H),
+                              lambda: fq.field_raw_bwd_plain(g_raw, keep, H)),
+        }
+        rec = {"R": R, "S": S, "N": N}
+        for what, (kern, plain) in pairs.items():
+            got, want = kern(), plain()
+            torch.cuda.synchronize()
+            require(got.is_cuda and got.shape == want.shape and bool(torch.equal(got, want)),
+                    f"field {what} at {shape}: differs from its plain version")
+            if what.startswith("k9") and what != "k9_bwd":
+                # the padded rows: stride P, the pad column +0
+                P = fq.padded_width(got.shape[1])
+                require(got.stride() == (P, 1) and not bool(
+                    got.as_strided((N, P), (P, 1))[:, got.shape[1]:].any()),
+                        f"field {what} at {shape}: rows not padded with +0 to {P}")
+            rec[f"{what}_max_abs_err"] = float((got - want).abs().max())
+            del got, want
+        for what in ("k9", "k9_bwd", "field_raw", "field_raw_bwd"):
+            kern, plain = pairs[what]
+            rec[f"{what}_ms"] = cuda_ms(torch, kern)
+            rec[f"{what}_device_ms"] = device_ms(torch, kern, reps=5)
+            rec[f"{what}_plain_ms"] = cuda_ms(torch, plain)
+            rec[f"{what}_plain_device_ms"] = device_ms(torch, plain, reps=5)
+        nbytes = {"k9": N * (G + Cv + G) * 4 + R * Cv * 4,  # geo read, row written; views once
+                  "k9_bwd": N * (G + H) * 4,  # the geo cotangent read, d_h written
+                  "field_raw": N * (3 * 4 + 4 + 1 + 4 * 4),  # rgb, sigma, keep; raw written
+                  "field_raw_bwd": N * (4 + 1 + H * 4)}  # sigma's cotangent, keep; d_h written
+        for what, nb in nbytes.items():
+            rec[f"{what}_bound_ms"], rec[f"{what}_bound_by"] = bound(nb, 0)
+        rec["k9_pad_ms"] = N * (fq.padded_width(Cv + G) - Cv - G) * 4 / PEAK_BYTES_PER_S * 1e3
+        out[shape] = rec
+        emit({"phase": "field_kernels", "shape": shape, **rec})
+        del t, views, h, rgb, keep, g_c, g_raw, pairs
+        torch.cuda.empty_cache()
     return out
 
 
@@ -4727,6 +4838,7 @@ def main(argv=None) -> int:
     packed_enc = phase_packed_encode(torch, np, kept_pts)
     del kept_pts
     torch.cuda.empty_cache()
+    field = phase_field_kernels(torch)
     paths = {path: phase_main_path(torch, np, path, opts.profile) for path in MAIN_PATHS}
     torch.cuda.empty_cache()
     sets = tempfile.mkdtemp(prefix="hashnerf_torch_sets_")
@@ -4771,6 +4883,15 @@ def main(argv=None) -> int:
             "bound_ms": case[f"{k}_bound_ms"], "bound_by": case[f"{k}_bound_by"],
             "library_ms": None,  # no one PyTorch call computes it
         }
+    case = field[FIELD_LINE_SHAPE]
+    for name, k in (("field_colour_input_fwd", "k9"), ("field_colour_input_bwd", "k9_bwd"),
+                    ("field_raw_fwd", "field_raw"), ("field_raw_bwd", "field_raw_bwd")):
+        kern[name] = {
+            "max_abs_err": case[f"{k}_max_abs_err"],
+            "kernel_ms": case[f"{k}_ms"], "plain_ms": case[f"{k}_plain_ms"],
+            "bound_ms": case[f"{k}_bound_ms"], "bound_by": case[f"{k}_bound_by"],
+            "library_ms": None,  # the copies it replaced were several calls
+        }
     lines = []
     for name, info in KERNEL_INFO.items():
         k = kern[name]
@@ -4795,7 +4916,8 @@ def main(argv=None) -> int:
             json.dump({"device": dev, "kernels": kern, "k4_hot_row": k4_hot, "k5_hot_rows": k5_hot,
                        "tv_k5": tv_k5,
                        "packed_kernels": packed, "occupancy": occupancy, "culled_k5": culled_k5,
-                       "packed_encode": packed_enc, "main_paths": paths, "blender": blender,
+                       "packed_encode": packed_enc, "field_kernels": field,
+                       "main_paths": paths, "blender": blender,
                        "llff": llff, "st3d": st3d, "loaders": loaders, "tools": tools,
                        "multi": multi,
                        "bench": benches,

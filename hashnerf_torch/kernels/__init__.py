@@ -11,6 +11,9 @@ from __future__ import annotations
 
 from typing import Dict
 
+from hashnerf_torch.kernels.field_query import (
+    field_colour_input_bwd, field_colour_input_fwd, field_raw_bwd, field_raw_fwd,
+)
 from hashnerf_torch.kernels.hash_encode import (
     hash_encode_bwd, hash_encode_bwd_expand, hash_encode_fwd,
 )
@@ -29,6 +32,10 @@ KERNELS = {
     "hash_encode_bwd": hash_encode_bwd,
     "packed_encode_fwd": packed_encode_fwd,
     "packed_encode_bwd": packed_encode_bwd,
+    "field_colour_input_fwd": field_colour_input_fwd,
+    "field_colour_input_bwd": field_colour_input_bwd,
+    "field_raw_fwd": field_raw_fwd,
+    "field_raw_bwd": field_raw_bwd,
 }
 
 

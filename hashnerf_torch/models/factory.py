@@ -9,9 +9,12 @@ table and the MLPs:
     ops/packed_grid.py's packed_encode (K7 forward, K8 backward on the card).
 With `share_fine` there is no fine net: the coarse net answers both passes.
 Points outside the bbox get sigma (channel 3) zeroed, as in the JAX
-query_fn. Positional encoding and the NeRF / NeRFGradient MLPs come in a
-later slice (ROADMAP A1/A2). query_fn runs in an `hn.query` span, its
-encode in `hn.encode` and its MLP in `hn.mlp` (utils/profiling.py).
+query_fn. query_fn encodes the view directions once a ray (R rows, not
+R*S) and hands the MLP the encoded points, that per-ray encoding and S
+(`forward_rays`); NeRFSmall widens it to the samples inside K9 and writes
+the raw with field_raw (kernels/field_query.py), the keep mask included.
+query_fn runs in an `hn.query` span, its encode in `hn.encode` and its MLP
+in `hn.mlp` (utils/profiling.py); it counts `views_per_ray`.
 """
 from __future__ import annotations
 
@@ -27,7 +30,7 @@ from hashnerf_torch.ops.hash_encoding import HashGridConfig, init_hash_table
 from hashnerf_torch.ops.packed_grid import PackedGridConfig, init_packed_tables, packed_encode
 from hashnerf_torch.ops.positional import PositionalConfig, positional_encode
 from hashnerf_torch.ops.sh_encoding import sh_encode, sh_out_dim
-from hashnerf_torch.utils.profiling import annotate
+from hashnerf_torch.utils.profiling import annotate, count
 
 # the reference's embedder ids
 EMBED_IDENTITY = -1
@@ -193,17 +196,16 @@ def query_fn(state: NGPState, pts, viewdirs, bbox, fine: bool = False) -> torch.
                                                state.packed_cfg)
             else:
                 embedded, keep = state.encode_hash(flat, bbox)
+        views = None
         if cfg.use_viewdirs and viewdirs is not None:
-            dirs = viewdirs[:, None, :].expand(R, S, 3).reshape(-1, 3)
+            # once a ray: the MLP widens the encoding to the ray's S samples
+            count("views_per_ray")
+            views = viewdirs
             if cfg.i_embed_views == EMBED_SH:
-                dirs = sh_encode(dirs, cfg.sh_degree)
+                views = sh_encode(viewdirs, cfg.sh_degree)
             elif cfg.i_embed_views == EMBED_POSITIONAL:
-                dirs = positional_encode(dirs, cfg.positional_views)
-            embedded = torch.cat([embedded, dirs], dim=-1)
+                views = positional_encode(viewdirs, cfg.positional_views)
         mlp = state.fine if (fine and state.fine is not None) else state.coarse
         with annotate("hn.mlp"):
-            raw = mlp(embedded)
-        if keep is not None:
-            sigma = torch.where(keep, raw[..., 3], torch.zeros_like(raw[..., 3]))
-            raw = torch.cat([raw[..., :3], sigma[..., None], raw[..., 4:]], dim=-1)
+            raw = mlp.forward_rays(embedded, views, S, keep)
         return raw.reshape(R, S, raw.shape[-1])

@@ -10,6 +10,13 @@ Counterparts of hashnerf_tpu/models/nerf.py:
     of W // 2 over [feature, views], rgb_linear) or output_linear;
   * NeRFGradient, NeRF with a gradient_linear head (W // 2 -> 3) beside
     rgb_linear: (N, 7) = [rgb, alpha, gradient].
+Every MLP answers the field query through forward_rays(x, views, S,
+keep): the encoded points (N, input_ch), one view encoding a ray (N // S,
+input_ch_views) and the samples a ray S. NeRFSmall widens the views to the
+samples inside K9's colour input (kernels/field_query.py); NeRF widens them
+before its view branch. forward(x), on the points' and the views'
+encodings side by side (the JAX package's call), is forward_rays with one
+sample a ray.
 Weights are nn.Linear's (out, in); the JAX package stores (in, out) (see
 convert.py). Weights and biases are drawn from U(-1/sqrt(fan_in),
 1/sqrt(fan_in)), nn.Linear's default bound, from an explicit
@@ -36,6 +43,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from hashnerf_torch.kernels.field_query import field_colour_input, field_raw
 
 
 @dataclasses.dataclass(frozen=True)
@@ -128,23 +137,36 @@ class NeRFSmall(nn.Module):
     def _layer(self, layer: nn.Linear, h: torch.Tensor) -> torch.Tensor:
         return _apply(layer, h, self._dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x: (N, input_ch + input_ch_views) -> (N, 4) = [rgb logits, sigma]."""
+    def forward_rays(self, x: torch.Tensor, views: Optional[torch.Tensor], S: int,
+                     keep: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """x (N, input_ch) encoded points, S samples a ray; views (N // S,
+        input_ch_views), one view encoding a ray, or None; keep (N,) bool or
+        None -> (N, 4) = [rgb logits, keep ? sigma : 0]. The sigma net
+        multiplies x as it is; K9 (kernels/field_query.py) widens the views
+        to the samples in the colour net's input, and field_raw writes the
+        raw."""
         cfg = self.cfg
-        h = x[..., : cfg.input_ch]
-        views = x[..., cfg.input_ch : cfg.input_ch + cfg.input_ch_views]
+        h = x
         for l, layer in enumerate(self.sigma_net):
             h = self._layer(layer, h)
             if l != cfg.num_layers - 1:
                 h = torch.relu(h)
-        sigma, geo_feat = h[..., :1], h[..., 1:]
-
-        h = torch.cat([views, geo_feat], dim=-1)
+        # h = [sigma, geo_feat]
+        c = field_colour_input(views, h, S)
         for l, layer in enumerate(self.color_net):
-            h = self._layer(layer, h)
+            c = self._layer(layer, c)
             if l != cfg.num_layers_color - 1:
-                h = torch.relu(h)
-        return torch.cat([h, sigma], dim=-1)
+                c = torch.relu(c)
+        return field_raw(c, h, keep)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """x: (..., input_ch + input_ch_views) -> (..., 4) = [rgb logits,
+        sigma]: forward_rays on one sample a ray."""
+        cfg = self.cfg
+        flat = x.reshape(-1, x.shape[-1])
+        raw = self.forward_rays(flat[:, : cfg.input_ch],
+                                flat[:, cfg.input_ch : cfg.input_ch + cfg.input_ch_views], 1)
+        return raw.reshape(x.shape[:-1] + (4,))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -185,11 +207,18 @@ class NeRF(nn.Module):
         """The outputs of the viewdir branch's last hidden layer h."""
         return [_apply(self.rgb_linear, h, self._dtype)]
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward_rays(self, x: torch.Tensor, views: Optional[torch.Tensor], S: int,
+                     keep: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """x (N, input_ch) encoded points, S samples a ray; views (N // S,
+        input_ch_views), one view encoding a ray, or None. The views are
+        widened to the samples, as the concatenated input carried them. The
+        NeRF family's encoders keep every point: keep must be None."""
+        if keep is not None:
+            raise ValueError(f"{type(self).__name__}: no keep mask (its encoders keep every point)")
         cfg, dt = self.cfg, self._dtype
-        pts = x[..., : cfg.input_ch]
-        views = x[..., cfg.input_ch : cfg.input_ch + cfg.input_ch_views]
-        h = pts
+        if views is not None and S > 1:
+            views = views.repeat_interleave(S, dim=0)
+        pts = h = x
         for i, layer in enumerate(self.pts_linears):
             h = torch.relu(_apply(layer, h, dt))
             if i in cfg.skips:
@@ -202,6 +231,13 @@ class NeRF(nn.Module):
             h = torch.relu(_apply(layer, h, dt))
         rgb, *rest = self._heads(h)
         return torch.cat([rgb, alpha] + rest, dim=-1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """x (..., input_ch + input_ch_views), the points' and the views'
+        encodings side by side: forward_rays on one sample a ray."""
+        cfg = self.cfg
+        return self.forward_rays(x[..., : cfg.input_ch],
+                                 x[..., cfg.input_ch : cfg.input_ch + cfg.input_ch_views], 1)
 
 
 class NeRFGradient(NeRF):

@@ -43,43 +43,56 @@ def sh_out_dim(degree: int) -> int:
 
 
 def sh_encode(d: torch.Tensor, degree: int = 4) -> torch.Tensor:
-    """Real SH basis at unit directions d (..., 3) -> (..., degree**2)."""
+    """Real SH basis at unit directions d (..., 3) -> (..., degree**2).
+
+    Each basis function's last product is written straight into its
+    column of the output (no stack of degree**2 columns: one copy less),
+    with the same operations in the same order as the JAX package. An
+    `out=` product takes no gradient, so directions that require one get
+    the same columns stacked instead."""
     if not (1 <= degree <= 5):
         raise ValueError(f"degree must be in [1, 5], got {degree}")
     x, y, z = d[..., 0], d[..., 1], d[..., 2]
-    out = [torch.full_like(x, C0)]
+    stacked = [torch.full_like(x, C0)] if d.requires_grad and torch.is_grad_enabled() else None
+    if stacked is None:
+        out = d.new_empty(d.shape[:-1] + (degree * degree,))
+        cols = iter(out.unbind(-1))
+        next(cols).fill_(C0)
+
+    def put(a, b):  # a * b into the next column
+        if stacked is None:
+            torch.mul(a, b, out=next(cols))
+        else:
+            stacked.append(a * b)
+
     if degree > 1:
-        out += [-C1 * y, C1 * z, -C1 * x]
+        put(y, -C1)
+        put(z, C1)
+        put(x, -C1)
     if degree > 2:
         xx, yy, zz = x * x, y * y, z * z
         xy, yz, xz = x * y, y * z, x * z
-        out += [
-            C2[0] * xy,
-            C2[1] * yz,
-            C2[2] * (2.0 * zz - xx - yy),
-            C2[3] * xz,
-            C2[4] * (xx - yy),
-        ]
+        put(xy, C2[0])
+        put(yz, C2[1])
+        put(2.0 * zz - xx - yy, C2[2])
+        put(xz, C2[3])
+        put(xx - yy, C2[4])
     if degree > 3:
-        out += [
-            C3[0] * y * (3 * xx - yy),
-            C3[1] * xy * z,
-            C3[2] * y * (4 * zz - xx - yy),
-            C3[3] * z * (2 * zz - 3 * xx - 3 * yy),
-            C3[4] * x * (4 * zz - xx - yy),
-            C3[5] * z * (xx - yy),
-            C3[6] * x * (xx - 3 * yy),
-        ]
+        put(C3[0] * y, 3 * xx - yy)
+        put(C3[1] * xy, z)
+        put(C3[2] * y, 4 * zz - xx - yy)
+        put(C3[3] * z, 2 * zz - 3 * xx - 3 * yy)
+        put(C3[4] * x, 4 * zz - xx - yy)
+        put(C3[5] * z, xx - yy)
+        put(C3[6] * x, xx - 3 * yy)
     if degree > 4:
-        out += [
-            C4[0] * xy * (xx - yy),
-            C4[1] * yz * (3 * xx - yy),
-            C4[2] * xy * (7 * zz - 1),
-            C4[3] * yz * (7 * zz - 3),
-            C4[4] * (zz * (35 * zz - 30) + 3),
-            C4[5] * xz * (7 * zz - 3),
-            C4[6] * (xx - yy) * (7 * zz - 1),
-            C4[7] * xz * (xx - 3 * yy),
-            C4[8] * (xx * (xx - 3 * yy) - yy * (3 * xx - yy)),
-        ]
-    return torch.stack(out, dim=-1)
+        put(C4[0] * xy, xx - yy)
+        put(C4[1] * yz, 3 * xx - yy)
+        put(C4[2] * xy, 7 * zz - 1)
+        put(C4[3] * yz, 7 * zz - 3)
+        put(zz * (35 * zz - 30) + 3, C4[4])
+        put(C4[5] * xz, 7 * zz - 3)
+        put(C4[6] * (xx - yy), 7 * zz - 1)
+        put(C4[7] * xz, xx - 3 * yy)
+        put(xx * (xx - 3 * yy) - yy * (3 * xx - yy), C4[8])
+    return out if stacked is None else torch.stack(stacked, dim=-1)

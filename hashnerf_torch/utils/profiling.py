@@ -29,6 +29,7 @@ COUNTERS = {
     "grid_updates": "occupancy-grid updates, eager or replayed",
     "graph_captures": "CUDA graphs captured",
     "host_reads": "the program's own blocking reads of a device value",
+    "views_per_ray": "query_fn calls that encoded their view directions once a ray",
 }
 _counts: Dict[str, int] = dict.fromkeys(COUNTERS, 0)
 _NULL = contextlib.nullcontext()

@@ -683,13 +683,143 @@ def test_launch_counts_count_graph_replays(cuda_device):
     t = graph_trainer(GRAPH_SMALL)
     t.run_steps(16, block_size=16)  # the capture and 16 replays
     graph = t._graphs.graphs[("step", True, False, False, None)]
-    # a TV step: K2 and K6 in each pass, K5 for the TV loss; one step a replay
+    # a TV step: K2 and K6 in each pass, K5 for the TV loss, K9 and field_raw
+    # forward and backward in each pass, whose directions are encoded once a
+    # ray; one step a replay
     assert graph.launches == {"hash_encode_fwd": 2, "hash_encode_bwd": 2, "segment_accumulate_k5": 1,
+                              "field_colour_input_fwd": 2, "field_colour_input_bwd": 2,
+                              "field_raw_fwd": 2, "field_raw_bwd": 2, "views_per_ray": 2,
                               "steps_replayed": 1}
     reset_launch_counts()
     t.run_steps(16, block_size=16)  # replays only
     counts = launch_counts()
     assert {k: v for k, v in counts.items() if v} == {k: 16 * v for k, v in graph.launches.items()}
+
+
+# --------------------------------------------------------------------------- #
+# K9 field_colour_input and field_raw: the field query's copies
+# --------------------------------------------------------------------------- #
+
+# (R, S): the render chunk's coarse and fine passes, the chair's training
+# passes, the flagship's culled blocks of 8 and a grid update's points
+FIELD_SHAPES = [(32768, 64), (32768, 192), (1024, 64), (1024, 192), (3072, 8), (4096, 1)]
+FIELD_KERNELS = ("field_colour_input_fwd", "field_colour_input_bwd", "field_raw_fwd",
+                 "field_raw_bwd")
+
+
+def field_inputs(dev, R, S, seed=21):
+    """(views (R, 16), h (N, 16), rgb (N, 3), keep (N,), g_c (N, 31),
+    g_raw (N, 4)) on dev: SH-encoded unit directions and normal values, a
+    fifth of the points outside the keep mask."""
+    from hashnerf_torch.ops.sh_encoding import sh_encode
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    N = R * S
+    d = torch.randn((R, 3), generator=gen, device=dev)
+    views = sh_encode(d / d.norm(dim=-1, keepdim=True))
+    normal = lambda *shape: torch.randn(shape, generator=gen, device=dev)
+    keep = torch.rand((N,), generator=gen, device=dev) < 0.8
+    return views, normal(N, 16), normal(N, 3), keep, normal(N, 31), normal(N, 4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,S", FIELD_SHAPES)
+def test_field_kernels_on_card_equal_plain(cuda_device, R, S):
+    """Each of the four launches against its plain version on the CPU, bit
+    for bit (pure data movement), one launch each; the colour input's pad
+    column +0."""
+    from hashnerf_torch.kernels import field_query as fq
+
+    views, h, rgb, keep, g_c, g_raw = field_inputs(cuda_device, R, S)
+    N = R * S
+    cpu = lambda *ts: [t.cpu() for t in ts]
+    before = launch_counts()
+    c = fq.field_colour_input_fwd(views, h, S)
+    d_h = fq.field_colour_input_bwd(g_c, 16, 16)
+    raw = fq.field_raw_fwd(rgb, h, keep)
+    d_h_raw = fq.field_raw_bwd(g_raw, keep, 16)
+    torch.cuda.synchronize()
+    after = launch_counts()
+    assert {k: after[k] - before[k] for k in after if after[k] != before[k]} == dict.fromkeys(
+        FIELD_KERNELS, 1)
+    assert c.shape == (N, 31) and c.stride() == (32, 1)
+    assert torch.equal(c.cpu(), fq.field_colour_input_fwd_plain(*cpu(views, h), S))
+    assert not c.as_strided((N, 32), (32, 1))[:, 31].any()
+    assert torch.equal(d_h.cpu(), fq.field_colour_input_bwd_plain(g_c.cpu(), 16, 16))
+    assert torch.equal(raw.cpu(), fq.field_raw_fwd_plain(*cpu(rgb, h, keep)))
+    assert torch.equal(d_h_raw.cpu(), fq.field_raw_bwd_plain(*cpu(g_raw, keep), 16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,S", [(1024, 64), (3072, 8), (4096, 1)])
+def test_field_functions_on_card_equal_cpu(cuda_device, R, S):
+    """The autograd Functions as NeRFSmall calls them: the colour input and
+    the raw, and the gradients of h and rgb, on the card and on the CPU."""
+    from hashnerf_torch.kernels.field_query import field_colour_input, field_raw
+
+    views, h, rgb, keep, g_c, g_raw = field_inputs(cuda_device, R, S, seed=22)
+
+    def run(views, h, rgb, keep, g_c, g_raw):
+        h = h.clone().requires_grad_(True)
+        rgb = rgb.clone().requires_grad_(True)
+        c = field_colour_input(views, h, S)
+        raw = field_raw(rgb, h, keep)
+        ((c * g_c).sum() + (raw * g_raw).sum()).backward()
+        return [t.detach().cpu() for t in (c, raw, h.grad, rgb.grad)]
+
+    ins = (views, h, rgb, keep, g_c, g_raw)
+    for got, want in zip(run(*ins), run(*[t.cpu() for t in ins])):
+        assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("degree", [1, 2, 3, 4, 5])
+def test_sh_encode_on_card_writes_the_stacked_columns(cuda_device, degree):
+    """sh_encode's in-place column products on the card equal the stacked
+    formulation on the card, bit for bit, at a render chunk's rays."""
+    from hashnerf_torch.ops.sh_encoding import sh_encode
+    from test_torch_field_query import old_sh_encode
+
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(23)
+    d = torch.randn((32768, 3), generator=gen, device=cuda_device)
+    d = d / d.norm(dim=-1, keepdim=True)
+    assert torch.equal(sh_encode(d, degree), old_sh_encode(d, degree))
+
+
+@pytest.mark.cuda
+def test_field_kernels_refuse_what_they_cannot_take(cuda_device):
+    """A launch the entry refuses raises through build.check (the wrappers'
+    route); the wrappers raise before launching on a wrong type or a second
+    device, and take no plain path for a CUDA tensor."""
+    from hashnerf_torch.kernels import build
+    from hashnerf_torch.kernels import field_query as fq
+
+    dev = cuda_device
+    h, rgb = torch.zeros((8, 16), device=dev), torch.zeros((8, 3), device=dev)
+    out = torch.empty((8, 32), device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    before = launch_counts()
+    fwd = fq._fn("field_colour_input_fwd")
+    # rows of 31 floats are no whole 16-byte vectors; 3 samples a ray do not divide 8 rows
+    for P, S in ((31, 1), (32, 3)):
+        err = fwd(None, h.data_ptr(), out.data_ptr(), 8, S, 0, 15, P, 0, 16, stream)
+        with pytest.raises(RuntimeError, match="field_colour_input_fwd"):
+            build.check(err, "field_colour_input_fwd")
+    # raw rows must be 16-byte aligned
+    err = fq._fn("field_raw_fwd")(rgb.data_ptr(), h.data_ptr(), None, out.data_ptr() + 4, 8, 3,
+                                  16, stream)
+    with pytest.raises(RuntimeError, match="field_raw_fwd"):
+        build.check(err, "field_raw_fwd")
+    with pytest.raises(TypeError):
+        fq.field_raw_fwd(rgb.double(), h, None)
+    with pytest.raises(ValueError):
+        fq.field_raw_fwd(rgb, h.cpu(), None)
+    with pytest.raises(ValueError):
+        fq.field_colour_input_fwd(None, h, 3)
+    torch.cuda.synchronize()
+    assert launch_counts() == before
 
 
 # --------------------------------------------------------------------------- #

@@ -25,6 +25,7 @@ from hashnerf_tpu.kernels.segment_scatter import sorted_segment_accumulate as ja
 from hashnerf_tpu.ops.hash_encoding import HashGridConfig as JCfg
 from hashnerf_torch.kernels import KERNELS, build, launch_counts, reset_launch_counts
 from hashnerf_torch.kernels import hash_encode as the
+from hashnerf_torch.kernels.field_query import field_colour_input, field_raw
 from hashnerf_torch.kernels.gather import take_rows
 from hashnerf_torch.kernels.segment_accum import (
     segment_accumulate_k5, segment_accumulate_sorted, sorted_segment_accumulate,
@@ -124,10 +125,14 @@ def test_cpu_tensors_take_plain_versions_without_launching():
     f, _ = PackedEncode.apply(tables["dense"], tables["fine"], torch.zeros(4, 3),
                               torch.full((3,), -1.0), torch.ones(3), pcfg)
     f.sum().backward()
+    h = torch.zeros((8, 16), requires_grad=True)
+    c = field_colour_input(torch.zeros((2, 16)), h, 4)
+    (c.sum() + field_raw(torch.zeros((8, 3)), h, torch.ones(8, dtype=torch.bool)).sum()).backward()
     assert {k: n for k, n in launch_counts().items() if k in KERNELS} == {
         "segment_accumulate_k1": 0, "hash_encode_fwd": 0, "hash_encode_bwd_expand": 0,
         "segment_accumulate_k4": 0, "segment_accumulate_k5": 0, "hash_encode_bwd": 0,
-        "packed_encode_fwd": 0, "packed_encode_bwd": 0}
+        "packed_encode_fwd": 0, "packed_encode_bwd": 0, "field_colour_input_fwd": 0,
+        "field_colour_input_bwd": 0, "field_raw_fwd": 0, "field_raw_bwd": 0}
 
 
 def test_library_path_follows_headers(tmp_path, monkeypatch):

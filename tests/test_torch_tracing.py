@@ -127,14 +127,17 @@ def test_run_steps_counts_and_spans_eager_steps_and_grid_updates():
     t = _trainer(SMALL_CULLED)
     kernels.reset_launch_counts()
     t.run_steps(2, block_size=4)
+    # each step queries the coarse and the fine pass, each with its rays' directions
     assert profiling.counters() == {"steps_eager": 2, "steps_replayed": 0, "grid_updates": 0,
-                                    "graph_captures": 0, "host_reads": 1}
+                                    "graph_captures": 0, "host_reads": 1, "views_per_ray": 4}
     kernels.reset_launch_counts()
     _, spans = _traced(lambda: t.run_steps(10, block_size=4))
     c = profiling.counters()
     names = _names(spans)
     assert c["steps_eager"] == 2 and c["steps_replayed"] == 8 and c["grid_updates"] == 3
     assert c["graph_captures"] == 0 and c["host_reads"] >= 2
+    # two passes a step, and each grid update's query (direction +z)
+    assert c["views_per_ray"] == 2 * 10 + c["grid_updates"]
     assert names["hn.run_steps"] == 1 and names["hn.block"] == 2
     assert names["hn.step"] == c["steps_eager"]
     assert names["hn.grid_update"] == c["grid_updates"]
