@@ -16,6 +16,8 @@ set-up step), then reads, by the numbers of harness.py:
   * half_batch: the reference with each image loss over half the rays (a
     planted fault), against the reference.
 
+The reference is the configuration's family's (families/<family>.py).
+
 One JSON line a seed. The benchmark's own runs never run this.
 """
 from __future__ import annotations
@@ -32,7 +34,6 @@ import numpy as np
 import torch
 
 from nerfbench import harness as H
-from nerfbench import reference as refm
 from nerfbench import spec
 
 
@@ -55,7 +56,7 @@ def control_dtype(s: dict):
     return torch.float8_e4m3fn, False
 
 
-def side(r: refm.Reference, snaps: dict, poses, sc: dict, check_steps: int, chunk: int) -> dict:
+def side(r, snaps: dict, poses, sc: dict, check_steps: int, chunk: int) -> dict:
     """One side's readings: start phase, trained phase, frames."""
     out = {"start": H.reference_phase(r, snaps["start"], check_steps, precrop=True),
            "trained": H.reference_phase(r, snaps["trained"], check_steps, precrop=False)}
@@ -76,12 +77,12 @@ def read_seed(cfg: dict, tr: dict, seed: int, device: str, check_frames: int = 2
               chunk: int = 16384) -> dict:
     s = cfg["settings"]
     n = tr.get("check_steps", 3)
-    trainer, sc, init = H.build(cfg, seed, device)
-    leaves = H.leaf_map(trainer)
-    snaps = {"start": H.initial_snapshot(trainer, init)}
+    trainer, sc, init, fam = H.build(cfg, seed, device)
+    leaves = fam.program_leaves(trainer)
+    snaps = {"start": H.initial_snapshot(trainer, init, fam)}
     prog = {"start": H.program_phase(trainer, leaves, snaps["start"], n, precrop=True)}
     H.drive(trainer, tr["setup_steps"], s)
-    snaps["trained"] = H.snapshot(trainer, leaves)
+    snaps["trained"] = H.snapshot(trainer, leaves, fam)
     prog["trained"] = H.program_phase(trainer, leaves, snaps["trained"], n, precrop=False)
     # the frames are rendered at the trained state the trained phase started from
     with torch.no_grad():
@@ -95,11 +96,11 @@ def read_seed(cfg: dict, tr: dict, seed: int, device: str, check_frames: int = 2
     gc.collect()
     if device.startswith("cuda"):
         torch.cuda.empty_cache()
-    want = side(refm.Reference(s, sc, device), snaps, poses, sc, n, chunk)
+    want = side(fam.Reference(s, sc, device), snaps, poses, sc, n, chunk)
     dtype, use_tf32 = control_dtype(s)
     with tf32(use_tf32):
-        ctrl = side(refm.Reference(s, sc, device, dtype=dtype), snaps, poses, sc, n, chunk)
-    half_r = refm.Reference(s, sc, device, half_batch=True)
+        ctrl = side(fam.Reference(s, sc, device, dtype=dtype), snaps, poses, sc, n, chunk)
+    half_r = fam.Reference(s, sc, device, half_batch=True)
     half = {"start": H.reference_phase(half_r, snaps["start"], n, precrop=True),
             "trained": H.reference_phase(half_r, snaps["trained"], n, precrop=False),
             "frames": want["frames"]}

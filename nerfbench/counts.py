@@ -1,8 +1,10 @@
-"""The yardstick's arithmetic: the card's peaks, the model FLOPs a step or a
-frame needs, and the bytes an encode call needs.
+"""The yardstick's arithmetic: the card's peaks, the points a step or a
+frame queries, the model FLOPs they need at a family's multiply-adds a
+point, and the bytes a hash-grid encode call needs.
 
 Everything here is counted from the configuration's sizes and the points
-the program was given, never read from the program.
+the program was given, never read from the program. A family's own
+multiply-adds a point sit in its module (families/<family>.py).
 """
 from __future__ import annotations
 
@@ -16,18 +18,6 @@ from nerfbench import reference as ref
 # keeps TF32 off, so float32 products run outside the tensor cores.
 PEAK_FLOPS = {"float32": 67e12, "tf32": 495e12, "bfloat16": 989e12, "float16": 989e12}
 PEAK_BYTES_PER_S = 3.35e12
-
-
-
-def macs_per_point(s: dict) -> int:
-    """NeRFSmall's multiply-adds a point: 32*64 + 64*16 + 31*64 + 64*64 +
-    64*3 = 9,344 over an encoding of 32 features."""
-    return sum(o * i for o, i in ref.net_shapes(ref.Grid(s).out_dim))
-
-
-def sigma_macs_per_point(s: dict) -> int:
-    """A density query needs the sigma net alone: 32*64 + 64*16."""
-    return sum(o * i for o, i in ref.net_shapes(ref.Grid(s).out_dim)[:2])
 
 
 def peak_flops(s: dict) -> float:
@@ -53,18 +43,20 @@ def update_points_per_step(s: dict) -> float:
     return s.get("occ_update_samples", 1 << 16) / s.get("occ_update_every", 16)
 
 
-def train_flops_per_step(s: dict) -> float:
+def train_flops(s: dict, macs: int, sigma_macs: int) -> float:
     """2 FLOPs a multiply-add; forward and the two backward products (x3)
-    of every queried point, plus the updates' sigma-net forwards."""
-    return (6.0 * macs_per_point(s) * train_points_per_step(s)
-            + 2.0 * sigma_macs_per_point(s) * update_points_per_step(s))
+    of every queried point at `macs` a point, plus the grid updates'
+    density forwards at `sigma_macs` a point."""
+    return (6.0 * macs * train_points_per_step(s)
+            + 2.0 * sigma_macs * update_points_per_step(s))
 
 
-def render_flops_per_frame(s: dict, H: int, W: int) -> float:
+def render_flops(s: dict, H: int, W: int, macs: int) -> float:
     """Exact eval: every sample of both passes of every pixel's ray
-    (N_samples coarse, N_samples + N_importance fine), forward only."""
+    (N_samples coarse, N_samples + N_importance fine), forward only, at
+    `macs` a point."""
     Ns, Ni = s["N_samples"], s["N_importance"]
-    return 2.0 * macs_per_point(s) * H * W * (2 * Ns + Ni if Ni else Ns)
+    return 2.0 * macs * H * W * (2 * Ns + Ni if Ni else Ns)
 
 
 def _count_rows(ids: torch.Tensor, size: int) -> int:

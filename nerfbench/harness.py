@@ -2,13 +2,14 @@
 comparison with the plain reference that decides `correct`.
 
 Set-up builds one hashnerf_torch Trainer from the configuration's argv on
-the benchmark's scene, loads the weights the benchmark made from the seed,
+the scene its kind makes (scenes/<kind>.py), loads the weights its model
+family (families/<family>.py) made from the seed,
 and drives its first three steps through `Trainer.run_steps`, as the window
 calls it (the start phase, which the reference follows). It then trains on
 in train_loop's spans (a host read of the loss at each `i_print`) to the
 traffic's set-up step, and warms up every shape the window uses. The
 window is traffic.py's. After it, the program's state is read, the program
-is freed, and the reference follows it (`check_*`).
+is freed, and the family's plain reference follows it.
 """
 from __future__ import annotations
 
@@ -23,11 +24,9 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from nerfbench import counts, reference as refm, spec
+from nerfbench import counts, spec
 from nerfbench import trace as tracem
 from nerfbench import traffic as trafficm
-
-B1 = refm.ADAM_BETAS[0]
 
 
 # --------------------------------------------------------------------------
@@ -52,52 +51,33 @@ def program_args(cfg: dict, device: str):
     return args
 
 
-def build(cfg: dict, seed: int, device: str):
-    """(trainer, scene tensors, initial weights): the program's Trainer on
-    the benchmark's scene, with the weights made from the seed."""
+def build(cfg: dict, seed: int, device: str, base: str = spec.HERE):
+    """(trainer, scene tensors, initial weights, family module): the
+    program's Trainer on the configuration's scene, with its family's
+    weights made from the seed. The family is resolved here alone."""
     from hashnerf_torch.data.scene import Scene
     from hashnerf_torch.train.driver import Trainer
 
-    from nerfbench.scene import make_scene
-
+    fam = spec.family_of(cfg, base)
     args = program_args(cfg, device)
-    sc = make_scene(cfg["scene"], device)
+    sc = spec.scene_of(cfg, base).make_scene(cfg["scene"], device)
     n = sc["images"].shape[0]
     bbox = sc["bbox"].cpu().numpy()
     scene = Scene(images=sc["images"].cpu().numpy(), poses=sc["poses"].cpu().numpy(),
                   render_poses=sc["render_poses"], hwf=(sc["H"], sc["W"], sc["focal"]),
                   K=sc["K_np"], i_train=np.arange(n), i_val=np.arange(0), i_test=np.arange(0),
-                  near=sc["near"], far=sc["far"], bounding_box=(bbox[0], bbox[1]))
+                  near=sc["near"], far=sc["far"], bounding_box=(bbox[0], bbox[1]),
+                  ndc=sc.get("ndc", False))
     trainer = Trainer(args, scene, device=device, seed=seed + 1)
-    init = refm.initial_weights(cfg["settings"], seed, device)
-    leaves = leaf_map(trainer)
+    init = fam.initial_weights(cfg["settings"], seed, device)
+    leaves = fam.program_leaves(trainer)
     if set(leaves) != set(init):
         raise ValueError(f"nerfbench: the program's leaves {sorted(leaves)} are not the "
                          f"configuration's {sorted(init)}")
     with torch.no_grad():
         for name, p in leaves.items():
             p.copy_(init[name])
-    return trainer, sc, init
-
-
-def leaf_map(trainer) -> Dict[str, torch.nn.Parameter]:
-    """The program's trained tensors by the reference's names."""
-    st = trainer.state
-    out = {}
-    if isinstance(st.hash_table, torch.nn.ParameterDict):
-        for k, name in (("dense", "dense"), ("fine", "fine_table")):
-            if k in st.hash_table:
-                out[name] = st.hash_table[k]
-    else:
-        out["table"] = st.hash_table
-    for net in ("coarse", "fine"):
-        mod = getattr(st, net)
-        if mod is None:
-            continue
-        for kind, layers in (("sigma", mod.sigma_net), ("color", mod.color_net)):
-            for i, lin in enumerate(layers):
-                out[f"{net}.{kind}.{i}"] = lin.weight
-    return out
+    return trainer, sc, init, fam
 
 
 def sync(device: str) -> None:
@@ -130,56 +110,60 @@ def _norms(d: Dict[str, torch.Tensor]) -> Dict[str, float]:
     return {k: float(torch.linalg.vector_norm(v.double())) for k, v in d.items()}
 
 
-def snapshot(trainer, leaves) -> dict:
+def snapshot(trainer, leaves, fam) -> dict:
     """What the reference needs to follow the program from here: weights,
-    RAdam's moments and step counts, the occupancy grid if it culls, the
-    generator's state, the global step."""
+    the optimizer's moments, its beta1 and the step count of each of the
+    family's groups, the occupancy grid if it culls, the generator's state,
+    the global step."""
     opt = trainer.optimizer
     opt.init_state()
     st = {p: opt.state[p] for p in leaves.values()}
-    first = {"net": next(n for n in leaves if not refm.is_table(n)),
-             "table": next(n for n in leaves if refm.is_table(n))}
+    first = {g: names[0] for g, names in fam.step_groups(list(leaves)).items()}
     occ = trainer.render_cfg.occupancy
     culled = (occ is not None and trainer._occ_ready and trainer.global_step >= occ.warmup_steps)
     return {
         "p": {n: p.detach().clone() for n, p in leaves.items()},
         "m": {n: st[p]["exp_avg"].clone() for n, p in leaves.items()},
         "v": {n: st[p]["exp_avg_sq"].clone() for n, p in leaves.items()},
-        "step": {g: st[leaves[n]]["step"].clone() for g, n in first.items()},
+        "step": {g: st[leaves[n]]["step"].clone() for g, n in first.items()}, "b1": fam.BETA1,
         "occ_grid": trainer.occ_grid.clone() if culled else None,
         "gen_state": trainer.generator.get_state(),
         "step0": trainer.global_step,
     }
 
 
-def initial_snapshot(trainer, init: Dict[str, torch.Tensor]) -> dict:
-    """The start: the benchmark's weights, RAdam's zero state, step 0."""
+def initial_snapshot(trainer, init: Dict[str, torch.Tensor], fam) -> dict:
+    """The start: the benchmark's weights, the optimizer's zero state,
+    step 0."""
     z = {n: torch.zeros_like(t) for n, t in init.items()}
     dev = next(iter(init.values())).device
     return {"p": init, "m": z, "v": {n: t.clone() for n, t in z.items()},
-            "step": {g: torch.zeros((), dtype=torch.float32, device=dev) for g in ("net", "table")},
+            "step": {g: torch.zeros((), dtype=torch.float32, device=dev)
+                     for g in fam.step_groups(list(init))}, "b1": fam.BETA1,
             "occ_grid": None, "gen_state": trainer.generator.get_state(), "step0": 0}
 
 
 def program_phase(trainer, leaves, snap: dict, n: int, precrop: bool) -> dict:
     """n steps through Trainer.run_steps, one a call; the losses, the first
-    gradient's norm by leaf as RAdam's first moment tells it, and each
-    leaf's change after the n."""
+    gradient's norm by leaf as the optimizer's first moment tells it, and
+    each leaf's change after the n."""
     spd = trainer.args.steps_per_dispatch
     opt = trainer.optimizer
+    b1 = snap["b1"]
     losses, grad = [], None
     for k in range(n):
         m = trainer.run_steps(1, block_size=spd, precrop=precrop)
         losses.append(float(m["loss"]))
         if k == 0:
-            grad = _norms({name: (opt.state[p]["exp_avg"].double() - B1 * snap["m"][name].double())
-                           / (1 - B1) for name, p in leaves.items()})
+            grad = _norms({name: (opt.state[p]["exp_avg"].double() - b1 * snap["m"][name].double())
+                           / (1 - b1) for name, p in leaves.items()})
     moved = _norms({name: p.detach() - snap["p"][name] for name, p in leaves.items()})
     return {"losses": losses, "grad": grad, "moved": moved}
 
 
-def reference_phase(r: refm.Reference, snap: dict, n: int, precrop: bool) -> dict:
+def reference_phase(r, snap: dict, n: int, precrop: bool) -> dict:
     """The reference's n steps from the snapshot, read as program_phase."""
+    b1 = snap["b1"]
     p = {k: v.clone() for k, v in snap["p"].items()}
     st = {"m": {k: v.clone() for k, v in snap["m"].items()},
           "v": {k: v.clone() for k, v in snap["v"].items()},
@@ -191,7 +175,7 @@ def reference_phase(r: refm.Reference, snap: dict, n: int, precrop: bool) -> dic
         loss, _ = r.train_steps(p, st, gen, snap["step0"] + k, 1, precrop, snap["occ_grid"])
         losses += loss
         if k == 0:
-            grad = _norms({name: (st["m"][name].double() - B1 * snap["m"][name].double()) / (1 - B1)
+            grad = _norms({name: (st["m"][name].double() - b1 * snap["m"][name].double()) / (1 - b1)
                            for name in p})
     moved = _norms({name: p[name] - snap["p"][name] for name in p})
     return {"losses": losses, "grad": grad, "moved": moved}
@@ -298,11 +282,11 @@ def run_cell(cell: dict, cfg: dict, tr: dict, lim: dict, seed: int, seconds: flo
     faults = faults or {}
     s = cfg["settings"]
     kind = tr["kind"]
-    trainer, sc, init = build(cfg, seed, device)
-    leaves = leaf_map(trainer)
+    trainer, sc, init, fam = build(cfg, seed, device, base)
+    leaves = fam.program_leaves(trainer)
 
     # the start phase: three steps from the seed, as the window calls them
-    start_snap = initial_snapshot(trainer, init)
+    start_snap = initial_snapshot(trainer, init, fam)
     start_prog = program_phase(trainer, leaves, start_snap, tr.get("check_steps", 3), precrop=True)
     drive(trainer, tr["setup_steps"], s)
     driver = trafficm.DRIVERS[kind](trainer, tr, s, sc, device)
@@ -339,12 +323,12 @@ def run_cell(cell: dict, cfg: dict, tr: dict, lim: dict, seed: int, seconds: flo
     frames = win.pop("frames", None)
     trained_snap = trained_prog = None
     if kind == "train":
-        trained_snap = snapshot(trainer, leaves)
+        trained_snap = snapshot(trainer, leaves, fam)
         trained_prog = program_phase(trainer, leaves, trained_snap, tr.get("check_steps", 3),
                                      precrop=False)
     enc = None
-    if trace:
-        g = refm.Grid(s)
+    g = fam.grid(s) if trace else None
+    if g is not None:
         if kind == "train":
             enc = {"step": encode_bytes(g, record_encodes(trainer, lambda: trainer.step(
                 trainer.sample_batch(False))), sc["bbox"])}
@@ -362,7 +346,7 @@ def run_cell(cell: dict, cfg: dict, tr: dict, lim: dict, seed: int, seconds: flo
 
     # the reference
     t_check = time.perf_counter()
-    r = refm.Reference(s, sc, device)
+    r = fam.Reference(s, sc, device)
     numbers = phase_numbers("start", start_prog,
                             reference_phase(r, start_snap, tr.get("check_steps", 3), precrop=True))
     if kind == "train":
@@ -391,7 +375,7 @@ def run_cell(cell: dict, cfg: dict, tr: dict, lim: dict, seed: int, seconds: flo
         ctx = {"settings": s, "traffic": tr, "kind": kind, "on_card": device.startswith("cuda"),
                "slice": slice_, "trace": prof_summary,
                "launches": launches, "traced_units": traced["units"], "encode": enc,
-               "frame_hw": (sc["H"], sc["W"])}
+               "frame_hw": (sc["H"], sc["W"]), "family": fam}
         out["metrics"] = spec.read_metrics(per_layer, ctx, base)
         dev_info.update(busy_s=prof_summary["busy_s"], window_s=prof_summary["window_s"])
         out["device"] = dev_info

@@ -1,7 +1,7 @@
 """Model FLOP utilisation of rendering: the forward FLOPs of every sample
-of every pixel's ray (counts.render_flops_per_frame), times the frames of a
-traced run's untraced slice, over its host-clock time, over the peak of
-the declared compute type."""
+of every pixel's ray (its family's render_flops_per_frame), times the
+frames of a traced run's untraced slice, over its host-clock time, over
+the peak of the declared compute type."""
 from nerfbench import counts
 
 NAME = "render_mfu"
@@ -16,5 +16,5 @@ def read(ctx):
         return None
     s = ctx["settings"]
     H, W = ctx["frame_hw"]
-    return (100.0 * counts.render_flops_per_frame(s, H, W) * sl["units"] / sl["seconds"]
+    return (100.0 * ctx["family"].render_flops_per_frame(s, H, W) * sl["units"] / sl["seconds"]
             / counts.peak_flops(s))

@@ -1,4 +1,4 @@
-"""The benchmark's scene, made on the device.
+"""The "ring" scene kind (a configuration's default), made on the device.
 
 The repository holds no nerf_synthetic data, so the scene is procedural: a
 copy of the port's "multi" scene (hashnerf_torch/data/synthetic.py) in
@@ -11,7 +11,7 @@ box-averaged. The spiral of render poses is the blender loader's: n poses
 on the same ring.
 
 The scene is the same for every seed: the seed draws the weights and the
-program's rays, not the images.
+program's rays, not the images. It does not set "ndc".
 """
 from __future__ import annotations
 

@@ -195,7 +195,7 @@ def run(cfg: dict, tr: dict, seed: int, device: str) -> dict:
 
     t0 = time.perf_counter()
     s = cfg["settings"]
-    trainer, sc, _ = harness.build(cfg, seed, device)
+    trainer, sc, _, _ = harness.build(cfg, seed, device)
     harness.drive(trainer, tr["setup_steps"], s)
     driver = trafficm.DRIVERS[tr["kind"]](trainer, tr, s, sc, device)
     driver.warm_up()

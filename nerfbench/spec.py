@@ -5,12 +5,22 @@ traffic mix, and its metrics. Each part is a file of its own under this
 folder, found by that name:
 
     configs/<config>.json   the port's argv, the settings the reference and
-                            the counts read, the scene, source and cuts
+                            the counts read, the scene, source and cuts;
+                            "family" names the model family (absent:
+                            "ngp") and scene.kind the scene (absent: "ring")
+    families/<family>.py    the family's weights from the seed, the
+                            program's leaves, the optimizer's step groups
+                            and beta1, the plain reference, the FLOP counts
+                            and the encode's grid (family_of)
+    scenes/<kind>.py        make_scene(spec, device): the training views,
+                            render poses and the NDC flag of the scene
+                            (scene_of)
     traffic/<traffic>.json  the mix's parameters, read by traffic.py
     metrics/<metric>.py     a per-layer metric's reader
     limits/<cell>.json      the limit of each number the cell compares
 
-A later change adds a part by adding its file and its entries.
+A later change adds a part, a model family or a scene included, by adding
+its file and its entries.
 """
 from __future__ import annotations
 
@@ -62,17 +72,42 @@ def metrics_for(bench: dict, cell: str, section: str) -> List[dict]:
     return [m for m in bench[section] if cell in m.get("workloads", [cell])]
 
 
-def metric_reader(name: str, base: str = HERE):
-    """The module of metrics/<name>.py: NAME, UNIT, LAYER, MOVES and
-    read(ctx) -> float or None (nothing to read)."""
-    path = os.path.join(base, "metrics", name + ".py")
+def _module(kind: str, name: str, base: str, what: str):
+    """The module of <base>/<kind>/<name>.py."""
+    path = os.path.join(base, kind, name + ".py")
     if not os.path.exists(path):
-        raise FileNotFoundError(f"nerfbench: no reader for metric {name!r} ({path})")
-    mod_name = "nerfbench_metric_" + "".join(c if c.isalnum() else "_" for c in name)
+        raise FileNotFoundError(f"nerfbench: no {what} {name!r} ({path})")
+    mod_name = f"nerfbench_{kind}_" + "".join(c if c.isalnum() else "_" for c in name)
     sp = importlib.util.spec_from_file_location(mod_name, path)
     mod = importlib.util.module_from_spec(sp)
     sp.loader.exec_module(mod)
     return mod
+
+
+def metric_reader(name: str, base: str = HERE):
+    """The module of metrics/<name>.py: NAME, UNIT, LAYER, MOVES and
+    read(ctx) -> float or None (nothing to read)."""
+    return _module("metrics", name, base, "reader for metric")
+
+
+def family_of(cfg: dict, base: str = HERE):
+    """The module of families/<cfg["family"]>.py ("ngp" where the
+    configuration names none). It gives BETA1, initial_weights(s, seed,
+    device), program_leaves(trainer), step_groups(names),
+    Reference(s, scene, device, dtype=, half_batch=), grid(s) (the encode's
+    Grid, or None without a table), train_flops_per_step(s) and
+    render_flops_per_frame(s, H, W)."""
+    return _module("families", cfg.get("family", "ngp"), base, "model family")
+
+
+def scene_of(cfg: dict, base: str = HERE):
+    """The module of scenes/<cfg["scene"]["kind"]>.py ("ring" where the
+    configuration names none): make_scene(spec, device), whose dict may set
+    "ndc", which the port's Scene takes. The ngp family's reference has no
+    NDC path, so a scene that sets it needs a family whose reference has
+    one. The depth spacing (lindisp) is the configuration's setting, not
+    the scene's."""
+    return _module("scenes", cfg["scene"].get("kind", "ring"), base, "scene kind")
 
 
 def read_metrics(entries: List[dict], ctx: dict, base: str = HERE) -> Dict[str, dict]:

@@ -1,21 +1,37 @@
-"""The yardstick's FLOP and byte counts against hand-worked figures."""
+"""The yardstick's FLOP and byte counts against hand-worked figures, and
+the "ngp" family's counts against the figures the benchmark read before
+the model families (families/) took them over."""
+import pytest
 import torch
 
 from nerfbench import counts, reference as ref, spec
+
+NGP = spec.family_of({})
+BBOX = torch.tensor([[-1.6] * 3, [1.6] * 3])
+# The counts before the families, for the chair and the flagship at their
+# own sizes: (train FLOPs a step, render FLOPs a 400 x 400 frame, the
+# encode's forward and backward bytes of the 300 points of _points()).
+BEFORE = {"chair": (14696841216.0, 765460480000.0, 340468, 340168),
+          "flagship": (2780823552.0, 765460480000.0, 331292, 330992)}
+
+
+def _points():
+    gen = torch.Generator().manual_seed(0)
+    return torch.rand((300, 3), generator=gen) * 3.6 - 1.8  # some outside the box
 
 
 def test_macs_per_point_is_9344():
     s = spec.config("chair")["settings"]
     # 32*64 + 64*16 + 31*64 + 64*64 + 64*3
-    assert counts.macs_per_point(s) == 2048 + 1024 + 1984 + 4096 + 192 == 9344
-    assert counts.sigma_macs_per_point(s) == 3072
+    assert NGP.macs_per_point(s) == 2048 + 1024 + 1984 + 4096 + 192 == 9344
+    assert NGP.sigma_macs_per_point(s) == 3072
 
 
 def test_chair_step_points_and_flops():
     s = spec.config("chair")["settings"]
     assert counts.train_points_per_step(s) == 1024 * (64 + 192) == 262144
     assert counts.update_points_per_step(s) == 0
-    assert abs(counts.train_flops_per_step(s) - 14.70e9) < 0.005e9
+    assert abs(NGP.train_flops_per_step(s) - 14.70e9) < 0.005e9
     assert counts.peak_flops(s) == 67e12
 
 
@@ -25,14 +41,30 @@ def test_flagship_step_points_and_flops():
     assert counts.train_points_per_step(s) == 24576 + 24576
     assert counts.update_points_per_step(s) == 65536 / 16
     want = 6 * 9344 * 49152 + 2 * 3072 * 4096
-    assert counts.train_flops_per_step(s) == want
+    assert NGP.train_flops_per_step(s) == want
     assert abs(want - 2.78e9) < 0.01e9
     assert counts.peak_flops(s) == 989e12
 
 
 def test_render_frame_flops():
     s = spec.config("chair")["settings"]
-    assert counts.render_flops_per_frame(s, 400, 400) == 2 * 9344 * 160000 * 256
+    assert NGP.render_flops_per_frame(s, 400, 400) == 2 * 9344 * 160000 * 256
+
+
+@pytest.mark.parametrize("name", ["chair", "flagship"])
+def test_the_ngp_family_counts_as_before(name):
+    cfg = spec.config(name)
+    fam = spec.family_of(cfg)
+    assert fam.__file__ == NGP.__file__ and "family" not in cfg
+    s = cfg["settings"]
+    train, render, fwd, bwd = BEFORE[name]
+    assert fam.macs_per_point(s) == 9344
+    assert fam.train_flops_per_step(s) == train
+    assert fam.render_flops_per_frame(s, 400, 400) == render
+    g = fam.grid(s)
+    assert g.table_shapes() == ref.Grid(s).table_shapes() and g.res == ref.Grid(s).res
+    assert counts.encode_call_bytes(g, _points(), BBOX, backward=True) == {"forward": fwd,
+                                                                            "backward": bwd}
 
 
 def test_grids_of_the_configurations():
@@ -65,12 +97,10 @@ def _brute_rows(g, pts, bbox):
 
 
 def test_touched_rows_match_a_brute_count():
-    gen = torch.Generator().manual_seed(0)
-    bbox = torch.tensor([[-1.6] * 3, [1.6] * 3])
-    pts = torch.rand((300, 3), generator=gen) * 3.6 - 1.8  # some outside the box
+    pts = _points()
     for name in ("chair", "flagship"):
         g = ref.Grid(spec.config(name)["settings"])
-        assert counts.touched_row_bytes(g, pts, bbox) == _brute_rows(g, pts, bbox)
+        assert counts.touched_row_bytes(g, pts, BBOX) == _brute_rows(g, pts, BBOX)
 
 
 def test_encode_call_bytes():

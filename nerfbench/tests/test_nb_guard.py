@@ -1,4 +1,5 @@
-"""The import guard, and that the yardstick imports nothing of the port."""
+"""The import guard, and that the yardstick, every model family and every
+scene kind import nothing of the port."""
 import os
 import subprocess
 import sys
@@ -31,9 +32,26 @@ def test_the_port_passes_and_a_planted_jax_package_import_fails():
 
 
 def test_the_yardstick_imports_nothing_of_the_port():
-    r = _run("import sys\nimport nerfbench.reference, nerfbench.counts, nerfbench.scene, "
+    r = _run("import sys\nimport nerfbench.reference, nerfbench.counts, "
              "nerfbench.trace, nerfbench.traffic, nerfbench.spec\n"
              "print(sorted(m for m in sys.modules if m.split('.')[0] in "
              "('hashnerf_torch', 'hashnerf_tpu', 'jax')))")
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == "[]"
+
+
+def _names(kind: str):
+    return sorted(f[:-3] for f in os.listdir(os.path.join(ROOT, "nerfbench", kind))
+                  if f.endswith(".py"))
+
+
+def test_every_family_and_scene_imports_nothing_of_the_port():
+    families, scenes = _names("families"), _names("scenes")
+    assert "ngp" in families and "ring" in scenes
+    r = _run("import sys\nfrom nerfbench import spec\n"
+             f"for f in {families!r}:\n    spec.family_of({{'family': f}})\n"
+             f"for k in {scenes!r}:\n    spec.scene_of({{'scene': {{'kind': k}}}})\n"
+             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+             "('hashnerf_torch', 'hashnerf_tpu', 'jax', 'jaxlib', 'flax')))")
     assert r.returncode == 0, r.stderr
     assert r.stdout.strip() == "[]"

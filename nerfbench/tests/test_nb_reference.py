@@ -5,7 +5,7 @@ import numpy as np
 import pytest
 import torch
 
-from nerfbench import control, harness, reference as ref
+from nerfbench import control, harness
 from nerfbench.tests.tiny import tiny_config, tiny_traffic
 
 SEED = 2**32 + 77
@@ -14,8 +14,8 @@ SEED = 2**32 + 77
 @pytest.mark.parametrize("name", ["chair", "flagship"])
 def test_one_step_and_one_render(name):
     cfg = tiny_config(name)
-    trainer, sc, init = harness.build(cfg, SEED, "cpu")
-    r = ref.Reference(cfg["settings"], sc, "cpu")
+    trainer, sc, init, fam = harness.build(cfg, SEED, "cpu")
+    r = fam.Reference(cfg["settings"], sc, "cpu")
     gen = torch.Generator()
     gen.set_state(trainer.generator.get_state())
     leaves = {k: v.detach().clone().requires_grad_(True) for k, v in init.items()}
@@ -23,10 +23,10 @@ def test_one_step_and_one_render(name):
     grads = torch.autograd.grad(loss, list(leaves.values()))
     got = trainer.step(trainer.sample_batch(True))
     assert abs(float(got["loss"]) - float(loss.detach())) <= 1e-6 * abs(float(loss.detach()))
-    for (name_, g), p in zip(zip(leaves, grads), harness.leaf_map(trainer).values()):
+    for (name_, g), p in zip(zip(leaves, grads), fam.program_leaves(trainer).values()):
         assert torch.allclose(p.grad, g, rtol=1e-4, atol=1e-9), name_
     with torch.no_grad():
-        for k, p in harness.leaf_map(trainer).items():
+        for k, p in fam.program_leaves(trainer).items():
             p.copy_(init[k])
     pose = sc["render_poses"][1]
     rgb = trainer.render_image(pose)[0]

@@ -1,6 +1,7 @@
 """Tiny copies of the benchmark's parts for CPU runs of the harness: the
 real configuration files with their sizes cut, written to a folder laid
-out as nerfbench/ is (configs/, traffic/, limits/, metrics/)."""
+out as nerfbench/ is (configs/, traffic/, limits/, metrics/, families/,
+scenes/)."""
 from __future__ import annotations
 
 import json
@@ -38,12 +39,14 @@ def tiny_traffic(name: str) -> dict:
 
 
 def write_tree(root: str, configs, traffics, limits) -> str:
-    """A folder with the given parts, and every metric reader copied."""
+    """A folder with the given parts, and every metric reader, model family
+    and scene kind copied."""
     for kind, parts in (("configs", configs), ("traffic", traffics), ("limits", limits)):
         os.makedirs(os.path.join(root, kind), exist_ok=True)
         for name, body in parts.items():
             with open(os.path.join(root, kind, name + ".json"), "w") as f:
                 json.dump(body, f)
-    shutil.copytree(os.path.join(spec.HERE, "metrics"), os.path.join(root, "metrics"),
-                    dirs_exist_ok=True)
+    for kind in ("metrics", "families", "scenes"):
+        shutil.copytree(os.path.join(spec.HERE, kind), os.path.join(root, kind),
+                        dirs_exist_ok=True, ignore=shutil.ignore_patterns("__pycache__"))
     return root
