@@ -14,7 +14,8 @@ R*S) and hands the MLP the encoded points, that per-ray encoding and S
 (`forward_rays`); NeRFSmall widens it to the samples inside K9 and writes
 the raw with field_raw (kernels/field_query.py), the keep mask included.
 query_fn runs in an `hn.query` span, its encode in `hn.encode` and its MLP
-in `hn.mlp` (utils/profiling.py); it counts `views_per_ray`.
+in `hn.mlp` (utils/profiling.py); it counts `views_per_ray` and
+`mlp_points`, the R * S points it hands the MLP.
 """
 from __future__ import annotations
 
@@ -206,6 +207,7 @@ def query_fn(state: NGPState, pts, viewdirs, bbox, fine: bool = False) -> torch.
             elif cfg.i_embed_views == EMBED_POSITIONAL:
                 views = positional_encode(viewdirs, cfg.positional_views)
         mlp = state.fine if (fine and state.fine is not None) else state.coarse
+        count("mlp_points", R * S)
         with annotate("hn.mlp"):
             raw = mlp.forward_rays(embedded, views, S, keep)
         return raw.reshape(R, S, raw.shape[-1])

@@ -45,6 +45,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from hashnerf_torch.kernels.field_query import field_colour_input, field_raw
+from hashnerf_torch.utils.profiling import annotate
 
 
 @dataclasses.dataclass(frozen=True)
@@ -212,25 +213,30 @@ class NeRF(nn.Module):
         """x (N, input_ch) encoded points, S samples a ray; views (N // S,
         input_ch_views), one view encoding a ray, or None. The views are
         widened to the samples, as the concatenated input carried them. The
-        NeRF family's encoders keep every point: keep must be None."""
+        NeRF family's encoders keep every point: keep must be None. The D
+        trunk layers and the skip concatenations run in an `hn.mlp.trunk`
+        span, the view branch (feature, alpha, the widened views, the view
+        layers, the heads) in `hn.mlp.views`."""
         if keep is not None:
             raise ValueError(f"{type(self).__name__}: no keep mask (its encoders keep every point)")
         cfg, dt = self.cfg, self._dtype
-        if views is not None and S > 1:
-            views = views.repeat_interleave(S, dim=0)
         pts = h = x
-        for i, layer in enumerate(self.pts_linears):
-            h = torch.relu(_apply(layer, h, dt))
-            if i in cfg.skips:
-                h = torch.cat([pts, h], dim=-1)
+        with annotate("hn.mlp.trunk"):
+            for i, layer in enumerate(self.pts_linears):
+                h = torch.relu(_apply(layer, h, dt))
+                if i in cfg.skips:
+                    h = torch.cat([pts, h], dim=-1)
         if not cfg.use_viewdirs:
             return _apply(self.output_linear, h, dt)
-        alpha = _apply(self.alpha_linear, h, dt)
-        h = torch.cat([_apply(self.feature_linear, h, dt), views], dim=-1)
-        for layer in self.views_linears:
-            h = torch.relu(_apply(layer, h, dt))
-        rgb, *rest = self._heads(h)
-        return torch.cat([rgb, alpha] + rest, dim=-1)
+        with annotate("hn.mlp.views"):
+            if views is not None and S > 1:
+                views = views.repeat_interleave(S, dim=0)
+            alpha = _apply(self.alpha_linear, h, dt)
+            h = torch.cat([_apply(self.feature_linear, h, dt), views], dim=-1)
+            for layer in self.views_linears:
+                h = torch.relu(_apply(layer, h, dt))
+            rgb, *rest = self._heads(h)
+            return torch.cat([rgb, alpha] + rest, dim=-1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x (..., input_ch + input_ch_views), the points' and the views'

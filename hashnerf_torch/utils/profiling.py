@@ -30,6 +30,7 @@ COUNTERS = {
     "graph_captures": "CUDA graphs captured",
     "host_reads": "the program's own blocking reads of a device value",
     "views_per_ray": "query_fn calls that encoded their view directions once a ray",
+    "mlp_points": "points query_fn handed an MLP (R x S a call)",
 }
 _counts: Dict[str, int] = dict.fromkeys(COUNTERS, 0)
 _NULL = contextlib.nullcontext()

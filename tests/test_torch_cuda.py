@@ -685,11 +685,12 @@ def test_launch_counts_count_graph_replays(cuda_device):
     graph = t._graphs.graphs[("step", True, False, False, None)]
     # a TV step: K2 and K6 in each pass, K5 for the TV loss, K9 and field_raw
     # forward and backward in each pass, whose directions are encoded once a
-    # ray; one step a replay
+    # ray; the MLPs' points of both passes (64 rays, 16 + 32 samples); one
+    # step a replay
     assert graph.launches == {"hash_encode_fwd": 2, "hash_encode_bwd": 2, "segment_accumulate_k5": 1,
                               "field_colour_input_fwd": 2, "field_colour_input_bwd": 2,
                               "field_raw_fwd": 2, "field_raw_bwd": 2, "views_per_ray": 2,
-                              "steps_replayed": 1}
+                              "mlp_points": 64 * (16 + 32), "steps_replayed": 1}
     reset_launch_counts()
     t.run_steps(16, block_size=16)  # replays only
     counts = launch_counts()

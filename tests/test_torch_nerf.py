@@ -196,6 +196,35 @@ def test_query_fn_nerf_gradient_matches_jax():
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
 
 
+def test_query_fn_at_the_published_widths_matches_jax():
+    """The classic NeRF as nerf-pytorch's lego.txt runs it: D 8, W 256, skip
+    after layer 4, 10 / 4 positional bands (63 / 27 inputs), coarse and
+    fine nets on seeded weights, 384 points a pass: raw at the smaller nets'
+    rtol 1e-5 / atol 1e-6 (outputs up to 0.12 differ by at most 6e-8)."""
+    from hashnerf_tpu.models.factory import ModelConfig as JCfg, create_model
+    from hashnerf_torch.convert import load_jax_state
+    from hashnerf_torch.models.factory import ModelConfig, NGPState, query_fn
+
+    kw = dict(i_embed=0, i_embed_views=0, multires=10, multires_views=4, use_viewdirs=True,
+              N_importance=128, netdepth=8, netwidth=256, netdepth_fine=8, netwidth_fine=256)
+    js, jq = create_model(jax.random.PRNGKey(22), JCfg(**kw))
+    state = NGPState(ModelConfig(**kw))
+    load_jax_state(state, None, to_np(js.coarse), to_np(js.fine))
+    assert state.coarse.pts_linears[5].weight.shape == (256, 319)
+    assert state.fine.views_linears[0].weight.shape == (128, 283)
+    rng = np.random.default_rng(22)
+    pts = rng.uniform(-2, 2, (6, 64, 3)).astype(np.float32)
+    d = rng.normal(size=(6, 3)).astype(np.float32)
+    vd = d / np.linalg.norm(d, axis=-1, keepdims=True)
+    bbox = np.array([[-1.6] * 3, [1.6] * 3], np.float32)
+    for fine in (False, True):
+        want = np.asarray(jq(js, jnp.asarray(pts), jnp.asarray(vd), jnp.asarray(bbox), fine=fine))
+        with torch.no_grad():
+            got = query_fn(state, _t(pts), _t(vd), _t(bbox), fine=fine).numpy()
+        assert got.shape == want.shape == (6, 64, 4)
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6, err_msg=f"fine={fine}")
+
+
 def test_convert_refuses_a_mismatched_nerf_state():
     from hashnerf_tpu.models.factory import ModelConfig as JCfg, create_model
     from hashnerf_torch.convert import load_jax_state

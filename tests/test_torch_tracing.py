@@ -14,6 +14,11 @@ torch.set_num_threads(2)
 SMALL = dict(N_rand=32, N_samples=8, N_importance=8, lrate=0.01, lrate_decay=10,
              use_viewdirs=True, finest_res=32, log2_hashmap_size=10, white_bkgd=True,
              no_batching=True, perturb=1.0)
+# the classic NeRF: positional encodings, D 8 with the skip, coarse and fine
+SMALL_NERF = dict(N_rand=32, N_samples=8, N_importance=8, lrate=5e-4, lrate_decay=250,
+                  use_viewdirs=True, i_embed=0, i_embed_views=0, multires=4, multires_views=2,
+                  netdepth=8, netwidth=16, netdepth_fine=8, netwidth_fine=16, white_bkgd=True,
+                  no_batching=True, perturb=1.0)
 # culled, an update every 4 steps from the start, culling from step 4
 SMALL_CULLED = dict(SMALL, n_levels=4, n_features_per_level=2, log2_hashmap_size=13,
                     log2_blocks=10, packed_layout=True, share_fine=True, aabb_clip=True,
@@ -129,7 +134,8 @@ def test_run_steps_counts_and_spans_eager_steps_and_grid_updates():
     t.run_steps(2, block_size=4)
     # each step queries the coarse and the fine pass, each with its rays' directions
     assert profiling.counters() == {"steps_eager": 2, "steps_replayed": 0, "grid_updates": 0,
-                                    "graph_captures": 0, "host_reads": 1, "views_per_ray": 4}
+                                    "graph_captures": 0, "host_reads": 1, "views_per_ray": 4,
+                                    "mlp_points": 2 * 32 * (8 + 16)}
     kernels.reset_launch_counts()
     _, spans = _traced(lambda: t.run_steps(10, block_size=4))
     c = profiling.counters()
@@ -204,3 +210,51 @@ def test_render_image_spans_a_chunk_each(culled):
         assert names["hn.cull"] == 5 * 6
     else:
         assert "hn.cull" not in names
+
+
+@pytest.mark.parametrize("settings", [SMALL, SMALL_NERF], ids=["ngp", "nerf"])
+def test_mlp_points_counts_each_querys_points(settings):
+    """R x S points a query: a step's coarse pass 32 x 8, its fine pass
+    32 x 16; eager, and through a run_steps block, which counts its steps
+    as a graph's capture would."""
+    from hashnerf_torch.models.factory import query_fn
+
+    t = _trainer(settings)
+    kernels.reset_launch_counts()
+    with torch.no_grad():
+        query_fn(t.state, torch.zeros((5, 7, 3)), torch.ones((5, 3)) / 3 ** 0.5, t.bbox)
+    assert profiling.counters()["mlp_points"] == 35
+    kernels.reset_launch_counts()
+    t.step(t.sample_batch(False))
+    assert profiling.counters()["mlp_points"] == 32 * (8 + 16)
+    kernels.reset_launch_counts()
+    t.run_steps(4, block_size=2)
+    c = profiling.counters()
+    assert c["steps_replayed"] == 4 and c["steps_eager"] == 0
+    assert c["mlp_points"] == 4 * 32 * (8 + 16)
+
+
+def test_nerf_mlp_spans_the_trunk_and_the_view_branch():
+    """A NeRF step's queries: each hn.mlp holds one hn.mlp.trunk (the D
+    layers and the skip) and one hn.mlp.views; a NeRF has no encode
+    backward."""
+    t = _trainer(SMALL_NERF)
+    _, spans = _traced(lambda: t.step(t.sample_batch(False)))
+    names = _names(spans)
+    assert names["hn.mlp"] == names["hn.mlp.trunk"] == names["hn.mlp.views"] == 2
+    assert _inside(spans, "hn.mlp.trunk", "hn.mlp") and _inside(spans, "hn.mlp.views", "hn.mlp")
+    assert "hn.encode.bwd" not in names
+    trunk = sorted((a, b) for a, b, n, _ in spans if n == "hn.mlp.trunk")
+    views = sorted((a, b) for a, b, n, _ in spans if n == "hn.mlp.views")
+    assert all(tb <= va for (_, tb), (va, _) in zip(trunk, views))
+
+
+def test_nerf_small_spans_are_unchanged():
+    """NeRFSmall's eager step opens the spans it opened before the classic
+    NeRF's trunk and view-branch spans: none of theirs."""
+    t = _trainer(SMALL)
+    _, spans = _traced(lambda: t.step(t.sample_batch(False)))
+    assert _names(spans) == {
+        "hn.step": 1, "hn.sample": 1, "hn.forward": 1, "hn.backward": 1, "hn.optimizer": 2,
+        "hn.march.coarse": 1, "hn.march.fine": 1, "hn.sample_pdf": 1, "hn.composite": 2,
+        "hn.query": 2, "hn.encode": 2, "hn.mlp": 2, "hn.encode.bwd": 2}
