@@ -63,7 +63,10 @@ Imports hashnerf_torch (never jax or hashnerf_tpu) and, on one CUDA card:
       (3072 x 8) and a grid update's 65,536 points, each equal to its
       plain version on the same card tensors, with and without the view
       encoding and the keep mask; timed beside its plain version and its
-      byte bound (phase_field_kernels);
+      byte bound (phase_field_kernels); and field_mlp_fwd, NeRFSmall's bf16
+      forward in one kernel, at the same shapes: bit for bit its in-order
+      arithmetic (field_mlp_fwd_ordered), close to its plain version,
+      timed beside it and its bound;
  3. main paths, each at the width of configs/chair.txt on the procedural
     scene (128 x 128, 8 train views) through
     hashnerf_torch.train.driver.train_loop (40 steps with TV, a checkpoint,
@@ -292,6 +295,9 @@ KERNEL_INFO = {
     **{name: {"source": "hashnerf_torch/csrc/field_query.cu", "replaces": "none"}
        for name in ("field_colour_input_fwd", "field_colour_input_bwd", "field_raw_fwd",
                     "field_raw_bwd")},
+    # NeRFSmall's whole bf16 forward without a gradient: no TPU kernel (XLA
+    # fuses the casts, ReLUs and concatenations into the dots)
+    "field_mlp_fwd": {"source": "hashnerf_torch/csrc/field_mlp.cu", "replaces": "none"},
 }
 # What phase_main_path runs and requires of each main path:
 # - flags: added to configs/chair.txt;
@@ -314,26 +320,32 @@ KERNEL_INFO = {
 #   without TV starts at GRAPH_NO_TV_START. Each graphed window runs
 #   Trainer.run_steps blocks of GRAPH_BLOCK steps (CUDA graph replays), must
 #   keep the eager window's keeps and K5 rule and launch the path's kernels,
-#   and must pass the graph gate (graphed_window, GATE_*).
+#   and must pass the graph gate (graphed_window, GATE_*);
+# - mlp_fused: whether field_mlp_fwd must launch on the path (True) or must
+#   not (False): a bf16 net's renders and grid updates take no gradient.
 # NeRFSmall's colour input (K9) and raw (field_raw), forward and backward:
 # every path of the hash grid's MLP launches them, the NeRF family none.
+# MLP_FUSED: NeRFSmall's one-kernel forward, wherever a bf16 net takes no
+# gradient: the packed and flagship paths' renders and grid updates (a
+# path's "mlp_fused"), none of the float32 chair's.
 FIELD_KERNELS = ("field_colour_input_fwd", "field_colour_input_bwd", "field_raw_fwd",
                  "field_raw_bwd")
 CHAIR_KERNELS = ("hash_encode_fwd", "hash_encode_bwd", "segment_accumulate_k5") + FIELD_KERNELS
 # The packed layout's encode (K7, K8), K5 for its TV loss, and the MLP's K9.
 PACKED_KERNELS = ("packed_encode_fwd", "packed_encode_bwd", "segment_accumulate_k5") + FIELD_KERNELS
+MLP_FUSED = ("field_mlp_fwd",)
 PATHS = {
     "chair": {"flags": [],
               "kernels": CHAIR_KERNELS,
               "tv_start": None, "no_tv_start": 1001, "keeps_tv": None, "keeps_no_tv": None,
-              "k5_no_tv": False, "eval_cull": None, "graph_tv_start": 48},
+              "k5_no_tv": False, "eval_cull": None, "graph_tv_start": 48, "mlp_fused": False},
     "packed": {"flags": PACKED_FLAGS, "kernels": PACKED_KERNELS,
                "tv_start": None, "no_tv_start": 1001, "keeps_tv": None, "keeps_no_tv": None,
-               "k5_no_tv": False, "eval_cull": None, "graph_tv_start": 48},
-    "flagship": {"flags": FLAGSHIP_FLAGS, "kernels": PACKED_KERNELS,
+               "k5_no_tv": False, "eval_cull": None, "graph_tv_start": 48, "mlp_fused": True},
+    "flagship": {"flags": FLAGSHIP_FLAGS, "kernels": PACKED_KERNELS + MLP_FUSED,
                  "tv_start": 256, "no_tv_start": 1024, "keeps_tv": (0.5, 0.375),
                  "keeps_no_tv": FLAGSHIP_KEEP, "k5_no_tv": False, "eval_cull": EVAL_CULL_FLAGS,
-                 "graph_tv_start": 256},
+                 "graph_tv_start": 256, "mlp_fused": True},
     # Phases of their own (slice 9), not run by phase_main_path: each run
     # of the phase must launch exactly the kernels listed for it (K5 for
     # the TV loss of the hash grid's steps <= 1000) and no other kernel of
@@ -354,12 +366,12 @@ PATHS = {
     # (K2, K6; K5 for TV), the flagship's render_bench and profile_step
     # (K7, K8), and the encode alone (K2, K6).
     "tools": {"phase": "tools", "keeps_tv": None, "keeps_no_tv": None,
-              "kernels": CHAIR_KERNELS + PACKED_KERNELS[:2]},
+              "kernels": CHAIR_KERNELS + PACKED_KERNELS[:2] + MLP_FUSED},
     "multi": {"phase": "multi", "keeps_tv": None, "keeps_no_tv": None,
               "runs": {"path": CHAIR_KERNELS,
                        "zero": ("hash_encode_fwd", "hash_encode_bwd") + FIELD_KERNELS,
                        "table": ("hash_encode_fwd", "hash_encode_bwd") + FIELD_KERNELS,
-                       "flagship": PACKED_KERNELS}},
+                       "flagship": PACKED_KERNELS + MLP_FUSED}},
 }
 MAIN_PATHS = tuple(p for p, spec in PATHS.items() if "phase" not in spec)
 GRAPH_BLOCK = 16  # the flagship preset's --steps_per_dispatch
@@ -1681,6 +1693,8 @@ FIELD_SHAPES = {"render_coarse": (32768, 64), "render_fine": (32768, 192),
                 "culled_blocks": (3072, 8), "grid_update": (65536, 1)}
 FIELD_CV, FIELD_H = 16, 16
 FIELD_LINE_SHAPE = "render_fine"  # the kernels line's shape: the most bytes
+# NeRFSmall's multiply-adds a point: 32 x 64 + 64 x 16 + 31 x 64 + 64 x 64 + 64 x 3
+MLP_MACS = 32 * 64 + 64 * 16 + 31 * 64 + 64 * 64 + 64 * 3
 
 
 def field_inputs(torch, R: int, S: int, gen):
@@ -1699,6 +1713,20 @@ def field_inputs(torch, R: int, S: int, gen):
             "g_c": normal(N, FIELD_CV + G), "g_raw": normal(N, 4)}
 
 
+def mlp_close(torch, got, want) -> bool:
+    """field_mlp_fwd against its plain version (cuBLAS float32 GEMMs of the
+    same bf16 operands, which sum in the kernel's k order but for rare last
+    bits, and in other orders at a few thousand rows): ~1e-7 of a column's
+    scale, and up to a few bf16 ulps of a hidden value where a last bit
+    flips its rounding: at most 0.2% of the entries beyond 1e-5 of their
+    column's scale, every entry within 2^-6 of it
+    (tests/test_torch_cuda.py's rule)."""
+    scale = want.abs().amax(0)
+    err = (got - want).abs()
+    return (float((err > 1e-5 * scale).float().mean()) <= 2e-3
+            and bool((err <= 2.0 ** -6 * scale).all()))
+
+
 def phase_field_kernels(torch):
     """K9 (field_colour_input) and field_raw, forward and backward, at the
     field query's shapes (FIELD_SHAPES): each launch on card tensors must
@@ -1708,19 +1736,32 @@ def phase_field_kernels(torch):
     trace beside its plain version and its byte bound. The bounds count
     what the function needs: each input read once and each output column
     written once; K9's pad column (its rows are padded to 32 floats for
-    16-byte stores) is given apart as k9_pad_ms."""
+    16-byte stores) is given apart as k9_pad_ms. field_mlp_fwd (NeRFSmall's
+    bf16 forward in one kernel) on the encoded points, a bf16 net's
+    weights, the views and the keep mask: equal bit for bit to its
+    arithmetic in PyTorch ops with every sum in k order
+    (field_mlp_fwd_ordered), within mlp_close of its plain version, sigma
+    exactly 0 outside the keep mask, two launches equal bit for bit; timed
+    the same way, against its bound: the float32 multiply-adds at the
+    CUDA cores' peak (its byte bound beside it, as mlp_byte_bound_ms)."""
+    from hashnerf_torch.kernels import field_mlp as fm
     from hashnerf_torch.kernels import field_query as fq
+    from hashnerf_torch.models.nerf import NeRFSmall, NeRFSmallConfig
 
     gen = torch.Generator(device=DEV)
     gen.manual_seed(20)
     Cv, H = FIELD_CV, FIELD_H
     G = H - 1
+    net = NeRFSmall(NeRFSmallConfig(compute_dtype="bfloat16"),
+                    torch.Generator().manual_seed(20)).to(DEV)
+    ws = [l.weight.detach() for l in [*net.sigma_net, *net.color_net]]
     out = {}
     for shape, (R, S) in FIELD_SHAPES.items():
         N = R * S
         t = field_inputs(torch, R, S, gen)
         views, h, rgb, keep, g_c, g_raw = (t[k] for k in ("views", "h", "rgb", "keep", "g_c",
                                                          "g_raw"))
+        feats = t["feats"]
         pairs = {
             "k9": (lambda: fq.field_colour_input_fwd(views, h, S),
                    lambda: fq.field_colour_input_fwd_plain(views, h, S)),
@@ -1749,7 +1790,25 @@ def phase_field_kernels(torch):
                         f"field {what} at {shape}: rows not padded with +0 to {P}")
             rec[f"{what}_max_abs_err"] = float((got - want).abs().max())
             del got, want
-        for what in ("k9", "k9_bwd", "field_raw", "field_raw_bwd"):
+        mlp = (lambda: fm.field_mlp_fwd(feats, views, S, keep, ws),
+               lambda: fm.field_mlp_fwd_plain(feats, views, S, keep, ws))
+        with torch.no_grad():
+            got, again, want = mlp[0](), mlp[0](), mlp[1]()
+            ordered = fm.field_mlp_fwd_ordered(feats, views, S, keep, ws)
+        torch.cuda.synchronize()
+        require(bool(torch.equal(got, ordered)) and mlp_close(torch, got, want)
+                and bool(torch.equal(got, again)) and not bool(got[~keep, 3].any()),
+                f"field mlp at {shape}: not its in-order arithmetic bit for bit, not within "
+                "mlp_close of its plain version, not deterministic, or sigma outside the "
+                "keep mask")
+        scale = want.abs().amax(0)
+        rec["mlp_max_abs_err"] = float((got - want).abs().max())
+        rec["mlp_entries_unequal_to_plain"] = int((got != want).sum())
+        rec["mlp_share_beyond_1e-5_scale"] = float(
+            ((got - want).abs() > 1e-5 * scale).float().mean())
+        del got, again, want, ordered
+        pairs["mlp"] = mlp
+        for what in ("k9", "k9_bwd", "field_raw", "field_raw_bwd", "mlp"):
             kern, plain = pairs[what]
             rec[f"{what}_ms"] = cuda_ms(torch, kern)
             rec[f"{what}_device_ms"] = device_ms(torch, kern, reps=5)
@@ -1761,6 +1820,11 @@ def phase_field_kernels(torch):
                   "field_raw_bwd": N * (4 + 1 + H * 4)}  # sigma's cotangent, keep; d_h written
         for what, nb in nbytes.items():
             rec[f"{what}_bound_ms"], rec[f"{what}_bound_by"] = bound(nb, 0)
+        # the encoded points and keep read, raw written, views once a ray; the
+        # multiply-adds, 2 operations each, on the CUDA cores
+        mlp_bytes = N * (32 * 4 + 1 + 4 * 4) + R * Cv * 4
+        rec["mlp_bound_ms"], rec["mlp_bound_by"] = bound(mlp_bytes, N * 2 * MLP_MACS)
+        rec["mlp_byte_bound_ms"] = mlp_bytes / PEAK_BYTES_PER_S * 1e3
         rec["k9_pad_ms"] = N * (fq.padded_width(Cv + G) - Cv - G) * 4 / PEAK_BYTES_PER_S * 1e3
         out[shape] = rec
         emit({"phase": "field_kernels", "shape": shape, **rec})
@@ -1920,6 +1984,8 @@ def phase_main_path(torch, np, path: str, profile: bool):
             require(counts[name] > 0, f"kernel {name} was not launched on the {path} path")
         for name in OFF_PATH:
             require(counts[name] == 0, f"kernel {name} was launched on the {path} path")
+        require((counts["field_mlp_fwd"] > 0) == spec["mlp_fused"],
+                f"field_mlp_fwd launched {counts['field_mlp_fwd']} times on the {path} path")
 
         per_step = lambda a, b, n: {k: (b[k] - a[k]) / n for k in a}
         rec = {
@@ -4885,7 +4951,8 @@ def main(argv=None) -> int:
         }
     case = field[FIELD_LINE_SHAPE]
     for name, k in (("field_colour_input_fwd", "k9"), ("field_colour_input_bwd", "k9_bwd"),
-                    ("field_raw_fwd", "field_raw"), ("field_raw_bwd", "field_raw_bwd")):
+                    ("field_raw_fwd", "field_raw"), ("field_raw_bwd", "field_raw_bwd"),
+                    ("field_mlp_fwd", "mlp")):
         kern[name] = {
             "max_abs_err": case[f"{k}_max_abs_err"],
             "kernel_ms": case[f"{k}_ms"], "plain_ms": case[f"{k}_plain_ms"],

@@ -11,6 +11,7 @@ from __future__ import annotations
 
 from typing import Dict
 
+from hashnerf_torch.kernels.field_mlp import field_mlp_fwd
 from hashnerf_torch.kernels.field_query import (
     field_colour_input_bwd, field_colour_input_fwd, field_raw_bwd, field_raw_fwd,
 )
@@ -36,6 +37,7 @@ KERNELS = {
     "field_colour_input_bwd": field_colour_input_bwd,
     "field_raw_fwd": field_raw_fwd,
     "field_raw_bwd": field_raw_bwd,
+    "field_mlp_fwd": field_mlp_fwd,
 }
 
 

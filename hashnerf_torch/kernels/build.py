@@ -29,7 +29,8 @@ from typing import Dict, Iterable
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "build")
-SOURCES = ("segment_accum", "hash_encode", "scatter_add", "packed_encode", "field_query")
+SOURCES = ("segment_accum", "hash_encode", "scatter_add", "packed_encode", "field_query",
+           "field_mlp")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

@@ -32,6 +32,13 @@ writes that as a float32 `linear` of the rounded values (a product of two
 bf16 or two f16 values is exact in float32); autograd's casts then round
 the gradients of x and w to the compute type as JAX's transpose of the dot
 does. A bf16 or f16 matmul would round its output.
+
+A bf16 NeRFSmall at the widths kernels/field_mlp.py has (32-64-16 /
+31-64-64-3, views 16 or none) answers a call that autograd records nothing
+for (a frame, a grid update) with that one kernel: the same exact products,
+summed in float32 in cuBLAS's order, so that every hidden value rounds to
+the same bf16 value as on the route above. Every other call (a gradient,
+another compute type, other widths) takes the route above.
 """
 from __future__ import annotations
 
@@ -44,8 +51,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from hashnerf_torch.kernels import field_mlp
 from hashnerf_torch.kernels.field_query import field_colour_input, field_raw
-from hashnerf_torch.utils.profiling import annotate
+from hashnerf_torch.utils.profiling import annotate, count
 
 
 @dataclasses.dataclass(frozen=True)
@@ -134,9 +142,18 @@ class NeRFSmall(nn.Module):
         self.sigma_net = nn.ModuleList(sigma)
         self.color_net = nn.ModuleList(color)
         self._dtype = compute_dtype_of(cfg.compute_dtype, "NeRFSmall: compute_dtype")
+        # bf16 operands at the widths csrc/field_mlp.cu has: a forward that
+        # takes no gradient runs as that one kernel
+        self._fused = self._dtype == torch.bfloat16 and field_mlp.takes(cfg)
 
     def _layer(self, layer: nn.Linear, h: torch.Tensor) -> torch.Tensor:
         return _apply(layer, h, self._dtype)
+
+    def _records_grad(self, x: torch.Tensor, views: Optional[torch.Tensor]) -> bool:
+        """Whether autograd records a forward on x and views."""
+        return torch.is_grad_enabled() and (
+            x.requires_grad or (views is not None and views.requires_grad)
+            or any(p.requires_grad for p in self.parameters()))
 
     def forward_rays(self, x: torch.Tensor, views: Optional[torch.Tensor], S: int,
                      keep: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -145,8 +162,15 @@ class NeRFSmall(nn.Module):
         None -> (N, 4) = [rgb logits, keep ? sigma : 0]. The sigma net
         multiplies x as it is; K9 (kernels/field_query.py) widens the views
         to the samples in the colour net's input, and field_raw writes the
-        raw."""
+        raw. A bf16 net whose call autograd records nothing for (grad mode
+        off, or nothing requiring a gradient) runs the whole forward as
+        kernels/field_mlp.py's one kernel instead, which saves no
+        activations, and counts its N points as `mlp_fused_points`."""
         cfg = self.cfg
+        if self._fused and not self._records_grad(x, views):
+            count("mlp_fused_points", x.shape[0])
+            return field_mlp.field_mlp_fwd(
+                x, views, S, keep, [l.weight for l in [*self.sigma_net, *self.color_net]])
         h = x
         for l, layer in enumerate(self.sigma_net):
             h = self._layer(layer, h)

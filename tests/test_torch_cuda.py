@@ -695,6 +695,20 @@ def test_launch_counts_count_graph_replays(cuda_device):
     t.run_steps(16, block_size=16)  # replays only
     counts = launch_counts()
     assert {k: v for k, v in counts.items() if v} == {k: 16 * v for k, v in graph.launches.items()}
+    # the flagship's grid update (a bf16 net, no gradient) runs the fused
+    # forward in a graph of its own, and counts its points on each replay;
+    # its training steps take gradients and run none
+    t = graph_trainer(GRAPH_FLAGSHIP)
+    for _ in range(8):
+        t.step(t.sample_batch(False))
+    reset_launch_counts()
+    t.run_steps(16, block_size=16)
+    update = t._graphs.graphs[("update",)]
+    points = update.launches["mlp_points"]
+    assert update.launches["field_mlp_fwd"] == 1 and update.launches["mlp_fused_points"] == points
+    counts = launch_counts()
+    assert counts["grid_updates"] >= 4
+    assert counts["mlp_fused_points"] == counts["field_mlp_fwd"] * points == counts["grid_updates"] * points
 
 
 # --------------------------------------------------------------------------- #
@@ -819,6 +833,142 @@ def test_field_kernels_refuse_what_they_cannot_take(cuda_device):
         fq.field_raw_fwd(rgb, h.cpu(), None)
     with pytest.raises(ValueError):
         fq.field_colour_input_fwd(None, h, 3)
+    torch.cuda.synchronize()
+    assert launch_counts() == before
+
+
+# --------------------------------------------------------------------------- #
+# field_mlp: NeRFSmall's one-kernel bf16 forward
+# --------------------------------------------------------------------------- #
+
+# (R, S): the render chunk's coarse and fine passes, a grid update's points,
+# and 7,007 points, which are no whole number of the kernel's 16-point tiles
+MLP_SHAPES = [(32768, 64), (32768, 192), (65536, 1), (1001, 7)]
+
+
+def mlp_case(dev, R, S, views=True, seed=24):
+    """A bf16 NeRFSmall's five weights on dev and (x (N, 32), views (R, 16)
+    or None, keep (N,)): normal encoded points, SH-encoded unit directions,
+    a fifth of the points outside the keep mask."""
+    from hashnerf_torch.models.nerf import NeRFSmall, NeRFSmallConfig
+    from hashnerf_torch.ops.sh_encoding import sh_encode
+
+    cfg = NeRFSmallConfig(compute_dtype="bfloat16", input_ch_views=16 if views else 0)
+    net = NeRFSmall(cfg, torch.Generator().manual_seed(seed)).to(dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    N = R * S
+    x = torch.randn((N, 32), generator=gen, device=dev)
+    d = torch.randn((R, 3), generator=gen, device=dev)
+    v = sh_encode(d / d.norm(dim=-1, keepdim=True)) if views else None
+    keep = torch.rand((N,), generator=gen, device=dev) < 0.8
+    return net, [l.weight.detach() for l in [*net.sigma_net, *net.color_net]], x, v, keep
+
+
+def assert_reordered_sums_close(got, want):
+    """The kernel sums each output's exact bf16 products in k order; the
+    PyTorch route on the card (cuBLAS float32 GEMMs of the same operands)
+    does too but for rare last bits at a million rows and more, and in
+    other orders at a few thousand rows. Alone that moves a value by about
+    1e-7 of its column's largest magnitude; where it flips a hidden value's
+    bf16 rounding, that value moves by one bf16 ulp (2^-8 to 2^-7 of
+    itself) and the outputs after it by a share of that. So: at most 0.2%
+    of the entries beyond 1e-5 of their column's scale, and every entry
+    within 2^-6 of it (a kernel summing in another order, on the tensor
+    cores, measured 0.03-0.06% and at most 2^-7.9 against this route)."""
+    scale = want.abs().amax(0)
+    err = (got - want).abs()
+    assert float((err > 1e-5 * scale).float().mean()) <= 2e-3
+    assert bool((err <= 2.0 ** -6 * scale).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("views", [True, False], ids=["views", "no_views"])
+@pytest.mark.parametrize("R,S", MLP_SHAPES)
+def test_field_mlp_on_card_matches_the_pytorch_route(cuda_device, R, S, views):
+    """The kernel equals its arithmetic in PyTorch ops with every sum in k
+    order (field_mlp_fwd_ordered) bit for bit; against the PyTorch route on
+    the same card tensors (its plain version, and NeRFSmall's autograd
+    route), see assert_reordered_sums_close. Exact: sigma 0 outside the
+    keep mask, two launches equal bit for bit (no atomics), one launch
+    each."""
+    from hashnerf_torch.kernels import field_mlp as fm
+
+    net, ws, x, v, keep = mlp_case(cuda_device, R, S, views)
+    before = launch_counts()
+    with torch.no_grad():
+        got = fm.field_mlp_fwd(x, v, S, keep, ws)
+        again = fm.field_mlp_fwd(x, v, S, keep, ws)
+        want = fm.field_mlp_fwd_plain(x, v, S, keep, ws)
+        ordered = fm.field_mlp_fwd_ordered(x, v, S, keep, ws)
+    routed = net.forward_rays(x, v, S, keep).detach()
+    torch.cuda.synchronize()
+    after = launch_counts()
+    assert after["field_mlp_fwd"] - before["field_mlp_fwd"] == 2
+    assert got.shape == (R * S, 4) and torch.isfinite(got).all()
+    assert torch.equal(got, ordered)
+    assert_reordered_sums_close(got, want)
+    assert_reordered_sums_close(got, routed)
+    assert (got[~keep, 3] == 0).all() and (want[~keep, 3] == 0).all()
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+def test_field_mlp_replays_from_a_cuda_graph(cuda_device):
+    """A captured launch replays bit for bit what the eager launch wrote,
+    through NeRFSmall's no-grad route (a render chunk's fine pass), on new
+    inputs copied into the captured ones."""
+    net, ws, x, v, keep = mlp_case(cuda_device, 4096, 192)
+    S = 192
+    with torch.no_grad():
+        eager = net.forward_rays(x, v, S, keep)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            net.forward_rays(x, v, S, keep)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        x_in, v_in, keep_in = x.clone(), v.clone(), keep.clone()
+        x_in.zero_()
+        with torch.cuda.graph(graph):
+            captured = net.forward_rays(x_in, v_in, S, keep_in)
+        x_in.copy_(x)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(captured, eager)
+        _, _, x2, v2, keep2 = mlp_case(cuda_device, 4096, 192, seed=25)
+        x_in.copy_(x2), v_in.copy_(v2), keep_in.copy_(keep2)
+        graph.replay()
+        want = net.forward_rays(x2, v2, S, keep2)
+        torch.cuda.synchronize()
+        assert torch.equal(captured, want)
+
+
+@pytest.mark.cuda
+def test_field_mlp_refuses_what_it_cannot_take(cuda_device):
+    """A launch the entry refuses raises through build.check; the wrapper
+    raises before launching on a wrong shape or a second device, and takes
+    no plain path for a CUDA tensor."""
+    from hashnerf_torch.kernels import build
+    from hashnerf_torch.kernels import field_mlp as fm
+
+    _, ws, x, v, keep = mlp_case(cuda_device, 8, 4)
+    raw = torch.empty((32, 4), device=cuda_device)
+    stream = torch.cuda.current_stream(cuda_device).cuda_stream
+    before = launch_counts()
+    ptrs = [w.data_ptr() for w in ws]
+    # rows of 30 floats are no whole 16-byte vectors; 3 samples a ray do not divide 32 rows;
+    # a raw misaligned by a float
+    for sx, S, out in ((30, 4, raw.data_ptr()), (32, 3, raw.data_ptr()),
+                       (32, 4, raw.data_ptr() + 4)):
+        err = fm._fn()(x.data_ptr(), v.data_ptr(), keep.data_ptr(), *ptrs, out, 32, S, 16, sx,
+                       16, stream)
+        with pytest.raises(RuntimeError, match="field_mlp_fwd"):
+            build.check(err, "field_mlp_fwd")
+    with pytest.raises(ValueError):
+        fm.field_mlp_fwd(x, v.cpu(), 4, keep, ws)
+    with pytest.raises(ValueError, match="weights"):
+        fm.field_mlp_fwd(x, None, 4, keep, ws)
     torch.cuda.synchronize()
     assert launch_counts() == before
 

@@ -135,7 +135,7 @@ def test_run_steps_counts_and_spans_eager_steps_and_grid_updates():
     # each step queries the coarse and the fine pass, each with its rays' directions
     assert profiling.counters() == {"steps_eager": 2, "steps_replayed": 0, "grid_updates": 0,
                                     "graph_captures": 0, "host_reads": 1, "views_per_ray": 4,
-                                    "mlp_points": 2 * 32 * (8 + 16)}
+                                    "mlp_points": 2 * 32 * (8 + 16), "mlp_fused_points": 0}
     kernels.reset_launch_counts()
     _, spans = _traced(lambda: t.run_steps(10, block_size=4))
     c = profiling.counters()
