@@ -140,7 +140,7 @@ Imports hashnerf_torch (never jax or hashnerf_tpu) and, on one CUDA card:
     configs/st3d.txt through run_nerf.main as written (hash grid,
     NeRFSmall, use_gradient vestigial: K2, K6, K5 while TV is on) and as
     OmniNeRF's model (positional NeRFGradient 8 x 256, Adam, depth and
-    gradient supervision: no kernel of KERNEL_INFO), each in graphed pool
+    gradient supervision: no kernel of kernels.KERNELS), each in graphed pool
     blocks of 16 with the test set (statistics.txt, video2.gif) at the last
     step; then the pool again from the loader's rays (its rows the
     loader's), eager pool steps and graphed pool windows held to the graph
@@ -185,8 +185,6 @@ Imports hashnerf_torch (never jax or hashnerf_tpu) and, on one CUDA card:
     budgets, the graph gate under NCCL, one step against the one-process
     flagship, the culling's collectives timed, K5 on the rank's share of
     the kept blocks); PATHS["multi"] names each run's kernels;
-    bench: the line of `python -m hashnerf_torch.bench` for the flagship
-    and for BENCH_PARITY=1;
 10. prints one line {"kernels": [...]} with each kernel's launches on the
     main paths, the blender, llff, st3d, loaders, tools and multi phases
     (graph replays included), error, times and bound (K5's at the packed
@@ -256,49 +254,38 @@ FLAGSHIP_KEEP = (0.125, 0.375)  # (fine, coarse) from step 1024 on
 EVAL_CULL_FLAGS = ["--occ_keep_eval", "0.75", "--occ_eval_transmittance"]
 OCC_R, OCC_BLOCK = 128, 8
 
-KERNEL_INFO = {
-    "segment_accumulate_k1": {
-        "source": "hashnerf_torch/csrc/segment_accum.cu",
-        "replaces": "hashnerf_tpu/kernels/pallas_segment_accum.py:134",
-    },
-    "hash_encode_fwd": {
-        "source": "hashnerf_torch/csrc/hash_encode.cu",
-        "replaces": "hashnerf_tpu/kernels/hash_encode_vjp.py:63",
-    },
-    "hash_encode_bwd_expand": {
-        "source": "hashnerf_torch/csrc/hash_encode.cu",
-        "replaces": "hashnerf_tpu/kernels/hash_encode_vjp.py:82",
-    },
-    "segment_accumulate_k4": {
-        "source": "hashnerf_torch/csrc/segment_accum.cu",
-        "replaces": "hashnerf_tpu/kernels/pallas_segment_accum.py:134",
-    },
-    "segment_accumulate_k5": {
-        "source": "hashnerf_torch/csrc/scatter_add.cu",
-        "replaces": "hashnerf_tpu/kernels/pallas_segment_accum.py:134",
-    },
-    "hash_encode_bwd": {
-        "source": "hashnerf_torch/csrc/hash_encode.cu",
-        "replaces": "hashnerf_tpu/kernels/hash_encode_vjp.py:82",
-    },
-    "packed_encode_fwd": {
-        "source": "hashnerf_torch/csrc/packed_encode.cu",
-        "replaces": "hashnerf_tpu/ops/packed_grid.py:174",
-    },
-    "packed_encode_bwd": {
-        "source": "hashnerf_torch/csrc/packed_encode.cu",
-        "replaces": "hashnerf_tpu/ops/packed_grid.py:174 (its VJP) and "
-                    "hashnerf_tpu/kernels/pallas_segment_accum.py:134 (through take_rows)",
-    },
+# What each kernel of hashnerf_torch.kernels.KERNELS replaces of the JAX
+# package; kernel_info adds its source, the csrc/ library of its Kernel.
+REPLACES = {
+    "segment_accumulate_k1": "hashnerf_tpu/kernels/pallas_segment_accum.py:134",
+    "hash_encode_fwd": "hashnerf_tpu/kernels/hash_encode_vjp.py:63",
+    "hash_encode_bwd_expand": "hashnerf_tpu/kernels/hash_encode_vjp.py:82",
+    "segment_accumulate_k4": "hashnerf_tpu/kernels/pallas_segment_accum.py:134",
+    "segment_accumulate_k5": "hashnerf_tpu/kernels/pallas_segment_accum.py:134",
+    "hash_encode_bwd": "hashnerf_tpu/kernels/hash_encode_vjp.py:82",
+    "packed_encode_fwd": "hashnerf_tpu/ops/packed_grid.py:174",
+    "packed_encode_bwd": "hashnerf_tpu/ops/packed_grid.py:174 (its VJP) and "
+                         "hashnerf_tpu/kernels/pallas_segment_accum.py:134 (through take_rows)",
     # The field query's copies: no TPU kernel (XLA fuses the JAX package's
     # concatenations into their consumers)
-    **{name: {"source": "hashnerf_torch/csrc/field_query.cu", "replaces": "none"}
-       for name in ("field_colour_input_fwd", "field_colour_input_bwd", "field_raw_fwd",
-                    "field_raw_bwd")},
+    **dict.fromkeys(("field_colour_input_fwd", "field_colour_input_bwd", "field_raw_fwd",
+                     "field_raw_bwd"), "none"),
     # NeRFSmall's whole bf16 forward without a gradient: no TPU kernel (XLA
     # fuses the casts, ReLUs and concatenations into the dots)
-    "field_mlp_fwd": {"source": "hashnerf_torch/csrc/field_mlp.cu", "replaces": "none"},
+    "field_mlp_fwd": "none",
 }
+
+
+def kernel_info():
+    """{name: {"source", "replaces"}} for every kernel the port registers."""
+    from hashnerf_torch import kernels
+
+    require(set(kernels.KERNELS) == set(REPLACES),
+            f"kernels {sorted(kernels.KERNELS)}, REPLACES {sorted(REPLACES)}")
+    return {name: {"source": f"hashnerf_torch/csrc/{kernels.KERNELS[name].lib}.cu",
+                   "replaces": r} for name, r in REPLACES.items()}
+
+
 # What phase_main_path runs and requires of each main path:
 # - flags: added to configs/chair.txt;
 # - kernels: each must launch on the path (K1 and K4 keep the sorted
@@ -349,7 +336,7 @@ PATHS = {
     # Phases of their own (slice 9), not run by phase_main_path: each run
     # of the phase must launch exactly the kernels listed for it (K5 for
     # the TV loss of the hash grid's steps <= 1000) and no other kernel of
-    # KERNEL_INFO; nothing is culled.
+    # kernels.KERNELS; nothing is culled.
     "st3d": {"phase": "st3d", "keeps_tv": None, "keeps_no_tv": None,
              "runs": {"hash": CHAIR_KERNELS, "omninerf": ()}},
     "loaders": {"phase": "loaders", "keeps_tv": None, "keeps_no_tv": None,
@@ -3701,7 +3688,7 @@ def phase_st3d(torch, np, smi: str, profile: bool):
                "load_host_peak_gib_traced": load_peak_gib,
                "host_peak_rss_gib": resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20,
                "runs": runs, "phase_s": phase_s,
-               "launches": {k: sum(r["launches"][k] for r in runs.values()) for k in KERNEL_INFO}}
+               "launches": {k: sum(r["launches"][k] for r in runs.values()) for k in REPLACES}}
         shown = [("write_s", write_s), ("generate_s", gen_s), ("load_s", load_s),
                  ("pool rows", n_rays), ("pool GiB hash", runs["hash"]["pool_gib"]),
                  ("pool GiB omninerf", runs["omninerf"]["pool_gib"]),
@@ -3955,7 +3942,7 @@ def phase_loaders(torch, np, smi: str):
         shown.append(("phase_s", phase_s))
         print("loaders: " + "; ".join(f"{k} {v:.6g} [{smi}]" for k, v in shown), flush=True)
         return {"phase": "loaders", "card": smi, "runs": runs, "phase_s": phase_s,
-                "launches": {k: sum(r["launches"][k] for r in runs.values()) for k in KERNEL_INFO}}
+                "launches": {k: sum(r["launches"][k] for r in runs.values()) for k in REPLACES}}
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
@@ -4207,7 +4194,7 @@ def phase_tools(torch, np, smi: str, data: str):
 
         graft = timed("graft_entry", lambda: _tools_entry(torch, np))
         counts = kernel_launches()
-        for name in KERNEL_INFO:
+        for name in REPLACES:
             want = name in PATHS["tools"]["kernels"]
             require((counts[name] > 0) == want,
                     f"tools: kernel {name} launched {counts[name]} times")
@@ -4828,12 +4815,12 @@ def phase_multi(torch, np, smi: str):
             runs[name] = {"world": world, "seconds": time.perf_counter() - t0, "ranks": res}
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
-    launches = {name: 0 for name in KERNEL_INFO}
+    launches = {name: 0 for name in REPLACES}
     for name, run in runs.items():
         for r in run["ranks"]:
             for part, want in PATHS["multi"]["runs"].items():
                 got = r[part]["launches"]
-                for k in KERNEL_INFO:
+                for k in REPLACES:
                     require((got[k] > 0) == (k in want),
                             f"multi {name} rank {r['rank']} {part}: {k} launched {got[k]} times")
                     launches[k] += got[k]
@@ -4850,22 +4837,6 @@ def phase_multi(torch, np, smi: str):
                                for name, run in runs.items()}}
     emit(rec)
     return rec
-
-
-def phase_bench(torch):
-    """The line of `python -m hashnerf_torch.bench`, for the flagship and
-    for BENCH_PARITY=1 (the chair step), run in this process."""
-    from hashnerf_torch import bench
-
-    out = {}
-    for name, env in (("flagship", {}), ("parity", {"BENCH_PARITY": "1"})):
-        t0 = time.perf_counter()
-        line = bench.run(env)
-        print(json.dumps(line), flush=True)
-        out[name] = {**line, "env": env, "seconds": time.perf_counter() - t0}
-        emit({"phase": "bench", "config": name, **out[name]})
-        torch.cuda.empty_cache()
-    return out
 
 
 # --------------------------------------------------------------------------- #
@@ -4924,7 +4895,6 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     multi = phase_multi(torch, np, dev["smi"])
     torch.cuda.empty_cache()
-    benches = phase_bench(torch)
 
     # K5 in the kernels line at the shape the main paths give it most bytes:
     # the packed TV's slabs
@@ -4960,7 +4930,7 @@ def main(argv=None) -> int:
             "library_ms": None,  # the copies it replaced were several calls
         }
     lines = []
-    for name, info in KERNEL_INFO.items():
+    for name, info in kernel_info().items():
         k = kern[name]
         by_path = {p: rec["launches"][name] for p, rec in paths.items()}
         by_path["blender"] = blender["launches"][name]
@@ -4987,7 +4957,6 @@ def main(argv=None) -> int:
                        "main_paths": paths, "blender": blender,
                        "llff": llff, "st3d": st3d, "loaders": loaders, "tools": tools,
                        "multi": multi,
-                       "bench": benches,
                        "seconds": time.perf_counter() - t_start}, f, indent=1)
     print(f"chip_smoke seconds: {time.perf_counter() - t_start:.1f} [{dev['smi']}]", flush=True)
     print(f"card: {dev['smi']}", flush=True)

@@ -34,13 +34,13 @@ from typing import Optional, Sequence
 import torch
 import torch.nn.functional as F
 
-from hashnerf_torch.kernels import build
 from hashnerf_torch.kernels.field_query import (
-    _keep, _on_cpu, _stream, field_colour_input_fwd_plain, field_raw_fwd_plain,
+    device_of, field_colour_input_fwd_plain, field_raw_fwd_plain, keep_mask,
 )
+from hashnerf_torch.kernels.launch import Kernel
 
 _LL, _I, _P = ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p
-_ARGTYPES = [_P] * 9 + [_LL, _LL, _I, _LL, _LL, _P]
+_MLP = Kernel("field_mlp", "field_mlp_fwd", [_P] * 9 + [_LL, _LL, _I, _LL, _LL])
 
 # (num_layers, hidden_dim, geo_feat_dim, num_layers_color, hidden_dim_color,
 # input_ch): the widths csrc/field_mlp.cu is written for; input_ch_views 16,
@@ -54,14 +54,6 @@ def takes(cfg) -> bool:
     return ((cfg.num_layers, cfg.hidden_dim, cfg.geo_feat_dim, cfg.num_layers_color,
              cfg.hidden_dim_color, cfg.input_ch) == WIDTHS
             and cfg.input_ch_views in (0, VIEWS))
-
-
-def _fn():
-    fn = build.load("field_mlp").field_mlp_fwd
-    if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES
-        fn.restype = ctypes.c_int
-    return fn
 
 
 def _rounded(t: torch.Tensor) -> torch.Tensor:
@@ -134,21 +126,15 @@ def field_mlp_fwd(x: torch.Tensor, views: Optional[torch.Tensor], S: int,
     name = "field_mlp_fwd"
     _check(name, x, views, S, weights)
     N = x.shape[0]
-    keep = _keep(name, keep, N)
-    ts = [x, *weights] + ([] if views is None else [views]) + ([] if keep is None else [keep])
-    if _on_cpu(name, ts):
+    keep = keep_mask(name, keep, N)
+    if device_of(name, [x, *weights, views, keep]) == "cpu":
         return field_mlp_fwd_plain(x, views, S, keep, weights)
     x = _rows16(x)
     views = None if views is None else _rows16(views)
     ws = [w.contiguous() for w in weights]
     raw = torch.empty((N, 4), dtype=torch.float32, device=x.device)
-    err = _fn()(x.data_ptr(), None if views is None else views.data_ptr(),
-                None if keep is None else keep.data_ptr(), *(w.data_ptr() for w in ws),
-                raw.data_ptr(), N, S, 0 if views is None else VIEWS, x.stride(0),
-                0 if views is None else views.stride(0), _stream(x))
-    build.check(err, name)
-    field_mlp_fwd.launches += 1
+    _MLP(x.data_ptr(), None if views is None else views.data_ptr(),
+         None if keep is None else keep.data_ptr(), *(w.data_ptr() for w in ws),
+         raw.data_ptr(), N, S, 0 if views is None else VIEWS, x.stride(0),
+         0 if views is None else views.stride(0), stream_of=x)
     return raw
-
-
-field_mlp_fwd.launches = 0

@@ -32,23 +32,13 @@ from typing import Optional
 
 import torch
 
-from hashnerf_torch.kernels import build
+from hashnerf_torch.kernels.launch import Kernel, device_kind
 
 _LL, _I, _P = ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p
-_ARGTYPES = {
-    "field_colour_input_fwd": [_P, _P, _P, _LL, _LL, _I, _I, _I, _LL, _LL, _P],
-    "field_colour_input_bwd": [_P, _P, _LL, _I, _I, _LL, _P],
-    "field_raw_fwd": [_P, _P, _P, _P, _LL, _LL, _LL, _P],
-    "field_raw_bwd": [_P, _P, _P, _LL, _I, _LL, _P],
-}
-
-
-def _fn(name: str):
-    fn = getattr(build.load("field_query"), name)
-    if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES[name]
-        fn.restype = ctypes.c_int
-    return fn
+_K9 = Kernel("field_query", "field_colour_input_fwd", [_P, _P, _P, _LL, _LL, _I, _I, _I, _LL, _LL])
+_K9_BWD = Kernel("field_query", "field_colour_input_bwd", [_P, _P, _LL, _I, _I, _LL])
+_RAW = Kernel("field_query", "field_raw_fwd", [_P, _P, _P, _P, _LL, _LL, _LL])
+_RAW_BWD = Kernel("field_query", "field_raw_bwd", [_P, _P, _P, _LL, _I, _LL])
 
 
 def padded_width(c: int) -> int:
@@ -62,22 +52,13 @@ def _adjacent(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
     return t if t is None or t.stride(-1) == 1 else t.contiguous()
 
 
-def _on_cpu(name: str, ts) -> bool:
-    """True for CPU tensors (the plain version), False for CUDA tensors of
-    one device (the kernel); raises for anything else."""
+def device_of(name: str, ts) -> str:
+    """launch.device_kind of ts, float32 tensors and bool masks (None
+    skipped); raises TypeError for another dtype first."""
     for t in ts:
-        if t.dtype != torch.float32 and t.dtype != torch.bool:
+        if t is not None and t.dtype != torch.float32 and t.dtype != torch.bool:
             raise TypeError(f"{name}: want float32, got {t.dtype}")
-    if all(t.device.type == "cpu" for t in ts):
-        return True
-    dev = ts[0].device
-    if any(t.device.type != "cuda" or t.device != dev for t in ts):
-        raise ValueError(f"{name}: every tensor must be on the CPU or on one CUDA device")
-    return False
-
-
-def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+    return device_kind(name, ts)
 
 
 def _rows(name: str, t: torch.Tensor, N: int, width: Optional[int] = None) -> None:
@@ -85,7 +66,8 @@ def _rows(name: str, t: torch.Tensor, N: int, width: Optional[int] = None) -> No
         raise ValueError(f"{name}: want ({N}, {width or 'C'}), got {tuple(t.shape)}")
 
 
-def _keep(name: str, keep: Optional[torch.Tensor], N: int):
+def keep_mask(name: str, keep: Optional[torch.Tensor], N: int) -> Optional[torch.Tensor]:
+    """keep (N,) bool, contiguous, or None."""
     if keep is not None and (keep.shape != (N,) or keep.dtype != torch.bool):
         raise ValueError(f"{name}: keep must be a ({N},) bool tensor")
     return None if keep is None else keep.contiguous()
@@ -118,21 +100,14 @@ def field_colour_input_fwd(views: Optional[torch.Tensor], h: torch.Tensor,
     views, h = _adjacent(views), _adjacent(h)
     if views is not None:
         _rows(name, views, N // S)
-    ts = (h,) if views is None else (views, h)
-    if _on_cpu(name, ts):
+    if device_of(name, (views, h)) == "cpu":
         return field_colour_input_fwd_plain(views, h, S)
     Cv, G = (0 if views is None else views.shape[1]), H - 1
     P = padded_width(Cv + G)
     out = torch.empty((N, P), dtype=torch.float32, device=h.device)
-    err = _fn(name)(None if views is None else views.data_ptr(), h.data_ptr(), out.data_ptr(),
-                    N, S, Cv, G, P, 0 if views is None else views.stride(0), h.stride(0),
-                    _stream(h))
-    build.check(err, name)
-    field_colour_input_fwd.launches += 1
+    _K9(None if views is None else views.data_ptr(), h.data_ptr(), out.data_ptr(),
+        N, S, Cv, G, P, 0 if views is None else views.stride(0), h.stride(0), stream_of=h)
     return out[:, :Cv + G]
-
-
-field_colour_input_fwd.launches = 0
 
 
 def field_colour_input_bwd_plain(g: torch.Tensor, Cv: int, H: int) -> torch.Tensor:
@@ -148,16 +123,11 @@ def field_colour_input_bwd(g: torch.Tensor, Cv: int, H: int) -> torch.Tensor:
     name = "field_colour_input_bwd"
     N, g = g.shape[0], _adjacent(g)
     _rows(name, g, N, Cv + H - 1)
-    if _on_cpu(name, (g,)):
+    if device_of(name, (g,)) == "cpu":
         return field_colour_input_bwd_plain(g, Cv, H)
     d_h = torch.empty((N, H), dtype=torch.float32, device=g.device)
-    err = _fn(name)(g.data_ptr(), d_h.data_ptr(), N, H, Cv, g.stride(0), _stream(g))
-    build.check(err, name)
-    field_colour_input_bwd.launches += 1
+    _K9_BWD(g.data_ptr(), d_h.data_ptr(), N, H, Cv, g.stride(0), stream_of=g)
     return d_h
-
-
-field_colour_input_bwd.launches = 0
 
 
 class FieldColourInput(torch.autograd.Function):
@@ -206,19 +176,13 @@ def field_raw_fwd(rgb: torch.Tensor, h: torch.Tensor,
     N, rgb, h = h.shape[0], _adjacent(rgb), _adjacent(h)
     _rows(name, rgb, N, 3)
     _rows(name, h, N)
-    keep = _keep(name, keep, N)
-    ts = (rgb, h) if keep is None else (rgb, h, keep)
-    if _on_cpu(name, ts):
+    keep = keep_mask(name, keep, N)
+    if device_of(name, (rgb, h, keep)) == "cpu":
         return field_raw_fwd_plain(rgb, h, keep)
     raw = torch.empty((N, 4), dtype=torch.float32, device=h.device)
-    err = _fn(name)(rgb.data_ptr(), h.data_ptr(), None if keep is None else keep.data_ptr(),
-                    raw.data_ptr(), N, rgb.stride(0), h.stride(0), _stream(h))
-    build.check(err, name)
-    field_raw_fwd.launches += 1
+    _RAW(rgb.data_ptr(), h.data_ptr(), None if keep is None else keep.data_ptr(),
+         raw.data_ptr(), N, rgb.stride(0), h.stride(0), stream_of=h)
     return raw
-
-
-field_raw_fwd.launches = 0
 
 
 def field_raw_bwd_plain(g, keep, H):
@@ -235,18 +199,13 @@ def field_raw_bwd(g: torch.Tensor, keep: Optional[torch.Tensor], H: int) -> torc
     name = "field_raw_bwd"
     N, g = g.shape[0], _adjacent(g)
     _rows(name, g, N, 4)
-    keep = _keep(name, keep, N)
-    if _on_cpu(name, (g,) if keep is None else (g, keep)):
+    keep = keep_mask(name, keep, N)
+    if device_of(name, (g, keep)) == "cpu":
         return field_raw_bwd_plain(g, keep, H)
     d_h = torch.empty((N, H), dtype=torch.float32, device=g.device)
-    err = _fn(name)(g.data_ptr(), None if keep is None else keep.data_ptr(), d_h.data_ptr(),
-                    N, H, g.stride(0), _stream(g))
-    build.check(err, name)
-    field_raw_bwd.launches += 1
+    _RAW_BWD(g.data_ptr(), None if keep is None else keep.data_ptr(), d_h.data_ptr(),
+             N, H, g.stride(0), stream_of=g)
     return d_h
-
-
-field_raw_bwd.launches = 0
 
 
 class FieldRaw(torch.autograd.Function):

@@ -25,7 +25,7 @@ from typing import Tuple
 
 import torch
 
-from hashnerf_torch.kernels import build
+from hashnerf_torch.kernels.launch import Kernel, device_kind, require_aligned
 from hashnerf_torch.kernels.segment_accum import segment_accumulate_k5_plain
 from hashnerf_torch.ops.hash_encoding import corner_geometry, encode_with_resolutions
 from hashnerf_torch.utils.profiling import annotate
@@ -36,19 +36,9 @@ _K2_GROUP_LEVELS = 4
 _K6_GROUP_LEVELS = 4
 
 _INTS = [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int]
-_ARGTYPES = {
-    "hash_encode_fwd": [ctypes.c_void_p] * 7 + _INTS + [ctypes.c_int, ctypes.c_void_p],
-    "hash_encode_bwd": [ctypes.c_void_p] * 6 + _INTS + [ctypes.c_int, ctypes.c_void_p],
-    "hash_encode_bwd_expand": [ctypes.c_void_p] * 7 + _INTS + [ctypes.c_void_p],
-}
-
-
-def _fn(name: str):
-    fn = getattr(build.load("hash_encode"), name)
-    if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES[name]
-        fn.restype = ctypes.c_int
-    return fn
+_K2 = Kernel("hash_encode", "hash_encode_fwd", [ctypes.c_void_p] * 7 + _INTS + [ctypes.c_int])
+_K6 = Kernel("hash_encode", "hash_encode_bwd", [ctypes.c_void_p] * 6 + _INTS + [ctypes.c_int])
+_K3 = Kernel("hash_encode", "hash_encode_bwd_expand", [ctypes.c_void_p] * 7 + _INTS)
 
 
 def _log2(T: int) -> int:
@@ -56,10 +46,6 @@ def _log2(T: int) -> int:
     if T != 1 << log2T:
         raise ValueError(f"hash table size {T} is not a power of two")
     return log2T
-
-
-def _on_cpu(*ts: torch.Tensor) -> bool:
-    return all(t.device.type == "cpu" for t in ts)
 
 
 def _check_inputs(name: str, ts, L: int, T: int) -> None:
@@ -72,20 +58,10 @@ def _check_inputs(name: str, ts, L: int, T: int) -> None:
         raise ValueError(f"{name}: L*T = {L * T} exceeds int32 row ids")
 
 
-def _check_cuda(name: str, ts, L: int, T: int) -> None:
-    dev = ts[0].device
-    for t in ts:
-        if t.device.type != "cuda" or t.device != dev:
-            raise ValueError(f"{name}: every tensor must be on one CUDA device")
-    _check_inputs(name, ts, L, T)
-
-
-def _check_aligned(name: str, t: torch.Tensor, F: int) -> None:
+def _vector_bytes(F: int) -> int:
     """Rows of F floats are read as 16-byte (F % 4 == 0) or 8-byte (F = 2)
     vectors: the first row must be aligned to that."""
-    align = 16 if F % 4 == 0 else 8 if F == 2 else 4
-    if t.data_ptr() % align:
-        raise ValueError(f"{name}: data at {t.data_ptr():#x} not {align}-byte aligned")
+    return 16 if F % 4 == 0 else 8 if F == 2 else 4
 
 
 def _check_geometry(name, x, bbox_min, bbox_max, resolutions, L):
@@ -115,27 +91,21 @@ def hash_encode_fwd(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """table (L, T, F), x (N, 3), bbox (3,) each, resolutions (L,) float32
     -> (feats (N, L*F) float32, keep (N,) bool)."""
+    name = "hash_encode_fwd"
     L, T, F = table.shape
-    _check_geometry("hash_encode_fwd", x, bbox_min, bbox_max, resolutions, L)
-    if _on_cpu(table, x, bbox_min, bbox_max, resolutions):
+    _check_geometry(name, x, bbox_min, bbox_max, resolutions, L)
+    ts = (table, x, bbox_min, bbox_max, resolutions)
+    if device_kind(name, ts) == "cpu":
         return hash_encode_fwd_plain(table, x, bbox_min, bbox_max, resolutions)
-    _check_cuda("hash_encode_fwd", (table, x, bbox_min, bbox_max, resolutions), L, T)
+    _check_inputs(name, ts, L, T)
     N = x.shape[0]
     feats = torch.empty((N, L * F), dtype=torch.float32, device=x.device)
     keep = torch.empty((N,), dtype=torch.bool, device=x.device)
-    _check_aligned("hash_encode_fwd", table, F)
-    err = _fn("hash_encode_fwd")(
-        table.data_ptr(), x.data_ptr(), bbox_min.data_ptr(), bbox_max.data_ptr(),
+    require_aligned(name, table, _vector_bytes(F))
+    _K2(table.data_ptr(), x.data_ptr(), bbox_min.data_ptr(), bbox_max.data_ptr(),
         resolutions.data_ptr(), feats.data_ptr(), keep.data_ptr(),
-        N, L, _log2(T), F, _K2_GROUP_LEVELS,
-        torch.cuda.current_stream(x.device).cuda_stream,
-    )
-    build.check(err, "hash_encode_fwd")
-    hash_encode_fwd.launches += 1
+        N, L, _log2(T), F, _K2_GROUP_LEVELS, stream_of=x)
     return feats, keep
-
-
-hash_encode_fwd.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -176,25 +146,17 @@ def hash_encode_bwd(
     ts = (x, bbox_min, bbox_max, resolutions, g_feats)
     _check_inputs(name, ts, L, T)
     log2T = _log2(T)
-    if _on_cpu(*ts):
+    if device_kind(name, ts) == "cpu":
         with annotate("hn.encode.bwd"):
             return hash_encode_bwd_plain(x, bbox_min, bbox_max, resolutions, g_feats, T)
-    _check_cuda(name, ts, L, T)
-    _check_aligned(name, g_feats, F)
+    require_aligned(name, g_feats, _vector_bytes(F))
     # the span names the gradient's zero-fill, a PyTorch fill, with K6
     with annotate("hn.encode.bwd"):
         d_table = torch.zeros((L, T, F), dtype=torch.float32, device=x.device)
-        err = _fn(name)(
-            x.data_ptr(), bbox_min.data_ptr(), bbox_max.data_ptr(), resolutions.data_ptr(),
+        _K6(x.data_ptr(), bbox_min.data_ptr(), bbox_max.data_ptr(), resolutions.data_ptr(),
             g_feats.data_ptr(), d_table.data_ptr(), x.shape[0], L, log2T, F,
-            _K6_GROUP_LEVELS, torch.cuda.current_stream(x.device).cuda_stream,
-        )
-    build.check(err, name)
-    hash_encode_bwd.launches += 1
+            _K6_GROUP_LEVELS, stream_of=x)
     return d_table
-
-
-hash_encode_bwd.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -223,27 +185,22 @@ def hash_encode_bwd_expand(
     """Corner expansion of the encode's backward: for every (level, point,
     corner) its flat table row idx + l*T and its value cw * g[n, l*F:(l+1)*F].
     g_feats (N, L*F); returns (flat_idx (L*N*8,) int32, vals (L*N*8, F))."""
+    name = "hash_encode_bwd_expand"
     L = resolutions.shape[0]
-    _check_geometry("hash_encode_bwd_expand", x, bbox_min, bbox_max, resolutions, L)
+    _check_geometry(name, x, bbox_min, bbox_max, resolutions, L)
     N = x.shape[0]
-    F = _check_g("hash_encode_bwd_expand", x, g_feats, L)
-    if _on_cpu(x, bbox_min, bbox_max, resolutions, g_feats):
+    F = _check_g(name, x, g_feats, L)
+    ts = (x, bbox_min, bbox_max, resolutions, g_feats)
+    if device_kind(name, ts) == "cpu":
         return hash_encode_bwd_expand_plain(x, bbox_min, bbox_max, resolutions, g_feats, T)
-    _check_cuda("hash_encode_bwd_expand", (x, bbox_min, bbox_max, resolutions, g_feats), L, T)
+    _check_inputs(name, ts, L, T)
     M = L * N * 8
     flat_idx = torch.empty((M,), dtype=torch.int32, device=x.device)
     vals = torch.empty((M, F), dtype=torch.float32, device=x.device)
-    err = _fn("hash_encode_bwd_expand")(
-        x.data_ptr(), bbox_min.data_ptr(), bbox_max.data_ptr(), resolutions.data_ptr(),
-        g_feats.data_ptr(), flat_idx.data_ptr(), vals.data_ptr(),
-        N, L, _log2(T), F, torch.cuda.current_stream(x.device).cuda_stream,
-    )
-    build.check(err, "hash_encode_bwd_expand")
-    hash_encode_bwd_expand.launches += 1
+    _K3(x.data_ptr(), bbox_min.data_ptr(), bbox_max.data_ptr(), resolutions.data_ptr(),
+        g_feats.data_ptr(), flat_idx.data_ptr(), vals.data_ptr(), N, L, _log2(T), F,
+        stream_of=x)
     return flat_idx, vals
-
-
-hash_encode_bwd_expand.launches = 0
 
 
 class HashEncode(torch.autograd.Function):

@@ -32,7 +32,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from hashnerf_torch.kernels import build
+from hashnerf_torch.kernels.launch import Kernel, device_kind, require_aligned
 from hashnerf_torch.ops.hash_encoding import corner_weights
 from hashnerf_torch.ops.hashing import box_offsets, spatial_hash
 from hashnerf_torch.utils.profiling import annotate
@@ -44,18 +44,8 @@ _K8_GROUP_LEVELS = 4
 
 _LEVELS = [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
            ctypes.c_int, ctypes.c_int]
-_ARGTYPES = {
-    "packed_encode_fwd": [ctypes.c_void_p] * 7 + _LEVELS + [ctypes.c_void_p],
-    "packed_encode_bwd": [ctypes.c_void_p] * 6 + _LEVELS + [ctypes.c_int, ctypes.c_void_p],
-}
-
-
-def _fn(name: str):
-    fn = getattr(build.load("packed_encode"), name)
-    if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES[name]
-        fn.restype = ctypes.c_int
-    return fn
+_K7 = Kernel("packed_encode", "packed_encode_fwd", [ctypes.c_void_p] * 7 + _LEVELS)
+_K8 = Kernel("packed_encode", "packed_encode_bwd", [ctypes.c_void_p] * 6 + _LEVELS + [ctypes.c_int])
 
 
 @functools.lru_cache(maxsize=None)
@@ -82,9 +72,9 @@ def table_shapes(cfg) -> Tuple[Optional[Tuple[int, int]], Optional[Tuple[int, in
 
 
 def _check(name: str, cfg, ts, shapes) -> str:
-    """Shapes, dtypes, contiguity and one device for every tensor of ts
-    (name -> tensor or None) against shapes (name -> shape or None); returns
-    the device type. Tensors absent from the config must be None."""
+    """Shapes, dtypes and contiguity of every tensor of ts (name -> tensor
+    or None) against shapes (name -> shape or None); returns their
+    launch.device_kind. Tensors absent from the config must be None."""
     F, L = cfg.n_features_per_level, cfg.n_levels
     if not 1 <= F <= MAX_F or L > MAX_LEVELS:
         raise ValueError(f"{name}: F={F}, L={L} outside F in [1, {MAX_F}], L <= {MAX_LEVELS}")
@@ -92,7 +82,6 @@ def _check(name: str, cfg, ts, shapes) -> str:
     # K8's keys are int rows of either table
     if max(dense[0] if dense else 0, fine[0] * 27 if fine else 0) >= 2**31:
         raise ValueError(f"{name}: table rows exceed int32 keys")
-    devices = set()
     for key, t in ts.items():
         want = shapes[key]
         if (t is None) != (want is None):
@@ -105,22 +94,13 @@ def _check(name: str, cfg, ts, shapes) -> str:
             raise TypeError(f"{name}: {key} must be float32, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: {key} must be contiguous")
-        devices.add(t.device)
-    if len(devices) != 1:
-        raise ValueError(f"{name}: tensors on {sorted(map(str, devices))}, want one device")
-    dev = devices.pop()
-    if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"{name}: tensors on {dev}, want CPU (plain version) or CUDA")
-    return dev.type
+    return device_kind(name, ts.values())
 
 
-def _check_aligned(name: str, ts, F: int) -> None:
+def _vector_bytes(F: int) -> int:
     """Rows of F floats are read and added as vectors of 4, 2 or 1 floats:
     each tensor's first row must be aligned to that."""
-    align = 16 if F % 4 == 0 else 8 if F % 2 == 0 else 4
-    for key, t in ts.items():
-        if t is not None and t.data_ptr() % align:
-            raise ValueError(f"{name}: {key} at {t.data_ptr():#x} not {align}-byte aligned")
+    return 16 if F % 4 == 0 else 8 if F % 2 == 0 else 4
 
 
 def _ptr(t: Optional[torch.Tensor]) -> int:
@@ -209,20 +189,13 @@ def packed_encode_fwd(
     shapes = {"dense": dshape, "fine": fshape, "x": (N, 3), "bbox_min": (3,), "bbox_max": (3,)}
     if _check(name, cfg, ts, shapes) == "cpu":
         return packed_encode_fwd_plain(dense, fine, x, bbox_min, bbox_max, cfg)
-    _check_aligned(name, {"dense": dense, "fine": fine}, cfg.n_features_per_level)
+    for t in (dense, fine):
+        require_aligned(name, t, _vector_bytes(cfg.n_features_per_level))
     feats = torch.empty((N, cfg.out_dim), dtype=torch.float32, device=x.device)
     keep = torch.empty((N,), dtype=torch.bool, device=x.device)
-    err = _fn(name)(
-        _ptr(dense), _ptr(fine), x.data_ptr(), bbox_min.data_ptr(), bbox_max.data_ptr(),
-        feats.data_ptr(), keep.data_ptr(), N, *_level_args(cfg),
-        torch.cuda.current_stream(x.device).cuda_stream,
-    )
-    build.check(err, name)
-    packed_encode_fwd.launches += 1
+    _K7(_ptr(dense), _ptr(fine), x.data_ptr(), bbox_min.data_ptr(), bbox_max.data_ptr(),
+        feats.data_ptr(), keep.data_ptr(), N, *_level_args(cfg), stream_of=x)
     return feats, keep
-
-
-packed_encode_fwd.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -248,23 +221,15 @@ def packed_encode_bwd(
     if _check(name, cfg, ts, shapes) == "cpu":
         with annotate("hn.encode.bwd"):
             return packed_encode_bwd_plain(x, bbox_min, bbox_max, g_feats, cfg)
-    _check_aligned(name, {"g_feats": g_feats}, cfg.n_features_per_level)
+    require_aligned(name, g_feats, _vector_bytes(cfg.n_features_per_level))
     dense, fine = table_shapes(cfg)
     z = lambda s: None if s is None else torch.zeros(s, dtype=torch.float32, device=x.device)
     # the span names the gradients' zero-fills, PyTorch fills, with K8
     with annotate("hn.encode.bwd"):
         d_dense, d_fine = z(dense), z(fine)
-        err = _fn(name)(
-            x.data_ptr(), bbox_min.data_ptr(), bbox_max.data_ptr(), g_feats.data_ptr(),
-            _ptr(d_dense), _ptr(d_fine), N, *_level_args(cfg), _K8_GROUP_LEVELS,
-            torch.cuda.current_stream(x.device).cuda_stream,
-        )
-    build.check(err, name)
-    packed_encode_bwd.launches += 1
+        _K8(x.data_ptr(), bbox_min.data_ptr(), bbox_max.data_ptr(), g_feats.data_ptr(),
+            _ptr(d_dense), _ptr(d_fine), N, *_level_args(cfg), _K8_GROUP_LEVELS, stream_of=x)
     return d_dense, d_fine
-
-
-packed_encode_bwd.launches = 0
 
 
 class PackedEncode(torch.autograd.Function):

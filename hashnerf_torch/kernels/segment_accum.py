@@ -23,7 +23,7 @@ import ctypes
 
 import torch
 
-from hashnerf_torch.kernels import build
+from hashnerf_torch.kernels.launch import Kernel, device_kind, require_aligned
 
 # Widest rows each kernel takes. K1's window is R*F floats of shared memory
 # with R = _K1_WINDOW_FLOATS // F rows; K4's is _K4_WINDOW_ROWS rows, since
@@ -43,16 +43,13 @@ K5_MAX_F = 256
 _K5_CHUNK = 16
 
 
-def _lib(name: str):
-    fn = getattr(build.load("segment_accum"), name)
-    if fn.argtypes is None:
-        fn.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
-            ctypes.c_void_p,
-        ]
-        fn.restype = ctypes.c_int
-    return fn
+_SORTED_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong, ctypes.c_int]
+_K1 = Kernel("segment_accum", "segment_accumulate_k1", _SORTED_ARGS)
+_K4 = Kernel("segment_accum", "segment_accumulate_k4", _SORTED_ARGS)
+_K5 = Kernel("scatter_add", "segment_accumulate_k5",
+             [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+              ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong, ctypes.c_int])
 
 
 def _check_shapes(what: str, idx: torch.Tensor, vals: torch.Tensor) -> None:
@@ -73,8 +70,7 @@ def segment_accumulate_sorted_plain(
 
 def _check(what: str, sidx: torch.Tensor, svals: torch.Tensor, num_rows: int, max_f: int):
     _check_shapes(what, sidx, svals)
-    if sidx.device.type != "cuda" or svals.device != sidx.device:
-        raise ValueError(f"{what}: tensors on {sidx.device} and {svals.device}")
+    _require_cuda(what, (sidx, svals))
     if sidx.dtype != torch.int32 or svals.dtype != torch.float32:
         raise TypeError(f"{what}: want int32 and float32, got {sidx.dtype} and {svals.dtype}")
     if not (sidx.is_contiguous() and svals.is_contiguous()):
@@ -85,34 +81,30 @@ def _check(what: str, sidx: torch.Tensor, svals: torch.Tensor, num_rows: int, ma
         raise ValueError(f"{what}: num_rows={num_rows} exceeds int32")
 
 
-def _launch(entry: str, sidx, svals, num_rows: int, window_rows: int) -> torch.Tensor:
+def _require_cuda(what: str, ts) -> None:
+    """K1, K4 and K5 take CUDA tensors only; their routers take the CPU's."""
+    if device_kind(what, ts) != "cuda":
+        raise ValueError(f"{what}: tensors on the CPU, want one CUDA device")
+
+
+def _launch(kernel: Kernel, sidx, svals, num_rows: int, window_rows: int) -> torch.Tensor:
     M, F = svals.shape
     out = torch.empty((num_rows, F), dtype=torch.float32, device=svals.device)
-    stream = torch.cuda.current_stream(svals.device).cuda_stream
-    err = _lib(entry)(sidx.data_ptr(), svals.data_ptr(), out.data_ptr(), M, F, num_rows,
-                      window_rows, stream)
-    build.check(err, entry)
+    kernel(sidx.data_ptr(), svals.data_ptr(), out.data_ptr(), M, F, num_rows, window_rows,
+           stream_of=svals)
     return out
 
 
 def segment_accumulate_k1(sidx: torch.Tensor, svals: torch.Tensor, num_rows: int) -> torch.Tensor:
     """K1 on CUDA tensors, F <= 64 (contract of segment_accumulate_sorted)."""
     _check("segment_accumulate_k1", sidx, svals, num_rows, K1_MAX_F)
-    out = _launch("segment_accumulate_k1", sidx, svals, num_rows, _K1_WINDOW_FLOATS // svals.shape[1])
-    segment_accumulate_k1.launches += 1
-    return out
+    return _launch(_K1, sidx, svals, num_rows, _K1_WINDOW_FLOATS // svals.shape[1])
 
 
 def segment_accumulate_k4(sidx: torch.Tensor, svals: torch.Tensor, num_rows: int) -> torch.Tensor:
     """K4 on CUDA tensors, F <= 256 (contract of segment_accumulate_sorted)."""
     _check("segment_accumulate_k4", sidx, svals, num_rows, K4_MAX_F)
-    out = _launch("segment_accumulate_k4", sidx, svals, num_rows, _K4_WINDOW_ROWS)
-    segment_accumulate_k4.launches += 1
-    return out
-
-
-segment_accumulate_k1.launches = 0
-segment_accumulate_k4.launches = 0
+    return _launch(_K4, sidx, svals, num_rows, _K4_WINDOW_ROWS)
 
 
 def segment_accumulate_sorted(
@@ -126,7 +118,7 @@ def segment_accumulate_sorted(
     K4 from it.
     """
     _check_shapes("segment_accumulate_sorted", sidx, svals)
-    if sidx.device.type == "cpu" and svals.device.type == "cpu":
+    if device_kind("segment_accumulate_sorted", (sidx, svals)) == "cpu":
         return segment_accumulate_sorted_plain(sidx, svals, num_rows)
     if svals.shape[1] < K4_MIN_F:
         return segment_accumulate_k1(sidx, svals, num_rows)
@@ -149,18 +141,6 @@ def segment_accumulate_k5_plain(idx: torch.Tensor, vals: torch.Tensor, num_rows:
     return segment_accumulate_sorted_plain(sidx, svals, num_rows)
 
 
-def _k5_lib():
-    fn = build.load("scatter_add").segment_accumulate_k5
-    if fn.argtypes is None:
-        fn.argtypes = [
-            ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
-            ctypes.c_void_p,
-        ]
-        fn.restype = ctypes.c_int
-    return fn
-
-
 def segment_accumulate_k5(idx: torch.Tensor, vals: torch.Tensor, num_rows: int) -> torch.Tensor:
     """K5 on CUDA tensors: out[r] = sum of vals[j] over j with idx[j] == r.
 
@@ -176,22 +156,14 @@ def segment_accumulate_k5(idx: torch.Tensor, vals: torch.Tensor, num_rows: int) 
     M, F = vals.shape
     if not 1 <= F <= K5_MAX_F:
         raise ValueError(f"{what}: F={F} outside [1, {K5_MAX_F}]")
-    if idx.device.type != "cuda" or vals.device != idx.device:
-        raise ValueError(f"{what}: tensors on {idx.device} and {vals.device}")
+    _require_cuda(what, (idx, vals))
     if not (idx.is_contiguous() and vals.is_contiguous()):
         raise ValueError(f"{what}: inputs must be contiguous")
-    align = 16 if F % 4 == 0 else 8 if F % 2 == 0 else 4
-    if vals.data_ptr() % align:
-        raise ValueError(f"{what}: values at {vals.data_ptr():#x} not {align}-byte aligned")
+    require_aligned(what, vals, 16 if F % 4 == 0 else 8 if F % 2 == 0 else 4)
     out = torch.zeros((num_rows, F), dtype=torch.float32, device=vals.device)
-    err = _k5_lib()(idx.data_ptr(), idx.element_size(), vals.data_ptr(), out.data_ptr(),
-                    M, F, num_rows, _K5_CHUNK, torch.cuda.current_stream(vals.device).cuda_stream)
-    build.check(err, what)
-    segment_accumulate_k5.launches += 1
+    _K5(idx.data_ptr(), idx.element_size(), vals.data_ptr(), out.data_ptr(), M, F, num_rows,
+        _K5_CHUNK, stream_of=vals)
     return out
-
-
-segment_accumulate_k5.launches = 0
 
 
 def sorted_segment_accumulate(
@@ -208,6 +180,6 @@ def sorted_segment_accumulate(
     """
     idx = idx.reshape(-1)
     _check_shapes("sorted_segment_accumulate", idx, vals)
-    if idx.device.type == "cpu" and vals.device.type == "cpu":
+    if device_kind("sorted_segment_accumulate", (idx, vals)) == "cpu":
         return segment_accumulate_k5_plain(idx, vals, num_rows)
     return segment_accumulate_k5(idx, vals.contiguous(), num_rows)

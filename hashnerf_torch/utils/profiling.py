@@ -5,10 +5,11 @@
     check. Every span of the port is named `hn.*`. A CUDA graph's capture
     runs under no profiler and its replays run no Python, so spans inside a
     captured function cost nothing on replay.
-  * Counters: plain integers, raised on the host where the work is asked
-    for (see COUNTERS). kernels.launch_counts reads them beside the kernel
-    wrappers' launches, and a CUDA graph's replay adds what its capture
-    counted of both (train/graphs.py).
+  * Counts: plain integers in one store, raised on the host where the work
+    is asked for: the program's counters (see COUNTERS) and each kernel's
+    launches, registered by kernels/launch.py::Kernel. kernels.launch_counts
+    reads them all, and a CUDA graph's replay adds what its capture counted
+    (train/graphs.py).
   * `device_trace(logdir)`: a torch.profiler trace (CPU activity, and CUDA
     kernels on a GPU host) of the code inside it, written to a directory as
     a Chrome trace JSON that chrome://tracing, Perfetto or TensorBoard's
@@ -33,6 +34,7 @@ COUNTERS = {
     "mlp_points": "points query_fn handed an MLP (R x S a call)",
     "mlp_fused_points": "points NeRFSmall's one-kernel bf16 forward answered (no gradient)",
 }
+# every count: COUNTERS, then each registered kernel's launches
 _counts: Dict[str, int] = dict.fromkeys(COUNTERS, 0)
 _NULL = contextlib.nullcontext()
 
@@ -49,8 +51,21 @@ def count(name: str, n: int = 1) -> None:
     _counts[name] += n
 
 
-def counters() -> Dict[str, int]:
+def register(name: str) -> None:
+    """A new count, at 0: a kernel's launches."""
+    if name in _counts:
+        raise ValueError(f"{name} is counted already")
+    _counts[name] = 0
+
+
+def counts() -> Dict[str, int]:
+    """Every count: the program's counters and each kernel's launches."""
     return dict(_counts)
+
+
+def counters() -> Dict[str, int]:
+    """The program's counters (COUNTERS) alone."""
+    return {name: _counts[name] for name in COUNTERS}
 
 
 def reset_counters() -> None:

@@ -397,10 +397,10 @@ def test_k5_under_graph_capture(cuda_device):
         segment_accumulate_k5(idx, vals, T)  # warm up on the side stream
     torch.cuda.current_stream().wait_stream(stream)
     graph = torch.cuda.CUDAGraph()
-    before = segment_accumulate_k5.launches
+    before = launch_counts()["segment_accumulate_k5"]
     with torch.cuda.graph(graph):
         out = segment_accumulate_k5(idx, vals, T)
-    assert segment_accumulate_k5.launches == before + 1
+    assert launch_counts()["segment_accumulate_k5"] == before + 1
     for _ in range(3):
         out.fill_(float("nan"))
         graph.replay()
@@ -808,7 +808,7 @@ def test_field_kernels_refuse_what_they_cannot_take(cuda_device):
     """A launch the entry refuses raises through build.check (the wrappers'
     route); the wrappers raise before launching on a wrong type or a second
     device, and take no plain path for a CUDA tensor."""
-    from hashnerf_torch.kernels import build
+    from hashnerf_torch.kernels import KERNELS, build
     from hashnerf_torch.kernels import field_query as fq
 
     dev = cuda_device
@@ -816,15 +816,15 @@ def test_field_kernels_refuse_what_they_cannot_take(cuda_device):
     out = torch.empty((8, 32), device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     before = launch_counts()
-    fwd = fq._fn("field_colour_input_fwd")
+    fwd = KERNELS["field_colour_input_fwd"].fn
     # rows of 31 floats are no whole 16-byte vectors; 3 samples a ray do not divide 8 rows
     for P, S in ((31, 1), (32, 3)):
         err = fwd(None, h.data_ptr(), out.data_ptr(), 8, S, 0, 15, P, 0, 16, stream)
         with pytest.raises(RuntimeError, match="field_colour_input_fwd"):
             build.check(err, "field_colour_input_fwd")
     # raw rows must be 16-byte aligned
-    err = fq._fn("field_raw_fwd")(rgb.data_ptr(), h.data_ptr(), None, out.data_ptr() + 4, 8, 3,
-                                  16, stream)
+    err = KERNELS["field_raw_fwd"].fn(rgb.data_ptr(), h.data_ptr(), None, out.data_ptr() + 4, 8,
+                                      3, 16, stream)
     with pytest.raises(RuntimeError, match="field_raw_fwd"):
         build.check(err, "field_raw_fwd")
     with pytest.raises(TypeError):
@@ -949,7 +949,7 @@ def test_field_mlp_refuses_what_it_cannot_take(cuda_device):
     """A launch the entry refuses raises through build.check; the wrapper
     raises before launching on a wrong shape or a second device, and takes
     no plain path for a CUDA tensor."""
-    from hashnerf_torch.kernels import build
+    from hashnerf_torch.kernels import KERNELS, build
     from hashnerf_torch.kernels import field_mlp as fm
 
     _, ws, x, v, keep = mlp_case(cuda_device, 8, 4)
@@ -961,8 +961,8 @@ def test_field_mlp_refuses_what_it_cannot_take(cuda_device):
     # a raw misaligned by a float
     for sx, S, out in ((30, 4, raw.data_ptr()), (32, 3, raw.data_ptr()),
                        (32, 4, raw.data_ptr() + 4)):
-        err = fm._fn()(x.data_ptr(), v.data_ptr(), keep.data_ptr(), *ptrs, out, 32, S, 16, sx,
-                       16, stream)
+        err = KERNELS["field_mlp_fwd"].fn(x.data_ptr(), v.data_ptr(), keep.data_ptr(), *ptrs, out,
+                                          32, S, 16, sx, 16, stream)
         with pytest.raises(RuntimeError, match="field_mlp_fwd"):
             build.check(err, "field_mlp_fwd")
     with pytest.raises(ValueError):

@@ -25,13 +25,15 @@ from hashnerf_tpu.kernels.segment_scatter import sorted_segment_accumulate as ja
 from hashnerf_tpu.ops.hash_encoding import HashGridConfig as JCfg
 from hashnerf_torch.kernels import KERNELS, build, launch_counts, reset_launch_counts
 from hashnerf_torch.kernels import hash_encode as the
+from hashnerf_torch.kernels import field_query as fq
 from hashnerf_torch.kernels.field_mlp import field_mlp_fwd
 from hashnerf_torch.kernels.field_query import field_colour_input, field_raw
 from hashnerf_torch.kernels.gather import take_rows
 from hashnerf_torch.kernels.segment_accum import (
-    segment_accumulate_k5, segment_accumulate_sorted, sorted_segment_accumulate,
+    segment_accumulate_k1, segment_accumulate_k4, segment_accumulate_k5,
+    segment_accumulate_sorted, sorted_segment_accumulate,
 )
-from hashnerf_torch.kernels.packed_encode import PackedEncode
+from hashnerf_torch.kernels.packed_encode import PackedEncode, packed_encode_bwd, packed_encode_fwd
 from hashnerf_torch.ops.hash_encoding import HashGridConfig
 from hashnerf_torch.ops.packed_grid import PackedGridConfig, init_packed_tables
 
@@ -107,6 +109,59 @@ def test_k5_wrapper_checks(bad):
     }[bad]
     with pytest.raises(TypeError if bad.endswith("dtype") else ValueError):
         segment_accumulate_k5(*args, T)
+
+
+def _refused_call(case):
+    """A call of the wrapper `case` on a meta tensor, or on CPU tensors
+    with one on meta; for K1 and K4, whose routers take the CPU's plain
+    version, on CPU tensors."""
+    meta = lambda t: t.to("meta")
+    bmin, bmax = torch.full((3,), -1.0), torch.ones(3)
+    res = HashGridConfig(n_levels=2, log2_hashmap_size=8, base_resolution=4,
+                         finest_resolution=8).resolutions_tensor("cpu")
+    pcfg = PackedGridConfig(n_levels=4, n_features_per_level=8, log2_hashmap_size=13,
+                            finest_resolution=32, log2_blocks=10)
+    tables = init_packed_tables(pcfg)
+    keep = torch.ones(8, dtype=torch.bool)
+    weights = [torch.zeros(s) for s in ((64, 32), (16, 64), (64, 31), (64, 64), (3, 64))]
+    idx, vals = torch.arange(8, dtype=torch.int32), torch.ones((8, 16))
+    return {
+        "hash_encode_fwd": lambda: the.hash_encode_fwd(
+            torch.zeros(2, 256, 2), meta(torch.zeros(4, 3)), bmin, bmax, res),
+        "hash_encode_bwd_expand": lambda: the.hash_encode_bwd_expand(
+            meta(torch.zeros(4, 3)), bmin, bmax, res, torch.zeros(4, 4), 256),
+        "packed_encode_fwd": lambda: packed_encode_fwd(
+            tables["dense"], tables["fine"], meta(torch.zeros(4, 3)), bmin, bmax, pcfg),
+        "packed_encode_bwd": lambda: packed_encode_bwd(
+            meta(torch.zeros(4, 3)), meta(bmin), meta(bmax), meta(torch.zeros(4, pcfg.out_dim)),
+            pcfg),
+        "field_colour_input_fwd": lambda: fq.field_colour_input_fwd(
+            meta(torch.zeros(2, 16)), torch.zeros(8, 16), 4),
+        "field_colour_input_bwd": lambda: fq.field_colour_input_bwd(
+            meta(torch.zeros(8, 31)), 16, 16),
+        "field_raw_fwd": lambda: fq.field_raw_fwd(torch.zeros(8, 3), torch.zeros(8, 16),
+                                                  meta(keep)),
+        "field_raw_bwd": lambda: fq.field_raw_bwd(meta(torch.zeros(8, 4)), keep, 16),
+        "field_mlp_fwd": lambda: field_mlp_fwd(meta(torch.zeros(8, 32)), torch.zeros(2, 16), 4,
+                                               keep, weights),
+        "segment_accumulate_k1": lambda: segment_accumulate_k1(idx, vals[:, :2], 8),
+        "segment_accumulate_k4": lambda: segment_accumulate_k4(idx, vals, 8),
+    }[case]
+
+
+@pytest.mark.parametrize("case", [
+    "hash_encode_fwd", "hash_encode_bwd_expand", "packed_encode_fwd", "packed_encode_bwd",
+    "field_colour_input_fwd", "field_colour_input_bwd", "field_raw_fwd", "field_raw_bwd",
+    "field_mlp_fwd", "segment_accumulate_k1", "segment_accumulate_k4"])
+def test_wrappers_refuse_devices_they_cannot_route(case):
+    """Every wrapper routes by launch.device_kind: a tensor on neither the
+    CPU nor one CUDA device raises ValueError naming the wrapper, with
+    nothing launched; K1 and K4 take CUDA tensors only."""
+    call = _refused_call(case)
+    reset_launch_counts()
+    with pytest.raises(ValueError, match=case):
+        call()
+    assert not any(launch_counts().values())
 
 
 def test_cpu_tensors_take_plain_versions_without_launching():

@@ -355,56 +355,3 @@ def test_preset_cli_trains_in_blocks_on_the_cpu(tmp_path, capsys, monkeypatch, p
     assert trainer.last_occ_keep == ((0.5, 0.375) if preset == "tpu-fast" else (0.5, 0.5))
     (expdir,) = [p for p in tmp_path.iterdir() if p.is_dir()]
     assert (expdir / "000032.ckpt").exists()
-
-
-# --------------------------------------------------------------------------- #
-# The port's bench line
-# --------------------------------------------------------------------------- #
-
-BENCH_KNOBS = ("BENCH_PARITY", "BENCH_N_RAND", "BENCH_L", "BENCH_F", "BENCH_KEEP", "BENCH_KEEP_COARSE",
-               "BENCH_FASTMERGE", "BENCH_PARTITION", "BENCH_PERRAY", "BENCH_OCC_BLOCK", "BENCH_SELECT",
-               "BENCH_ADAPTIVE", "BENCH_SCORE_STRIDE", "BENCH_PACKED")
-
-
-@pytest.mark.parametrize("env", [{}, {"BENCH_PARITY": "1"},
-                                 {"BENCH_KEEP_COARSE": "0", "BENCH_PERRAY": "1", "BENCH_N_RAND": "2048"}])
-def test_bench_args_match_bench_py(monkeypatch, env):
-    """hashnerf_torch.bench builds the args bench.py builds (bench.py's
-    Trainer and scene stubbed: nothing is built or compiled)."""
-    import bench as jbench
-    import hashnerf_tpu.data.synthetic as jsyn
-    import hashnerf_tpu.train.driver as jdriver
-    from hashnerf_torch.bench import bench_args
-
-    class Built:
-        def __init__(self, args, scene):
-            self.args = args
-
-    monkeypatch.setattr(jdriver, "Trainer", Built)
-    monkeypatch.setattr(jsyn, "make_synthetic_scene", lambda **kw: None)
-    monkeypatch.setattr(jax.config, "update", lambda *a, **k: None)
-    for k in BENCH_KNOBS:
-        monkeypatch.delenv(k, raising=False)
-    for k, v in env.items():
-        monkeypatch.setenv(k, v)
-    built, jargs = jbench.build_trainer()
-    assert built.global_step == 1001
-    jv, tv = vars(jargs), vars(bench_args(os.environ))
-    shared = set(jv) & set(tv)
-    assert {k: tv[k] for k in shared} == {k: jv[k] for k in shared}
-
-
-def test_bench_measures_blocks_and_fails_without_a_card():
-    import subprocess
-    import sys
-
-    from hashnerf_torch.bench import measure
-
-    t = _trainer(SMALL)
-    assert measure(t, 4, 2) > 0 and t.global_step == 12
-    if torch.cuda.is_available():
-        pytest.skip("a GPU is present: the bench runs")
-    r = subprocess.run([sys.executable, "-m", "hashnerf_torch.bench"], cwd=ROOT, capture_output=True,
-                       text=True, timeout=120, env=dict(os.environ, OMP_NUM_THREADS="1"))
-    assert r.returncode != 0 and "train_rays_per_s" not in r.stdout
-    assert "no CUDA device" in r.stderr

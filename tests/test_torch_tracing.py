@@ -100,6 +100,16 @@ def test_counters_read_reset_and_ride_with_launch_counts():
     counts = kernels.launch_counts()
     assert counts["steps_eager"] == 1 and counts["grid_updates"] == 3
     assert set(counts) == kernels.COUNTED == set(kernels.KERNELS) | set(profiling.COUNTERS)
+    # the registry of launch.Kernel: each C entry, counted under its own name
+    assert set(kernels.KERNELS) == {
+        "segment_accumulate_k1", "hash_encode_fwd", "hash_encode_bwd_expand",
+        "segment_accumulate_k4", "segment_accumulate_k5", "hash_encode_bwd",
+        "packed_encode_fwd", "packed_encode_bwd", "field_colour_input_fwd",
+        "field_colour_input_bwd", "field_raw_fwd", "field_raw_bwd", "field_mlp_fwd"}
+    assert all(k.entry == name for name, k in kernels.KERNELS.items())
+    kernels.add_launches({"hash_encode_fwd": 2, "grid_updates": 1}, 3)
+    counts = kernels.launch_counts()
+    assert counts["hash_encode_fwd"] == 6 and counts["grid_updates"] == 6
     kernels.reset_launch_counts()
     assert not any(kernels.launch_counts().values())
     with pytest.raises(KeyError):
