@@ -63,10 +63,11 @@ Imports hashnerf_torch (never jax or hashnerf_tpu) and, on one CUDA card:
       (3072 x 8) and a grid update's 65,536 points, each equal to its
       plain version on the same card tensors, with and without the view
       encoding and the keep mask; timed beside its plain version and its
-      byte bound (phase_field_kernels); and field_mlp_fwd, NeRFSmall's bf16
-      forward in one kernel, at the same shapes: bit for bit its in-order
-      arithmetic (field_mlp_fwd_ordered), close to its plain version,
-      timed beside it and its bound;
+      byte bound (phase_field_kernels); and field_mlp_fwd and
+      field_mlp_fwd_f32, NeRFSmall's bf16 and float32 forward in one
+      kernel, at the same shapes: bit for bit their in-order arithmetic
+      (field_mlp_fwd_ordered), close to their plain version, timed beside
+      it and their bound;
  3. main paths, each at the width of configs/chair.txt on the procedural
     scene (128 x 128, 8 train views) through
     hashnerf_torch.train.driver.train_loop (40 steps with TV, a checkpoint,
@@ -270,9 +271,10 @@ REPLACES = {
     # concatenations into their consumers)
     **dict.fromkeys(("field_colour_input_fwd", "field_colour_input_bwd", "field_raw_fwd",
                      "field_raw_bwd"), "none"),
-    # NeRFSmall's whole bf16 forward without a gradient: no TPU kernel (XLA
-    # fuses the casts, ReLUs and concatenations into the dots)
+    # NeRFSmall's whole bf16 and float32 forward without a gradient: no TPU
+    # kernel (XLA fuses the casts, ReLUs and concatenations into the dots)
     "field_mlp_fwd": "none",
+    "field_mlp_fwd_f32": "none",
 }
 
 
@@ -308,41 +310,47 @@ def kernel_info():
 #   Trainer.run_steps blocks of GRAPH_BLOCK steps (CUDA graph replays), must
 #   keep the eager window's keeps and K5 rule and launch the path's kernels,
 #   and must pass the graph gate (graphed_window, GATE_*);
-# - mlp_fused: whether field_mlp_fwd must launch on the path (True) or must
-#   not (False): a bf16 net's renders and grid updates take no gradient.
+# - mlp_fused: the one of MLP_FUSED + MLP_FUSED_F32 that must launch on the
+#   path (the other must not): a bf16 or float32 net's renders and grid
+#   updates take no gradient.
 # NeRFSmall's colour input (K9) and raw (field_raw), forward and backward:
 # every path of the hash grid's MLP launches them, the NeRF family none.
-# MLP_FUSED: NeRFSmall's one-kernel forward, wherever a bf16 net takes no
-# gradient: the packed and flagship paths' renders and grid updates (a
-# path's "mlp_fused"), none of the float32 chair's.
+# MLP_FUSED: NeRFSmall's one-kernel bf16 forward, wherever a bf16 net takes
+# no gradient: the packed and flagship paths' renders and grid updates.
+# MLP_FUSED_F32: the float32 one, wherever a float32 NeRFSmall renders: the
+# chair path's and the hash grid's test views.
 FIELD_KERNELS = ("field_colour_input_fwd", "field_colour_input_bwd", "field_raw_fwd",
                  "field_raw_bwd")
 CHAIR_KERNELS = ("hash_encode_fwd", "hash_encode_bwd", "segment_accumulate_k5") + FIELD_KERNELS
 # The packed layout's encode (K7, K8), K5 for its TV loss, and the MLP's K9.
 PACKED_KERNELS = ("packed_encode_fwd", "packed_encode_bwd", "segment_accumulate_k5") + FIELD_KERNELS
 MLP_FUSED = ("field_mlp_fwd",)
+MLP_FUSED_F32 = ("field_mlp_fwd_f32",)
 PATHS = {
     "chair": {"flags": [],
               "kernels": CHAIR_KERNELS,
               "tv_start": None, "no_tv_start": 1001, "keeps_tv": None, "keeps_no_tv": None,
-              "k5_no_tv": False, "eval_cull": None, "graph_tv_start": 48, "mlp_fused": False},
+              "k5_no_tv": False, "eval_cull": None, "graph_tv_start": 48,
+              "mlp_fused": "field_mlp_fwd_f32"},
     "packed": {"flags": PACKED_FLAGS, "kernels": PACKED_KERNELS,
                "tv_start": None, "no_tv_start": 1001, "keeps_tv": None, "keeps_no_tv": None,
-               "k5_no_tv": False, "eval_cull": None, "graph_tv_start": 48, "mlp_fused": True},
+               "k5_no_tv": False, "eval_cull": None, "graph_tv_start": 48,
+               "mlp_fused": "field_mlp_fwd"},
     "flagship": {"flags": FLAGSHIP_FLAGS, "kernels": PACKED_KERNELS + MLP_FUSED,
                  "tv_start": 256, "no_tv_start": 1024, "keeps_tv": (0.5, 0.375),
                  "keeps_no_tv": FLAGSHIP_KEEP, "k5_no_tv": False, "eval_cull": EVAL_CULL_FLAGS,
-                 "graph_tv_start": 256, "mlp_fused": True},
+                 "graph_tv_start": 256, "mlp_fused": "field_mlp_fwd"},
     # Phases of their own (slice 9), not run by phase_main_path: each run
     # of the phase must launch exactly the kernels listed for it (K5 for
-    # the TV loss of the hash grid's steps <= 1000) and no other kernel of
-    # kernels.KERNELS; nothing is culled.
+    # the TV loss of the hash grid's steps <= 1000, the float32 MLP kernel
+    # for a hash grid's test view) and no other kernel of kernels.KERNELS;
+    # nothing is culled.
     "st3d": {"phase": "st3d", "keeps_tv": None, "keeps_no_tv": None,
-             "runs": {"hash": CHAIR_KERNELS, "omninerf": ()}},
+             "runs": {"hash": CHAIR_KERNELS + MLP_FUSED_F32, "omninerf": ()}},
     "loaders": {"phase": "loaders", "keeps_tv": None, "keeps_no_tv": None,
-                "runs": {"scannet": CHAIR_KERNELS,
+                "runs": {"scannet": CHAIR_KERNELS + MLP_FUSED_F32,
                          "deepvoxels": (),
-                         "LINEMOD": CHAIR_KERNELS,
+                         "LINEMOD": CHAIR_KERNELS + MLP_FUSED_F32,
                          # slice 11: the chair's MLPs at --compute_dtype float32
                          "chair_float32": CHAIR_KERNELS}},
     # Slice 10 (phase_multi): each rank's chair path (TV on: K5), ZeRO-1
@@ -350,15 +358,18 @@ PATHS = {
     # Slice 11: the flagship (tpu-fast, global culling) on each rank, its
     # kept blocks shared over the ranks: K7, K8, and K5 for TV.
     # Slice 12 (phase_tools): the A9 tools on the card; the chair's runs
-    # (K2, K6; K5 for TV), the flagship's render_bench and profile_step
-    # (K7, K8), and the encode alone (K2, K6).
+    # (K2, K6; K5 for TV; the float32 MLP kernel for their renders), the
+    # flagship's render_bench and profile_step (K7, K8), and the encode
+    # alone (K2, K6).
     "tools": {"phase": "tools", "keeps_tv": None, "keeps_no_tv": None,
-              "kernels": CHAIR_KERNELS + PACKED_KERNELS[:2] + MLP_FUSED},
+              "kernels": CHAIR_KERNELS + PACKED_KERNELS[:2] + MLP_FUSED + MLP_FUSED_F32},
     "multi": {"phase": "multi", "keeps_tv": None, "keeps_no_tv": None,
               "runs": {"path": CHAIR_KERNELS,
                        "zero": ("hash_encode_fwd", "hash_encode_bwd") + FIELD_KERNELS,
                        "table": ("hash_encode_fwd", "hash_encode_bwd") + FIELD_KERNELS,
-                       "flagship": PACKED_KERNELS + MLP_FUSED}},
+                       "flagship": PACKED_KERNELS + MLP_FUSED},
+              # what rank 0 alone launches besides: its test-set render
+              "main_rank": {"path": MLP_FUSED_F32}},
 }
 MAIN_PATHS = tuple(p for p, spec in PATHS.items() if "phase" not in spec)
 GRAPH_BLOCK = 16  # the flagship preset's --steps_per_dispatch
@@ -1714,6 +1725,17 @@ def mlp_close(torch, got, want) -> bool:
             and bool((err <= 2.0 ** -6 * scale).all()))
 
 
+# field_mlp_fwd_f32 against its plain version (cuBLAS float32 GEMMs of the
+# same operands, in the kernel's k order but for rare last bits): the
+# largest gap over its column's largest magnitude
+MLP_F32_GAP = 1e-6
+
+
+def mlp_rel_gap(got, want) -> float:
+    """The largest |got - want| over the largest |want| of its column."""
+    return float(((got - want).abs() / want.abs().amax(0)).max())
+
+
 def phase_field_kernels(torch):
     """K9 (field_colour_input) and field_raw, forward and backward, at the
     field query's shapes (FIELD_SHAPES): each launch on card tensors must
@@ -1730,7 +1752,10 @@ def phase_field_kernels(torch):
     (field_mlp_fwd_ordered), within mlp_close of its plain version, sigma
     exactly 0 outside the keep mask, two launches equal bit for bit; timed
     the same way, against its bound: the float32 multiply-adds at the
-    CUDA cores' peak (its byte bound beside it, as mlp_byte_bound_ms)."""
+    CUDA cores' peak (its byte bound beside it, as mlp_byte_bound_ms).
+    field_mlp_fwd_f32 (the float32 forward, `mlp_f32`) on the same weights
+    unrounded: the same checks, within MLP_F32_GAP of its plain version,
+    the share of its entries equal to it, timed the same way."""
     from hashnerf_torch.kernels import field_mlp as fm
     from hashnerf_torch.kernels import field_query as fq
     from hashnerf_torch.models.nerf import NeRFSmall, NeRFSmallConfig
@@ -1777,11 +1802,12 @@ def phase_field_kernels(torch):
                         f"field {what} at {shape}: rows not padded with +0 to {P}")
             rec[f"{what}_max_abs_err"] = float((got - want).abs().max())
             del got, want
-        mlp = (lambda: fm.field_mlp_fwd(feats, views, S, keep, ws),
-               lambda: fm.field_mlp_fwd_plain(feats, views, S, keep, ws))
+        bf = torch.bfloat16
+        mlp = (lambda: fm.field_mlp_fwd(feats, views, S, keep, ws, bf),
+               lambda: fm.field_mlp_fwd_plain(feats, views, S, keep, ws, bf))
         with torch.no_grad():
             got, again, want = mlp[0](), mlp[0](), mlp[1]()
-            ordered = fm.field_mlp_fwd_ordered(feats, views, S, keep, ws)
+            ordered = fm.field_mlp_fwd_ordered(feats, views, S, keep, ws, bf)
         torch.cuda.synchronize()
         require(bool(torch.equal(got, ordered)) and mlp_close(torch, got, want)
                 and bool(torch.equal(got, again)) and not bool(got[~keep, 3].any()),
@@ -1794,8 +1820,24 @@ def phase_field_kernels(torch):
         rec["mlp_share_beyond_1e-5_scale"] = float(
             ((got - want).abs() > 1e-5 * scale).float().mean())
         del got, again, want, ordered
-        pairs["mlp"] = mlp
-        for what in ("k9", "k9_bwd", "field_raw", "field_raw_bwd", "mlp"):
+        mlp_f32 = (lambda: fm.field_mlp_fwd(feats, views, S, keep, ws, None),
+                   lambda: fm.field_mlp_fwd_plain(feats, views, S, keep, ws, None))
+        with torch.no_grad():
+            got, again, want = mlp_f32[0](), mlp_f32[0](), mlp_f32[1]()
+            ordered = fm.field_mlp_fwd_ordered(feats, views, S, keep, ws, None)
+        torch.cuda.synchronize()
+        gap = mlp_rel_gap(got, want)
+        require(bool(torch.equal(got, ordered)) and gap <= MLP_F32_GAP
+                and bool(torch.equal(got, again)) and not bool(got[~keep, 3].any()),
+                f"field mlp_f32 at {shape}: not its in-order arithmetic bit for bit, "
+                f"{gap:.3g} of a column's scale from its plain version, not deterministic, or "
+                "sigma outside the keep mask")
+        rec["mlp_f32_max_abs_err"] = float((got - want).abs().max())
+        rec["mlp_f32_max_rel_gap"] = gap
+        rec["mlp_f32_share_equal_to_plain"] = float((got == want).float().mean())
+        del got, again, want, ordered
+        pairs["mlp"], pairs["mlp_f32"] = mlp, mlp_f32
+        for what in ("k9", "k9_bwd", "field_raw", "field_raw_bwd", "mlp", "mlp_f32"):
             kern, plain = pairs[what]
             rec[f"{what}_ms"] = cuda_ms(torch, kern)
             rec[f"{what}_device_ms"] = device_ms(torch, kern, reps=5)
@@ -1811,6 +1853,7 @@ def phase_field_kernels(torch):
         # multiply-adds, 2 operations each, on the CUDA cores
         mlp_bytes = N * (32 * 4 + 1 + 4 * 4) + R * Cv * 4
         rec["mlp_bound_ms"], rec["mlp_bound_by"] = bound(mlp_bytes, N * 2 * MLP_MACS)
+        rec["mlp_f32_bound_ms"], rec["mlp_f32_bound_by"] = rec["mlp_bound_ms"], rec["mlp_bound_by"]
         rec["mlp_byte_bound_ms"] = mlp_bytes / PEAK_BYTES_PER_S * 1e3
         rec["k9_pad_ms"] = N * (fq.padded_width(Cv + G) - Cv - G) * 4 / PEAK_BYTES_PER_S * 1e3
         out[shape] = rec
@@ -1971,8 +2014,9 @@ def phase_main_path(torch, np, path: str, profile: bool):
             require(counts[name] > 0, f"kernel {name} was not launched on the {path} path")
         for name in OFF_PATH:
             require(counts[name] == 0, f"kernel {name} was launched on the {path} path")
-        require((counts["field_mlp_fwd"] > 0) == spec["mlp_fused"],
-                f"field_mlp_fwd launched {counts['field_mlp_fwd']} times on the {path} path")
+        for name in MLP_FUSED + MLP_FUSED_F32:
+            require((counts[name] > 0) == (name == spec["mlp_fused"]),
+                    f"{name} launched {counts[name]} times on the {path} path")
 
         per_step = lambda a, b, n: {k: (b[k] - a[k]) / n for k in a}
         rec = {
@@ -4819,6 +4863,8 @@ def phase_multi(torch, np, smi: str):
     for name, run in runs.items():
         for r in run["ranks"]:
             for part, want in PATHS["multi"]["runs"].items():
+                if r["rank"] == 0:
+                    want = want + PATHS["multi"]["main_rank"].get(part, ())
                 got = r[part]["launches"]
                 for k in REPLACES:
                     require((got[k] > 0) == (k in want),
@@ -4922,7 +4968,7 @@ def main(argv=None) -> int:
     case = field[FIELD_LINE_SHAPE]
     for name, k in (("field_colour_input_fwd", "k9"), ("field_colour_input_bwd", "k9_bwd"),
                     ("field_raw_fwd", "field_raw"), ("field_raw_bwd", "field_raw_bwd"),
-                    ("field_mlp_fwd", "mlp")):
+                    ("field_mlp_fwd", "mlp"), ("field_mlp_fwd_f32", "mlp_f32")):
         kern[name] = {
             "max_abs_err": case[f"{k}_max_abs_err"],
             "kernel_ms": case[f"{k}_ms"], "plain_ms": case[f"{k}_plain_ms"],

@@ -33,12 +33,13 @@ bf16 or two f16 values is exact in float32); autograd's casts then round
 the gradients of x and w to the compute type as JAX's transpose of the dot
 does. A bf16 or f16 matmul would round its output.
 
-A bf16 NeRFSmall at the widths kernels/field_mlp.py has (32-64-16 /
-31-64-64-3, views 16 or none) answers a call that autograd records nothing
-for (a frame, a grid update) with that one kernel: the same exact products,
-summed in float32 in cuBLAS's order, so that every hidden value rounds to
-the same bf16 value as on the route above. Every other call (a gradient,
-another compute type, other widths) takes the route above.
+A bf16 or float32 NeRFSmall at the widths kernels/field_mlp.py has
+(32-64-16 / 31-64-64-3, views 16 or none) answers a call that autograd
+records nothing for (a frame, a grid update) with that one kernel: the same
+operands, each product's sum one float32 FMA after another in cuBLAS's k
+order, so that a bf16 net's every hidden value rounds to the same bf16
+value as on the route above. Every other call (a gradient, a float16 or
+float8 net, other widths) takes the route above.
 """
 from __future__ import annotations
 
@@ -142,9 +143,9 @@ class NeRFSmall(nn.Module):
         self.sigma_net = nn.ModuleList(sigma)
         self.color_net = nn.ModuleList(color)
         self._dtype = compute_dtype_of(cfg.compute_dtype, "NeRFSmall: compute_dtype")
-        # bf16 operands at the widths csrc/field_mlp.cu has: a forward that
-        # takes no gradient runs as that one kernel
-        self._fused = self._dtype == torch.bfloat16 and field_mlp.takes(cfg)
+        # bf16 or float32 operands at the widths csrc/field_mlp.cu has: a
+        # forward that takes no gradient runs as that one kernel
+        self._fused = self._dtype in (torch.bfloat16, None) and field_mlp.takes(cfg)
 
     def _layer(self, layer: nn.Linear, h: torch.Tensor) -> torch.Tensor:
         return _apply(layer, h, self._dtype)
@@ -162,15 +163,16 @@ class NeRFSmall(nn.Module):
         None -> (N, 4) = [rgb logits, keep ? sigma : 0]. The sigma net
         multiplies x as it is; K9 (kernels/field_query.py) widens the views
         to the samples in the colour net's input, and field_raw writes the
-        raw. A bf16 net whose call autograd records nothing for (grad mode
-        off, or nothing requiring a gradient) runs the whole forward as
-        kernels/field_mlp.py's one kernel instead, which saves no
+        raw. A bf16 or float32 net whose call autograd records nothing for
+        (grad mode off, or nothing requiring a gradient) runs the whole
+        forward as kernels/field_mlp.py's one kernel instead, which saves no
         activations, and counts its N points as `mlp_fused_points`."""
         cfg = self.cfg
         if self._fused and not self._records_grad(x, views):
             count("mlp_fused_points", x.shape[0])
             return field_mlp.field_mlp_fwd(
-                x, views, S, keep, [l.weight for l in [*self.sigma_net, *self.color_net]])
+                x, views, S, keep, [l.weight for l in [*self.sigma_net, *self.color_net]],
+                self._dtype)
         h = x
         for l, layer in enumerate(self.sigma_net):
             h = self._layer(layer, h)

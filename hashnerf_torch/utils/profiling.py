@@ -32,7 +32,7 @@ COUNTERS = {
     "host_reads": "the program's own blocking reads of a device value",
     "views_per_ray": "query_fn calls that encoded their view directions once a ray",
     "mlp_points": "points query_fn handed an MLP (R x S a call)",
-    "mlp_fused_points": "points NeRFSmall's one-kernel bf16 forward answered (no gradient)",
+    "mlp_fused_points": "points NeRFSmall's one-kernel forward answered (no gradient)",
 }
 # every count: COUNTERS, then each registered kernel's launches
 _counts: Dict[str, int] = dict.fromkeys(COUNTERS, 0)

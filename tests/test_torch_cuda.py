@@ -838,7 +838,7 @@ def test_field_kernels_refuse_what_they_cannot_take(cuda_device):
 
 
 # --------------------------------------------------------------------------- #
-# field_mlp: NeRFSmall's one-kernel bf16 forward
+# field_mlp: NeRFSmall's one-kernel bf16 and float32 forward
 # --------------------------------------------------------------------------- #
 
 # (R, S): the render chunk's coarse and fine passes, a grid update's points,
@@ -846,14 +846,15 @@ def test_field_kernels_refuse_what_they_cannot_take(cuda_device):
 MLP_SHAPES = [(32768, 64), (32768, 192), (65536, 1), (1001, 7)]
 
 
-def mlp_case(dev, R, S, views=True, seed=24):
-    """A bf16 NeRFSmall's five weights on dev and (x (N, 32), views (R, 16)
-    or None, keep (N,)): normal encoded points, SH-encoded unit directions,
-    a fifth of the points outside the keep mask."""
+def mlp_case(dev, R, S, views=True, seed=24, dtype="bfloat16"):
+    """A NeRFSmall of compute_dtype dtype (bf16, or None: float32), its five
+    weights on dev and (x (N, 32), views (R, 16) or None, keep (N,)): normal
+    encoded points, SH-encoded unit directions, a fifth of the points
+    outside the keep mask."""
     from hashnerf_torch.models.nerf import NeRFSmall, NeRFSmallConfig
     from hashnerf_torch.ops.sh_encoding import sh_encode
 
-    cfg = NeRFSmallConfig(compute_dtype="bfloat16", input_ch_views=16 if views else 0)
+    cfg = NeRFSmallConfig(compute_dtype=dtype, input_ch_views=16 if views else 0)
     net = NeRFSmall(cfg, torch.Generator().manual_seed(seed)).to(dev)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
@@ -895,12 +896,13 @@ def test_field_mlp_on_card_matches_the_pytorch_route(cuda_device, R, S, views):
     from hashnerf_torch.kernels import field_mlp as fm
 
     net, ws, x, v, keep = mlp_case(cuda_device, R, S, views)
+    bf = torch.bfloat16
     before = launch_counts()
     with torch.no_grad():
-        got = fm.field_mlp_fwd(x, v, S, keep, ws)
-        again = fm.field_mlp_fwd(x, v, S, keep, ws)
-        want = fm.field_mlp_fwd_plain(x, v, S, keep, ws)
-        ordered = fm.field_mlp_fwd_ordered(x, v, S, keep, ws)
+        got = fm.field_mlp_fwd(x, v, S, keep, ws, bf)
+        again = fm.field_mlp_fwd(x, v, S, keep, ws, bf)
+        want = fm.field_mlp_fwd_plain(x, v, S, keep, ws, bf)
+        ordered = fm.field_mlp_fwd_ordered(x, v, S, keep, ws, bf)
     routed = net.forward_rays(x, v, S, keep).detach()
     torch.cuda.synchronize()
     after = launch_counts()
@@ -913,12 +915,59 @@ def test_field_mlp_on_card_matches_the_pytorch_route(cuda_device, R, S, views):
     assert torch.equal(got, again)
 
 
+# (R, S): the chair render chunk's coarse and fine passes (N = 2,097,152 and
+# 6,291,456), and 7,007 points, no whole number of the kernel's 256-point
+# groups
+MLP_F32_SHAPES = [(32768, 64), (32768, 192), (1001, 7)]
+# field_mlp_fwd_f32 against the PyTorch route: the largest gap over its
+# column's largest magnitude
+MLP_F32_GAP = 1e-6
+
+
 @pytest.mark.cuda
-def test_field_mlp_replays_from_a_cuda_graph(cuda_device):
+@pytest.mark.parametrize("views", [True, False], ids=["views", "no_views"])
+@pytest.mark.parametrize("R,S", MLP_F32_SHAPES)
+def test_field_mlp_f32_on_card_matches_the_pytorch_route(cuda_device, R, S, views):
+    """The float32 kernel equals its arithmetic in PyTorch ops, each
+    output's fmaf chain in k order (field_mlp_fwd_ordered), bit for bit.
+    Against the PyTorch route on the same card tensors (its plain version,
+    and NeRFSmall's autograd route: cuBLAS float32 GEMMs, which add in the
+    same order but for rare last bits), every entry is within MLP_F32_GAP
+    of its column's largest magnitude; the share of entries equal to it is
+    printed (pytest -rP shows it). Exact: sigma 0 outside the keep mask, two launches equal bit
+    for bit, one launch each."""
+    from hashnerf_torch.kernels import field_mlp as fm
+
+    net, ws, x, v, keep = mlp_case(cuda_device, R, S, views, dtype=None)
+    before = launch_counts()
+    with torch.no_grad():
+        got = fm.field_mlp_fwd(x, v, S, keep, ws, None)
+        again = fm.field_mlp_fwd(x, v, S, keep, ws, None)
+        want = fm.field_mlp_fwd_plain(x, v, S, keep, ws, None)
+        ordered = fm.field_mlp_fwd_ordered(x, v, S, keep, ws, None)
+    routed = net.forward_rays(x, v, S, keep).detach()
+    torch.cuda.synchronize()
+    after = launch_counts()
+    assert after["field_mlp_fwd_f32"] - before["field_mlp_fwd_f32"] == 2
+    assert after["field_mlp_fwd"] == before["field_mlp_fwd"]
+    assert got.shape == (R * S, 4) and torch.isfinite(got).all()
+    assert torch.equal(got, ordered)
+    for name, ref in (("plain", want), ("route", routed)):
+        gap = float(((got - ref).abs() / ref.abs().amax(0)).max())
+        print(f"N {R * S}: {float((got == ref).float().mean()):.7f} of the entries equal to the "
+              f"{name}, the largest gap {gap:.3g} of a column's largest magnitude")
+        assert gap <= MLP_F32_GAP, (name, gap)
+    assert (got[~keep, 3] == 0).all() and (want[~keep, 3] == 0).all()
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", None], ids=["bf16", "f32"])
+def test_field_mlp_replays_from_a_cuda_graph(cuda_device, dtype):
     """A captured launch replays bit for bit what the eager launch wrote,
     through NeRFSmall's no-grad route (a render chunk's fine pass), on new
     inputs copied into the captured ones."""
-    net, ws, x, v, keep = mlp_case(cuda_device, 4096, 192)
+    net, ws, x, v, keep = mlp_case(cuda_device, 4096, 192, dtype=dtype)
     S = 192
     with torch.no_grad():
         eager = net.forward_rays(x, v, S, keep)
@@ -936,7 +985,7 @@ def test_field_mlp_replays_from_a_cuda_graph(cuda_device):
         graph.replay()
         torch.cuda.synchronize()
         assert torch.equal(captured, eager)
-        _, _, x2, v2, keep2 = mlp_case(cuda_device, 4096, 192, seed=25)
+        _, _, x2, v2, keep2 = mlp_case(cuda_device, 4096, 192, seed=25, dtype=dtype)
         x_in.copy_(x2), v_in.copy_(v2), keep_in.copy_(keep2)
         graph.replay()
         want = net.forward_rays(x2, v2, S, keep2)
@@ -945,10 +994,11 @@ def test_field_mlp_replays_from_a_cuda_graph(cuda_device):
 
 
 @pytest.mark.cuda
-def test_field_mlp_refuses_what_it_cannot_take(cuda_device):
-    """A launch the entry refuses raises through build.check; the wrapper
-    raises before launching on a wrong shape or a second device, and takes
-    no plain path for a CUDA tensor."""
+@pytest.mark.parametrize("rounding", [torch.bfloat16, None], ids=["bf16", "f32"])
+def test_field_mlp_refuses_what_it_cannot_take(cuda_device, rounding):
+    """A launch either entry refuses raises through build.check; the
+    wrapper raises before launching on a wrong shape or a second device,
+    and takes no plain path for a CUDA tensor."""
     from hashnerf_torch.kernels import KERNELS, build
     from hashnerf_torch.kernels import field_mlp as fm
 
@@ -959,16 +1009,17 @@ def test_field_mlp_refuses_what_it_cannot_take(cuda_device):
     ptrs = [w.data_ptr() for w in ws]
     # rows of 30 floats are no whole 16-byte vectors; 3 samples a ray do not divide 32 rows;
     # a raw misaligned by a float
+    entry = fm._KERNELS[rounding].entry
     for sx, S, out in ((30, 4, raw.data_ptr()), (32, 3, raw.data_ptr()),
                        (32, 4, raw.data_ptr() + 4)):
-        err = KERNELS["field_mlp_fwd"].fn(x.data_ptr(), v.data_ptr(), keep.data_ptr(), *ptrs, out,
-                                          32, S, 16, sx, 16, stream)
-        with pytest.raises(RuntimeError, match="field_mlp_fwd"):
-            build.check(err, "field_mlp_fwd")
+        err = KERNELS[entry].fn(x.data_ptr(), v.data_ptr(), keep.data_ptr(), *ptrs, out, 32, S, 16,
+                                sx, 16, stream)
+        with pytest.raises(RuntimeError, match=entry):
+            build.check(err, entry)
     with pytest.raises(ValueError):
-        fm.field_mlp_fwd(x, v.cpu(), 4, keep, ws)
+        fm.field_mlp_fwd(x, v.cpu(), 4, keep, ws, rounding)
     with pytest.raises(ValueError, match="weights"):
-        fm.field_mlp_fwd(x, None, 4, keep, ws)
+        fm.field_mlp_fwd(x, None, 4, keep, ws, rounding)
     torch.cuda.synchronize()
     assert launch_counts() == before
 

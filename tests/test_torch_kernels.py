@@ -143,7 +143,9 @@ def _refused_call(case):
                                                   meta(keep)),
         "field_raw_bwd": lambda: fq.field_raw_bwd(meta(torch.zeros(8, 4)), keep, 16),
         "field_mlp_fwd": lambda: field_mlp_fwd(meta(torch.zeros(8, 32)), torch.zeros(2, 16), 4,
-                                               keep, weights),
+                                               keep, weights, torch.bfloat16),
+        "field_mlp_fwd_f32": lambda: field_mlp_fwd(meta(torch.zeros(8, 32)), torch.zeros(2, 16),
+                                                   4, keep, weights, None),
         "segment_accumulate_k1": lambda: segment_accumulate_k1(idx, vals[:, :2], 8),
         "segment_accumulate_k4": lambda: segment_accumulate_k4(idx, vals, 8),
     }[case]
@@ -152,7 +154,7 @@ def _refused_call(case):
 @pytest.mark.parametrize("case", [
     "hash_encode_fwd", "hash_encode_bwd_expand", "packed_encode_fwd", "packed_encode_bwd",
     "field_colour_input_fwd", "field_colour_input_bwd", "field_raw_fwd", "field_raw_bwd",
-    "field_mlp_fwd", "segment_accumulate_k1", "segment_accumulate_k4"])
+    "field_mlp_fwd", "field_mlp_fwd_f32", "segment_accumulate_k1", "segment_accumulate_k4"])
 def test_wrappers_refuse_devices_they_cannot_route(case):
     """Every wrapper routes by launch.device_kind: a tensor on neither the
     CPU nor one CUDA device raises ValueError naming the wrapper, with
@@ -185,14 +187,15 @@ def test_cpu_tensors_take_plain_versions_without_launching():
     c = field_colour_input(torch.zeros((2, 16)), h, 4)
     (c.sum() + field_raw(torch.zeros((8, 3)), h, torch.ones(8, dtype=torch.bool)).sum()).backward()
     weights = [torch.zeros(s) for s in ((64, 32), (16, 64), (64, 31), (64, 64), (3, 64))]
-    field_mlp_fwd(torch.zeros((8, 32)), torch.zeros((2, 16)), 4, torch.ones(8, dtype=torch.bool),
-                  weights)
+    for rounding in (torch.bfloat16, None):
+        field_mlp_fwd(torch.zeros((8, 32)), torch.zeros((2, 16)), 4,
+                      torch.ones(8, dtype=torch.bool), weights, rounding)
     assert {k: n for k, n in launch_counts().items() if k in KERNELS} == {
         "segment_accumulate_k1": 0, "hash_encode_fwd": 0, "hash_encode_bwd_expand": 0,
         "segment_accumulate_k4": 0, "segment_accumulate_k5": 0, "hash_encode_bwd": 0,
         "packed_encode_fwd": 0, "packed_encode_bwd": 0, "field_colour_input_fwd": 0,
         "field_colour_input_bwd": 0, "field_raw_fwd": 0, "field_raw_bwd": 0,
-        "field_mlp_fwd": 0}
+        "field_mlp_fwd": 0, "field_mlp_fwd_f32": 0}
 
 
 def test_library_path_follows_headers(tmp_path, monkeypatch):

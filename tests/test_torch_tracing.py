@@ -105,7 +105,8 @@ def test_counters_read_reset_and_ride_with_launch_counts():
         "segment_accumulate_k1", "hash_encode_fwd", "hash_encode_bwd_expand",
         "segment_accumulate_k4", "segment_accumulate_k5", "hash_encode_bwd",
         "packed_encode_fwd", "packed_encode_bwd", "field_colour_input_fwd",
-        "field_colour_input_bwd", "field_raw_fwd", "field_raw_bwd", "field_mlp_fwd"}
+        "field_colour_input_bwd", "field_raw_fwd", "field_raw_bwd", "field_mlp_fwd",
+            "field_mlp_fwd_f32"}
     assert all(k.entry == name for name, k in kernels.KERNELS.items())
     kernels.add_launches({"hash_encode_fwd": 2, "grid_updates": 1}, 3)
     counts = kernels.launch_counts()
