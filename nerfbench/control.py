@@ -77,13 +77,14 @@ def read_seed(cfg: dict, tr: dict, seed: int, device: str, check_frames: int = 2
               chunk: int = 16384) -> dict:
     s = cfg["settings"]
     n = tr.get("check_steps", 3)
-    trainer, sc, init, fam = H.build(cfg, seed, device)
+    trainer, sc, init, fam, pool = H.build(cfg, seed, device)
     leaves = fam.program_leaves(trainer)
-    snaps = {"start": H.initial_snapshot(trainer, init, fam)}
-    prog = {"start": H.program_phase(trainer, leaves, snaps["start"], n, precrop=True)}
-    H.drive(trainer, tr["setup_steps"], s)
-    snaps["trained"] = H.snapshot(trainer, leaves, fam)
-    prog["trained"] = H.program_phase(trainer, leaves, snaps["trained"], n, precrop=False)
+    snaps = {"start": H.initial_snapshot(trainer, init, fam, pool, n)}
+    prog = {"start": H.program_phase(trainer, leaves, snaps["start"], n, precrop=True, pool=pool)}
+    H.drive(trainer, tr["setup_steps"], s, pool)
+    snaps["trained"] = H.snapshot(trainer, leaves, fam, pool, n)
+    prog["trained"] = H.program_phase(trainer, leaves, snaps["trained"], n, precrop=False,
+                                      pool=pool)
     # the frames are rendered at the trained state the trained phase started from
     with torch.no_grad():
         for name, p in leaves.items():
@@ -92,7 +93,7 @@ def read_seed(cfg: dict, tr: dict, seed: int, device: str, check_frames: int = 2
     poses = [sc["render_poses"][i] for i in picks]
     prog["frames"] = [trainer.render_image(p)[0].cpu().numpy() for p in poses]
     snaps["weights"] = snaps["trained"]["p"]
-    del trainer, leaves
+    del trainer, leaves, pool
     gc.collect()
     if device.startswith("cuda"):
         torch.cuda.empty_cache()

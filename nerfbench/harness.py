@@ -3,13 +3,14 @@ comparison with the plain reference that decides `correct`.
 
 Set-up builds one hashnerf_torch Trainer from the configuration's argv on
 the scene its kind makes (scenes/<kind>.py), loads the weights its model
-family (families/<family>.py) made from the seed,
-and drives its first three steps through `Trainer.run_steps`, as the window
-calls it (the start phase, which the reference follows). It then trains on
-in train_loop's spans (a host read of the loss at each `i_print`) to the
-traffic's set-up step, and warms up every shape the window uses. The
-window is traffic.py's. After it, the program's state is read, the program
-is freed, and the family's plain reference follows it.
+family (families/<family>.py) made from the seed, builds the ray pool where
+the argv leaves out --no_batching (pool.py), and drives its first three
+steps through `Trainer.run_steps`, as the window calls it (the start
+phase, which the reference follows). It then trains on in train_loop's
+spans (a host read of the loss at each `i_print`) to the traffic's set-up
+step, and warms up every shape the window uses. The window is traffic.py's.
+After it, the program's state is read, the program is freed, and the
+family's plain reference follows it.
 """
 from __future__ import annotations
 
@@ -25,6 +26,7 @@ import numpy as np
 import torch
 
 from nerfbench import counts, spec
+from nerfbench import pool as poolm
 from nerfbench import trace as tracem
 from nerfbench import traffic as trafficm
 
@@ -52,20 +54,36 @@ def program_args(cfg: dict, device: str):
 
 
 def build(cfg: dict, seed: int, device: str, base: str = spec.HERE):
-    """(trainer, scene tensors, initial weights, family module): the
+    """(trainer, scene tensors, initial weights, family module, pool): the
     program's Trainer on the configuration's scene, with its family's
-    weights made from the seed. The family is resolved here alone."""
+    weights made from the seed, and the ray pool it trains from (a
+    pool.PoolCursor; None under --no_batching). A scene that gives a
+    "pool" and no "images" makes an image-less Scene, as the port's
+    st3d_scene does. The family is resolved here alone."""
     from hashnerf_torch.data.scene import Scene
     from hashnerf_torch.train.driver import Trainer
 
     fam = spec.family_of(cfg, base)
     args = program_args(cfg, device)
+    kind = cfg["scene"].get("kind", "ring")
     sc = spec.scene_of(cfg, base).make_scene(cfg["scene"], device)
-    n = sc["images"].shape[0]
+    if "images" not in sc and (args.no_batching or "pool" not in sc):
+        has = '"pool" only' if "pool" in sc else 'neither "images" nor "pool"'
+        raise ValueError(f"nerfbench: config {cfg['name']} trains from "
+                         f"{'its images (--no_batching)' if args.no_batching else 'a ray pool'}; "
+                         f"scene kind {kind!r} gives {has}")
     bbox = sc["bbox"].cpu().numpy()
-    scene = Scene(images=sc["images"].cpu().numpy(), poses=sc["poses"].cpu().numpy(),
-                  render_poses=sc["render_poses"], hwf=(sc["H"], sc["W"], sc["focal"]),
-                  K=sc["K_np"], i_train=np.arange(n), i_val=np.arange(0), i_test=np.arange(0),
+    if "images" in sc:
+        n = sc["images"].shape[0]
+        images, poses = sc["images"].cpu().numpy(), sc["poses"].cpu().numpy()
+    else:
+        n = 0
+        images = np.zeros((0, sc["H"], sc["W"], 3), np.float32)
+        poses = np.zeros((0, 3, 4), np.float32)
+    scene = Scene(images=images, poses=poses,
+                  render_poses=sc.get("render_poses", np.zeros((0, 4, 4), np.float32)),
+                  hwf=(sc["H"], sc["W"], sc.get("focal", 0.0)), K=sc.get("K_np", np.eye(3)),
+                  i_train=np.arange(n), i_val=np.arange(0), i_test=np.arange(0),
                   near=sc["near"], far=sc["far"], bounding_box=(bbox[0], bbox[1]),
                   ndc=sc.get("ndc", False))
     trainer = Trainer(args, scene, device=device, seed=seed + 1)
@@ -77,7 +95,8 @@ def build(cfg: dict, seed: int, device: str, base: str = spec.HERE):
     with torch.no_grad():
         for name, p in leaves.items():
             p.copy_(init[name])
-    return trainer, sc, init, fam
+    pool = None if args.no_batching else poolm.make_pool(trainer, sc, seed)
+    return trainer, sc, init, fam, pool
 
 
 def sync(device: str) -> None:
@@ -85,19 +104,23 @@ def sync(device: str) -> None:
         torch.cuda.synchronize()
 
 
-def drive(trainer, end: int, s: dict) -> None:
+def drive(trainer, end: int, s: dict, pool: Optional[poolm.PoolCursor] = None) -> None:
     """Train to global step `end` as train_loop does under
-    --steps_per_dispatch without ray batching: spans to each i_print event
-    (and to the end of the precrop), each one run_steps call, the loss read
-    on the host at each i_print."""
+    --steps_per_dispatch: spans to each i_print event (without ray batching,
+    and to the end of the precrop; from a pool, and to its end), each one
+    run_steps call, the loss read on the host at each i_print."""
     spd, ip, pc = s["steps_per_dispatch"], s["i_print"], s["precrop_iters"]
     i = trainer.global_step + 1
     while i <= end:
-        e = min(end, ((i - 1) // ip + 1) * ip)
-        precrop = i < pc
-        if precrop:
-            e = min(e, pc - 1)
-        m = trainer.run_steps(e - i + 1, block_size=spd, precrop=precrop)
+        if pool is None:
+            e = min(end, ((i - 1) // ip + 1) * ip)
+            precrop = i < pc
+            if precrop:
+                e = min(e, pc - 1)
+            m = trainer.run_steps(e - i + 1, block_size=spd, precrop=precrop)
+        else:
+            e = min(end, pool.span_end(i, ip))
+            m = pool.run(e - i + 1, spd)
         if e % ip == 0:
             float(m["loss"])
         i = e + 1
@@ -110,11 +133,19 @@ def _norms(d: Dict[str, torch.Tensor]) -> Dict[str, float]:
     return {k: float(torch.linalg.vector_norm(v.double())) for k, v in d.items()}
 
 
-def snapshot(trainer, leaves, fam) -> dict:
+def pool_record(pool: Optional[poolm.PoolCursor], n: int) -> dict:
+    """{"pool": where the rows of the next n steps stand}, or {} without a
+    pool. Taken before the generator's state: it may reshuffle."""
+    return {} if pool is None else {"pool": pool.record(n)}
+
+
+def snapshot(trainer, leaves, fam, pool: Optional[poolm.PoolCursor] = None,
+             n_check: int = 0) -> dict:
     """What the reference needs to follow the program from here: weights,
     the optimizer's moments, its beta1 and the step count of each of the
     family's groups, the occupancy grid if it culls, the generator's state,
-    the global step."""
+    the global step, and from a pool, where the n_check steps' rows stand."""
+    pool_at = pool_record(pool, n_check)
     opt = trainer.optimizer
     opt.init_state()
     st = {p: opt.state[p] for p in leaves.values()}
@@ -129,30 +160,46 @@ def snapshot(trainer, leaves, fam) -> dict:
         "occ_grid": trainer.occ_grid.clone() if culled else None,
         "gen_state": trainer.generator.get_state(),
         "step0": trainer.global_step,
+        **pool_at,
     }
 
 
-def initial_snapshot(trainer, init: Dict[str, torch.Tensor], fam) -> dict:
+def initial_snapshot(trainer, init: Dict[str, torch.Tensor], fam,
+                     pool: Optional[poolm.PoolCursor] = None, n_check: int = 0) -> dict:
     """The start: the benchmark's weights, the optimizer's zero state,
-    step 0."""
+    step 0, and from a pool, where the n_check steps' rows stand."""
+    pool_at = pool_record(pool, n_check)
     z = {n: torch.zeros_like(t) for n, t in init.items()}
     dev = next(iter(init.values())).device
     return {"p": init, "m": z, "v": {n: t.clone() for n, t in z.items()},
             "step": {g: torch.zeros((), dtype=torch.float32, device=dev)
                      for g in fam.step_groups(list(init))}, "b1": fam.BETA1,
-            "occ_grid": None, "gen_state": trainer.generator.get_state(), "step0": 0}
+            "occ_grid": None, "gen_state": trainer.generator.get_state(), "step0": 0, **pool_at}
 
 
-def program_phase(trainer, leaves, snap: dict, n: int, precrop: bool) -> dict:
+def ends(losses: List[float]) -> List[float]:
+    """The first loss and the last: what a pool phase reads."""
+    return losses[:1] + losses[1:][-1:]
+
+
+def program_phase(trainer, leaves, snap: dict, n: int, precrop: bool,
+                  pool: Optional[poolm.PoolCursor] = None) -> dict:
     """n steps through Trainer.run_steps, one a call; the losses, the first
     gradient's norm by leaf as the optimizer's first moment tells it, and
-    each leaf's change after the n."""
+    each leaf's change after the n. From a pool (no precrop): the first step
+    alone, then the other n - 1 in one call, so that the pool's device
+    offset advances inside a block as in the window; the losses are the
+    first step's and the last's."""
     spd = trainer.args.steps_per_dispatch
     opt = trainer.optimizer
     b1 = snap["b1"]
+    calls = [1] * n if pool is None else [1] + ([n - 1] if n > 1 else [])
     losses, grad = [], None
-    for k in range(n):
-        m = trainer.run_steps(1, block_size=spd, precrop=precrop)
+    for k, c in enumerate(calls):
+        if pool is None:
+            m = trainer.run_steps(c, block_size=spd, precrop=precrop)
+        else:
+            m = pool.run(c, spd)
         losses.append(float(m["loss"]))
         if k == 0:
             grad = _norms({name: (opt.state[p]["exp_avg"].double() - b1 * snap["m"][name].double())
@@ -162,8 +209,13 @@ def program_phase(trainer, leaves, snap: dict, n: int, precrop: bool) -> dict:
 
 
 def reference_phase(r, snap: dict, n: int, precrop: bool) -> dict:
-    """The reference's n steps from the snapshot, read as program_phase."""
+    """The reference's n steps from the snapshot, read as program_phase;
+    from a pool, on the rows its record names, made from the scene."""
     b1 = snap["b1"]
+    rows = None
+    if "pool" in snap:
+        rows = r.pool_rows(poolm.source_ids(snap["pool"], r.device))
+    N = r.s["N_rand"]
     p = {k: v.clone() for k, v in snap["p"].items()}
     st = {"m": {k: v.clone() for k, v in snap["m"].items()},
           "v": {k: v.clone() for k, v in snap["v"].items()},
@@ -172,13 +224,15 @@ def reference_phase(r, snap: dict, n: int, precrop: bool) -> dict:
     gen.set_state(snap["gen_state"])
     losses, grad = [], None
     for k in range(n):
-        loss, _ = r.train_steps(p, st, gen, snap["step0"] + k, 1, precrop, snap["occ_grid"])
+        step_rows = None if rows is None else {c: v[k * N:(k + 1) * N] for c, v in rows.items()}
+        loss, _ = r.train_steps(p, st, gen, snap["step0"] + k, 1, precrop, snap["occ_grid"],
+                                rows=step_rows)
         losses += loss
         if k == 0:
             grad = _norms({name: (st["m"][name].double() - b1 * snap["m"][name].double()) / (1 - b1)
                            for name in p})
     moved = _norms({name: p[name] - snap["p"][name] for name in p})
-    return {"losses": losses, "grad": grad, "moved": moved}
+    return {"losses": losses if rows is None else ends(losses), "grad": grad, "moved": moved}
 
 
 def worst_leaf_gap(got: Dict[str, float], want: Dict[str, float], names: List[str]) -> float:
@@ -282,14 +336,15 @@ def run_cell(cell: dict, cfg: dict, tr: dict, lim: dict, seed: int, seconds: flo
     faults = faults or {}
     s = cfg["settings"]
     kind = tr["kind"]
-    trainer, sc, init, fam = build(cfg, seed, device, base)
+    trainer, sc, init, fam, pool = build(cfg, seed, device, base)
     leaves = fam.program_leaves(trainer)
+    n_check = tr.get("check_steps", 3)
 
     # the start phase: three steps from the seed, as the window calls them
-    start_snap = initial_snapshot(trainer, init, fam)
-    start_prog = program_phase(trainer, leaves, start_snap, tr.get("check_steps", 3), precrop=True)
-    drive(trainer, tr["setup_steps"], s)
-    driver = trafficm.DRIVERS[kind](trainer, tr, s, sc, device)
+    start_snap = initial_snapshot(trainer, init, fam, pool, n_check)
+    start_prog = program_phase(trainer, leaves, start_snap, n_check, precrop=True, pool=pool)
+    drive(trainer, tr["setup_steps"], s, pool)
+    driver = trafficm.DRIVERS[kind](trainer, tr, s, sc, device, pool)
     driver.warm_up()
     if "program" in faults:
         faults["program"](trainer)
@@ -323,15 +378,15 @@ def run_cell(cell: dict, cfg: dict, tr: dict, lim: dict, seed: int, seconds: flo
     frames = win.pop("frames", None)
     trained_snap = trained_prog = None
     if kind == "train":
-        trained_snap = snapshot(trainer, leaves, fam)
-        trained_prog = program_phase(trainer, leaves, trained_snap, tr.get("check_steps", 3),
-                                     precrop=False)
+        trained_snap = snapshot(trainer, leaves, fam, pool, n_check)
+        trained_prog = program_phase(trainer, leaves, trained_snap, n_check, precrop=False,
+                                     pool=pool)
     enc = None
     g = fam.grid(s) if trace else None
     if g is not None:
         if kind == "train":
             enc = {"step": encode_bytes(g, record_encodes(trainer, lambda: trainer.step(
-                trainer.sample_batch(False))), sc["bbox"])}
+                trainer.sample_batch(False) if pool is None else pool.sample())), sc["bbox"])}
             if trainer.render_cfg.occupancy is not None:
                 enc["update"] = encode_bytes(g, record_encodes(trainer, trainer._update_grid),
                                              sc["bbox"])
@@ -339,7 +394,7 @@ def run_cell(cell: dict, cfg: dict, tr: dict, lim: dict, seed: int, seconds: flo
             enc = {"frame": encode_bytes(g, record_encodes(
                 trainer, lambda: trainer.render_image(sc["render_poses"][0])), sc["bbox"])}
     weights = {n: p.detach().clone() for n, p in leaves.items()}
-    del trainer, leaves, driver
+    del trainer, leaves, driver, pool
     gc.collect()
     if device.startswith("cuda"):
         torch.cuda.empty_cache()
@@ -348,10 +403,10 @@ def run_cell(cell: dict, cfg: dict, tr: dict, lim: dict, seed: int, seconds: flo
     t_check = time.perf_counter()
     r = fam.Reference(s, sc, device)
     numbers = phase_numbers("start", start_prog,
-                            reference_phase(r, start_snap, tr.get("check_steps", 3), precrop=True))
+                            reference_phase(r, start_snap, n_check, precrop=True))
     if kind == "train":
         numbers.update(phase_numbers("trained", trained_prog, reference_phase(
-            r, trained_snap, tr.get("check_steps", 3), precrop=False)))
+            r, trained_snap, n_check, precrop=False)))
     else:
         if "frames" in faults:
             faults["frames"](frames)

@@ -11,7 +11,8 @@ entropy sparsity term, block occupancy culling, the total-variation
 regularizers and RAdam. Every random number of a training step is drawn
 from a generator in the order the step draws them, so that a generator in
 the state the program's was in gives the reference the program's batch and
-jitter.
+jitter. A step that trains from a ray pool takes the pool's rows instead,
+made from the scene (`Reference.pool_rows`), and draws the rest.
 
 Every function takes plain tensors: the benchmark makes the weights from
 the seed and hands the same ones to both sides.
@@ -315,6 +316,16 @@ def composite(raw, z, rays_d, white_bkgd: bool):
     return rgb_map, weights, sparsity
 
 
+def pixel_rays(K: torch.Tensor, c2w: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor):
+    """Rays (rays_o, rays_d), each (N, 3), at pixels (ys, xs) of the camera
+    c2w (3, 4), or of each pixel's own camera (N, 3, 4): pinhole rays in
+    the blender convention, directions not normalized."""
+    dirs = torch.stack([(xs.float() - K[0, 2]) / K[0, 0], -(ys.float() - K[1, 2]) / K[1, 1],
+                        -torch.ones_like(xs, dtype=torch.float32)], -1)
+    rays_d = torch.sum(dirs[:, None, :] * c2w[..., :3, :3], -1)
+    return c2w[..., :3, -1].expand(rays_d.shape), rays_d
+
+
 def keep_k(n: int, kf: float) -> int:
     """A pass's global budget: int(n * kf) rounded up to 128, at most n."""
     return min(n, -(-int(n * kf) // 128) * 128)
@@ -452,17 +463,33 @@ class Reference:
         keys = torch.rand(nH * nW, generator=gen, device=dev)
         sel = torch.argsort(keys, stable=True)[:n]
         ys, xs = y0 + sel // nW, x0 + sel % nW
-        K, c2w = sc["K"], sc["poses"].index_select(0, pick)[0]
-        dirs = torch.stack([(xs.float() - K[0, 2]) / K[0, 0], -(ys.float() - K[1, 2]) / K[1, 1],
-                            -torch.ones_like(xs, dtype=torch.float32)], -1)
-        rays_d = torch.sum(dirs[:, None, :] * c2w[:3, :3], -1)
-        rays_o = c2w[:3, -1].expand(rays_d.shape)
+        rays_o, rays_d = pixel_rays(sc["K"], sc["poses"].index_select(0, pick)[0], ys, xs)
         target = sc["images"].reshape(-1, 3).index_select(0, (pick * H + ys) * W + xs)
         return rays_o, rays_d, rays_d / torch.linalg.norm(rays_d, dim=-1, keepdim=True), target
 
-    def loss(self, p, gen, precrop: bool, tv: bool, occ=None):
+    def pool_rows(self, ids: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """Rows ids of the ray pool the scene trains from, made from the
+        scene: its "pool" columns, or else pixel ids of its training views,
+        in image, row, column order, with each pixel's ray and colour (the
+        layout of the program's image pool)."""
+        sc = self.sc
+        if "pool" in sc:
+            return {name: col.index_select(0, ids) for name, col in sc["pool"].items()}
+        H, W = sc["images"].shape[1:3]
+        img, pix = ids // (H * W), ids % (H * W)
+        rays_o, rays_d = pixel_rays(sc["K"], sc["poses"].index_select(0, img), pix // W, pix % W)
+        return {"rays_o": rays_o, "rays_d": rays_d,
+                "target": sc["images"].reshape(-1, 3).index_select(0, ids)}
+
+    def loss(self, p, gen, precrop: bool, tv: bool, occ=None, rows=None):
+        """One step's loss; its batch is `rows` (rays_o, rays_d, target) where
+        given, else drawn from gen as the image sampler draws it."""
         s = self.s
-        rays_o, rays_d, viewdirs, target = self.batch(gen, precrop)
+        if rows is None:
+            rays_o, rays_d, viewdirs, target = self.batch(gen, precrop)
+        else:
+            rays_o, rays_d, target = rows["rays_o"], rows["rays_d"], rows["target"]
+            viewdirs = rays_d / torch.linalg.norm(rays_d, dim=-1, keepdim=True)
         rgb, rgb0, sp, sp0 = self.render_rays(p, rays_o, rays_d, viewdirs, gen, occ)
         use = slice(0, rays_o.shape[0] // 2) if self.half_batch else slice(None)
 
@@ -575,10 +602,13 @@ class Reference:
                     p[n].add_(delta * (-lr))
                 st["step"][gname] = step + 1.0
 
-    def train_steps(self, p, st, gen, step0: int, n: int, precrop: bool, occ_grid=None):
+    def train_steps(self, p, st, gen, step0: int, n: int, precrop: bool, occ_grid=None,
+                    rows: Optional[Dict[str, torch.Tensor]] = None):
         """n training steps from global step step0, in place on the weights
         p and the optimizer state st {"m", "v", "step": {"net", "table"}}.
-        Returns (losses, the gradients of the first step)."""
+        rows: the n x N_rand rows of a ray pool the steps take, in turn
+        (None: each step draws its batch from the images). Returns (losses,
+        the gradients of the first step)."""
         s = self.s
         losses, first = [], None
         for k in range(n):
@@ -587,8 +617,11 @@ class Reference:
             occ = None
             if occ_grid is not None:
                 occ = (occ_grid, keep_at(s, step), s["occ_keep_coarse"])
+            batch = None
+            if rows is not None:
+                batch = {c: v[k * s["N_rand"]:(k + 1) * s["N_rand"]] for c, v in rows.items()}
             leaves = {name: t.detach().requires_grad_(True) for name, t in p.items()}
-            loss = self.loss(leaves, gen, precrop, tv, occ)
+            loss = self.loss(leaves, gen, precrop, tv, occ, batch)
             grads = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
             grads = {name: (gr if gr is not None else torch.zeros_like(p[name]))
                      for name, gr in zip(leaves, grads)}

@@ -195,9 +195,9 @@ def run(cfg: dict, tr: dict, seed: int, device: str) -> dict:
 
     t0 = time.perf_counter()
     s = cfg["settings"]
-    trainer, sc, _, _ = harness.build(cfg, seed, device)
-    harness.drive(trainer, tr["setup_steps"], s)
-    driver = trafficm.DRIVERS[tr["kind"]](trainer, tr, s, sc, device)
+    trainer, sc, _, _, pool = harness.build(cfg, seed, device)
+    harness.drive(trainer, tr["setup_steps"], s, pool)
+    driver = trafficm.DRIVERS[tr["kind"]](trainer, tr, s, sc, device, pool)
     driver.warm_up()
     harness.sync(device)
     setup_s = time.perf_counter() - t0

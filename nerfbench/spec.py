@@ -12,15 +12,25 @@ folder, found by that name:
                             program's leaves, the optimizer's step groups
                             and beta1, the plain reference, the FLOP counts
                             and the encode's grid (family_of)
-    scenes/<kind>.py        make_scene(spec, device): the training views,
-                            render poses and the NDC flag of the scene
-                            (scene_of)
+    scenes/<kind>.py        make_scene(spec, device): the training views
+                            or a ray pool's columns, render poses and the
+                            NDC flag of the scene (scene_of)
     traffic/<traffic>.json  the mix's parameters, read by traffic.py
     metrics/<metric>.py     a per-layer metric's reader
     limits/<cell>.json      the limit of each number the cell compares
 
 A later change adds a part, a model family or a scene included, by adding
 its file and its entries.
+
+Training from a ray pool: a configuration whose argv leaves out
+--no_batching trains from a pool, as the port's train_loop and main_st3d
+do (pool.py): from the scene's "pool" columns where it gives them, else
+from every pixel of its "images"; a scene that gives neither is refused at
+build. Every span ends at the next i_print event or at the pool's end,
+where the pool is reshuffled; there is no precrop. The check hands the
+reference the rows its steps take (Reference.train_steps(..., rows=)),
+made from the scene by Reference.pool_rows. A configuration with
+--no_batching samples its images as the port's image sampler does.
 """
 from __future__ import annotations
 
@@ -94,19 +104,35 @@ def family_of(cfg: dict, base: str = HERE):
     """The module of families/<cfg["family"]>.py ("ngp" where the
     configuration names none). It gives BETA1, initial_weights(s, seed,
     device), program_leaves(trainer), step_groups(names),
-    Reference(s, scene, device, dtype=, half_batch=), grid(s) (the encode's
-    Grid, or None without a table), train_flops_per_step(s) and
-    render_flops_per_frame(s, H, W)."""
+    Reference(s, scene, device, dtype=, half_batch=) (its train_steps takes
+    rows=, a pool's rows, which its pool_rows(ids) makes from the scene),
+    grid(s) (the encode's Grid, or None without a table),
+    train_flops_per_step(s) and render_flops_per_frame(s, H, W)."""
     return _module("families", cfg.get("family", "ngp"), base, "model family")
 
 
 def scene_of(cfg: dict, base: str = HERE):
     """The module of scenes/<cfg["scene"]["kind"]>.py ("ring" where the
-    configuration names none): make_scene(spec, device), whose dict may set
-    "ndc", which the port's Scene takes. The ngp family's reference has no
-    NDC path, so a scene that sets it needs a family whose reference has
-    one. The depth spacing (lindisp) is the configuration's setting, not
-    the scene's."""
+    configuration names none): make_scene(spec, device) returns a dict,
+    tensors on the device, with "H", "W", "near", "far", "bbox" (2, 3) and
+    either
+
+      * "images" (N, H, W, 3), "poses" (N, 3, 4), "K" (3, 3), "K_np",
+        "focal" and "render_poses" (M, 4, 4): the training views, sampled
+        under --no_batching, or as an image pool (every pixel a row, in
+        image, row, column order) without it; or
+      * "pool": a ray pool's columns, named as the port's
+        train/driver.py::POOL_COLUMNS names them: "rays_o", "rays_d",
+        "target" (each (R, 3)) and optionally "target_depth" (R,) and
+        "target_grad" (R, 3), one ray a row; the configuration trains from
+        them (no --no_batching) on an image-less Scene, the depth and
+        gradient columns only where its argv sets --use_depth and
+        --use_gradient, as main_st3d passes them.
+
+    It may set "ndc", which the port's Scene takes. The ngp family's
+    reference has no NDC path, so a scene that sets it needs a family whose
+    reference has one. The depth spacing (lindisp) is the configuration's
+    setting, not the scene's."""
     return _module("scenes", cfg["scene"].get("kind", "ring"), base, "scene kind")
 
 

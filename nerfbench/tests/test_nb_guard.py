@@ -32,7 +32,7 @@ def test_the_port_passes_and_a_planted_jax_package_import_fails():
 
 
 def test_the_yardstick_imports_nothing_of_the_port():
-    r = _run("import sys\nimport nerfbench.reference, nerfbench.counts, "
+    r = _run("import sys\nimport nerfbench.reference, nerfbench.counts, nerfbench.pool, "
              "nerfbench.trace, nerfbench.traffic, nerfbench.spec\n"
              "print(sorted(m for m in sys.modules if m.split('.')[0] in "
              "('hashnerf_torch', 'hashnerf_tpu', 'jax')))")

@@ -6,6 +6,7 @@ import copy
 import json
 import math
 import os
+import shutil
 
 import pytest
 import torch
@@ -79,7 +80,9 @@ def test_benchmark_entries_have_their_files():
 
 
 def test_new_parts_are_picked_up_from_new_files(tmp_path):
-    """A new configuration, mix, metric and cell: files and entries only."""
+    """A new configuration, mix, metric and cell: files and entries only;
+    then a new scene kind that gives a ray pool, and a configuration that
+    trains from it: a file and entries only."""
     base = write_tree(str(tmp_path), {}, {}, {})
     cfg = tiny_config("chair")
     cfg["name"] = "chair_l8"
@@ -108,6 +111,23 @@ def test_new_parts_are_picked_up_from_new_files(tmp_path):
                    cfg=spec.config("chair_l8", base), tr=spec.traffic("steady_12", base))
     assert out["correct"]
     assert out["metrics"]["steps_traced"]["value"] == 4.0  # one traced span of i_print 4
+
+    shutil.copy(os.path.join(os.path.dirname(__file__), "ring_pool_scene.py"),
+                os.path.join(base, "scenes", "panorama.py"))
+    cfg = tiny_config("chair")
+    cfg["name"] = "chair_pano"
+    cfg["argv"] = [a for a in cfg["argv"] if a != "--no_batching"]
+    cfg["scene"] = dict(cfg["scene"], kind="panorama")
+    write_tree(base, {"chair_pano": cfg}, {}, {"chair_pano.steady": spec.limits("chair.train")})
+    bench["workloads"].append({"name": "chair_pano.steady", "config": "chair_pano",
+                               "traffic": "steady_12", "chips": 1, "why": "test"})
+    for m in bench["end_to_end"] + bench["per_layer"]:
+        if "chair.train" in m.get("workloads", []):
+            m["workloads"].append("chair_pano.steady")
+    out = run_tiny("chair_pano.steady", base=base, bench=bench,
+                   cfg=spec.config("chair_pano", base), tr=spec.traffic("steady_12", base))
+    check_line(out, bench, "chair_pano.steady", trace=False)
+    assert out["correct"], out["compared"]
 
 
 TRAIN = [c for c in CELLS if spec.traffic(spec.workload(BENCH, c)["traffic"])["kind"] == "train"]

@@ -14,7 +14,7 @@ SEED = 2**32 + 77
 @pytest.mark.parametrize("name", ["chair", "flagship"])
 def test_one_step_and_one_render(name):
     cfg = tiny_config(name)
-    trainer, sc, init, fam = harness.build(cfg, SEED, "cpu")
+    trainer, sc, init, fam, _ = harness.build(cfg, SEED, "cpu")
     r = fam.Reference(cfg["settings"], sc, "cpu")
     gen = torch.Generator()
     gen.set_state(trainer.generator.get_state())

@@ -4,7 +4,10 @@ data file parameterizes (traffic/<name>.json, `kind` picks the driver).
   * "train": train_loop's steady state under --steps_per_dispatch. Each
     span runs to the next `i_print` event in one Trainer.run_steps call
     (blocks of steps_per_dispatch steps, replayed CUDA graphs), and is
-    closed by the loop's host read of the loss. No checkpoint, video or
+    closed by the loop's host read of the loss. A configuration that
+    trains from a ray pool (pool.py) ends a span also at the pool's end,
+    with no read there, and reshuffles the pool before the next; the
+    window's last span is read wherever it ends. No checkpoint, video or
     test-set event. Parameters: setup_steps (the global step the window
     starts at, a multiple of i_print), trace_warm / trace_units (spans of
     a traced run's untraced and traced slices), check_steps.
@@ -44,9 +47,16 @@ def percentile(times: List[float], q: float) -> float:
     return t[max(0, math.ceil(q / 100.0 * len(t)) - 1)]
 
 
+def _read_loss(m: dict) -> bool:
+    """The loop's host read of a span's last loss: whether it is finite."""
+    with record_function("nb.loss_read"):
+        return math.isfinite(float(m["loss"]))
+
+
 class TrainDriver:
-    def __init__(self, trainer, tr: dict, s: dict, sc: dict, device: str):
-        self.trainer, self.tr, self.s, self.device = trainer, tr, s, device
+    def __init__(self, trainer, tr: dict, s: dict, sc: dict, device: str, pool=None):
+        """pool: the pool.PoolCursor the configuration trains from, or None."""
+        self.trainer, self.tr, self.s, self.device, self.pool = trainer, tr, s, device, pool
         if tr["setup_steps"] % s["i_print"] or tr["setup_steps"] < s["precrop_iters"]:
             raise ValueError("nerfbench: a train mix starts past the precrop, on an i_print event")
 
@@ -54,35 +64,45 @@ class TrainDriver:
         """Set-up trained through the window's own span, blocks and graphs."""
 
     def window(self, seconds: Optional[float] = None, units: Optional[int] = None) -> dict:
-        t, s = self.trainer, self.s
-        steps = failed = spans = 0
+        t, s, pool = self.trainer, self.s, self.pool
+        steps = failed = spans = unread = 0
         enqueue = 0.0
         ends = []
         t0 = time.perf_counter()
         while True:
             i = t.global_step + 1
-            e = ((i - 1) // s["i_print"] + 1) * s["i_print"]
+            if pool is None:
+                e = ((i - 1) // s["i_print"] + 1) * s["i_print"]
+            else:
+                e = pool.span_end(i, s["i_print"])
             ts = time.perf_counter()
             with record_function("nb.block_replay"):
-                m = t.run_steps(e - i + 1, block_size=s["steps_per_dispatch"])
+                if pool is None:
+                    m = t.run_steps(e - i + 1, block_size=s["steps_per_dispatch"])
+                else:
+                    m = pool.run(e - i + 1, s["steps_per_dispatch"])
             enqueue += time.perf_counter() - ts
-            with record_function("nb.loss_read"):
-                loss = float(m["loss"])
+            unread += e - i + 1
+            if e % s["i_print"] == 0:
+                if not _read_loss(m):
+                    failed += unread
+                unread = 0
             steps += e - i + 1
             spans += 1
             ends.append((time.perf_counter() - t0, steps))
-            if not math.isfinite(loss):
-                failed += e - i + 1
             if (units is not None and spans >= units) or (
                     seconds is not None and time.perf_counter() - t0 >= seconds):
                 break
+        if unread and not _read_loss(m):
+            failed += unread
         _sync(self.device)
         return {"units": steps, "failed": failed, "seconds": time.perf_counter() - t0,
                 "enqueue_s": enqueue, "ends": ends}
 
 
 class RenderDriver:
-    def __init__(self, trainer, tr: dict, s: dict, sc: dict, device: str):
+    def __init__(self, trainer, tr: dict, s: dict, sc: dict, device: str, pool=None):
+        """pool: the ray pool set-up trained from; frames take none."""
         self.trainer = trainer
         self.poses = sc["render_poses"]
         self.k = 0
